@@ -1,0 +1,343 @@
+"""Query orchestration on PyTorch: interval store -> device tensors ->
+conservation/membership.
+
+Counterpart of :mod:`memo_tpu.query.engine`, with the same contracts:
+
+1. host-side binary search for the candidate row ranges of a window,
+2. a device step per (window, interval bucket): the fused CUDA kernel over
+   the two sorted event streams (backend ``fused``), or the diff-array tensor
+   ops (backend ``torch``); ``numpy`` runs on the host,
+3. bit-exact text output (:mod:`memo_tpu.query.output`, reused as it is).
+
+Large windows run in position chunks and oversized candidate sets halve the
+chunk, down to interval pieces combined with an elementwise minimum; dense
+stores split into length buckets (the proofs are in the JAX engine's
+docstrings and in memo_tpu/ops/query_ops.py). PyTorch runs eagerly, so the
+pow2 candidate bucket M only bounds the working set of one step.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from memo_tpu.index.store import IntervalStore
+from memo_tpu.query.engine import QueryStats, _next_pow2, parse_region
+from memo_tpu_torch.ops import query_ops as Q
+from memo_tpu_torch.ops.fused_query import fused_query, kernel_constants, prepare_streams
+from memo_tpu_torch.utils.device import resolve_device
+
+BACKENDS = ("fused", "torch", "numpy")
+
+
+class PlacedStore(NamedTuple):
+    """The store on the device: int32 rows in start order and in end order,
+    each followed by sentinel pad rows (order -1, never live)."""
+
+    start: torch.Tensor
+    end: torch.Tensor
+    order: torch.Tensor
+    end_s: torch.Tensor
+    start_by_end: torch.Tensor
+    order_by_end: torch.Tensor
+
+
+def place_store(store: IntervalStore, device, pad: int) -> PlacedStore:
+    """Copy an IntervalStore and its QueryLayout to ``device`` as six int32
+    tensors with ``pad`` sentinel rows each, so that a slice of up to ``pad``
+    rows from any row of the store stays inside the tensor."""
+    lay = store.query_layout()
+
+    def dev(a: np.ndarray, fill: int) -> torch.Tensor:
+        out = torch.full((a.shape[0] + pad,), fill, dtype=torch.int32, device=device)
+        out[: a.shape[0]] = torch.from_numpy(a.astype(np.int32))
+        return out
+
+    return PlacedStore(
+        dev(store.start, 0),
+        dev(store.end, 0),
+        dev(store.order, -1),
+        dev(lay.end_sorted, 0),
+        dev(lay.start_by_end, 0),
+        dev(lay.order_by_end, -1),
+    )
+
+
+class QueryEngine:
+    """Arbitrary-k membership/conservation queries over an IntervalStore.
+
+    backend:
+      - "fused": the hand-written CUDA kernel (plain PyTorch on the CPU)
+      - "torch": diff-array tensor ops on ``device``
+      - "numpy": host fallback / cross-check
+      - "auto": "fused"
+
+    ``device`` is "cuda" or "cpu"; "cuda" raises where no GPU exists.
+    ``device_output=True`` returns tensors on the device instead of numpy
+    arrays.
+    """
+
+    def __init__(
+        self,
+        store: IntervalStore,
+        backend: str = "auto",
+        device="cuda",
+        chunk_positions: int | None = None,
+        max_intervals_per_chunk: int | None = None,
+        device_output: bool = False,
+        stratify: bool | str = "auto",
+    ):
+        if store.kind not in ("conservation", "membership"):
+            raise ValueError(f"bad store kind {store.kind!r}")
+        if backend == "auto":
+            backend = "fused"
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}")
+        self.store = store
+        self.backend = backend
+        self.device = resolve_device(device)
+        # Large position chunks and interval buckets amortise per-step
+        # overhead on the GPU; the CPU keeps small shapes for the tests.
+        on_gpu = backend != "numpy" and self.device.type == "cuda"
+        if chunk_positions is None:
+            chunk_positions = (1 << 21) if on_gpu else (1 << 17)
+        if max_intervals_per_chunk is None:
+            max_intervals_per_chunk = (1 << 25) if on_gpu else (1 << 22)
+        self.chunk_positions = int(chunk_positions)
+        self.max_intervals = int(max_intervals_per_chunk)
+        self.device_output = bool(device_output) and backend != "numpy"
+        self.n_docs = store.n_docs
+        self.last_stats = QueryStats()
+
+        # Length stratification, with the JAX engine's gate (memo_tpu
+        # engine.py:141-146) so both packages dispatch the same pieces: an
+        # interval only marks when len < k-1, so a mostly-long store splits
+        # into length buckets and a query skips buckets that cannot mark.
+        self._children: list[tuple[int, QueryEngine]] | None = None
+        if stratify == "auto":
+            stratify = (
+                backend in ("torch", "fused")
+                and store.num_intervals >= (1 << 20)
+                and float(np.mean((store.end - store.start) < 30)) < 0.5
+            )
+        if stratify and backend in ("torch", "fused"):
+            self._init_stratified(store)
+            return
+        if backend != "numpy":
+            pad = min(self.max_intervals, _next_pow2(max(store.num_intervals, 1)))
+            self._d = place_store(store, self.device, pad)
+            self._layout = store.query_layout()
+
+    # Upper length bounds (exclusive) of the buckets: at k=31 only bucket 0
+    # can mark (memo_tpu engine.py:187-191).
+    STRATA_EDGES = (32, 128, 512, 2048)
+
+    def _init_stratified(self, store: IntervalStore) -> None:
+        ln = np.asarray(store.end - store.start)
+        b_id = np.searchsorted(np.asarray(self.STRATA_EDGES, np.int64), ln, side="right")
+        children: list[tuple[int, QueryEngine]] = []
+        for b in range(len(self.STRATA_EDGES) + 1):
+            rows = np.flatnonzero(b_id == b)
+            if rows.size == 0:
+                continue
+            sub = IntervalStore(
+                record_names=store.record_names,
+                record_lens=store.record_lens,
+                n_docs=store.n_docs,
+                kind=store.kind,
+                rec_id=store.rec_id[rows],  # stable subset: (rec, start) order kept
+                start=store.start[rows],
+                end=store.end[rows],
+                order=store.order[rows],
+            )
+            lb = 0 if b == 0 else self.STRATA_EDGES[b - 1]
+            child = QueryEngine(
+                sub,
+                backend=self.backend,
+                device=self.device,
+                chunk_positions=self.chunk_positions,
+                max_intervals_per_chunk=self.max_intervals,
+                device_output=True,
+                stratify=False,
+            )
+            children.append((lb, child))
+        self._children = children
+
+    def _query_stratified(self, record, qs, qe, k, membership):
+        """Union of per-bucket marks == elementwise MIN of per-bucket outputs;
+        buckets whose minimum length >= k-1 hold no live interval."""
+        L = qe - qs
+        n = self.n_docs
+        stats = QueryStats(positions=L)
+        acc = None
+        for lb, child in self._children:
+            if lb >= k - 1:
+                continue
+            out = child._query(record, qs, qe, k, membership)
+            stats.candidate_intervals += child.last_stats.candidate_intervals
+            stats.chunks += child.last_stats.chunks
+            acc = out if acc is None else torch.minimum(acc, out)
+        self.last_stats = stats
+        if acc is None:  # k too small for any stored interval: nothing marks
+            if membership:
+                acc = torch.ones((L, n), dtype=torch.int8, device=self.device)
+            else:
+                acc = torch.full((L,), n, dtype=torch.int32, device=self.device)
+        return acc if self.device_output else acc.cpu().numpy()
+
+    # ------------------------------------------------------------------ public
+    def conservation(self, record: str, qs: int, qe: int, k: int):
+        """int array [qe-qs] of per-position conservation values in [0, n]."""
+        return self._query(record, qs, qe, k, membership=False)
+
+    def membership(self, record: str, qs: int, qe: int, k: int):
+        """int8 array [qe-qs, n] presence/absence matrix (col 0 = pivot = 1)."""
+        return self._query(record, qs, qe, k, membership=True)
+
+    def query_region(self, region: str, k: int, membership: bool = False):
+        record, qs, qe = parse_region(region)
+        return self._query(record, qs, qe, k, membership=membership)
+
+    # ----------------------------------------------------------------- internals
+    def _window_params(self, record: str, qs: int, qe: int, k: int):
+        """Host-side kernel parameters of one window: the candidate rows
+        [mlo, mhi) of the start-order stream and [plo, phi) of the end-order
+        stream, and the coverage entering position 0 (int64[C])."""
+        st = self.store
+        lay = self._layout
+        r = st.record_index(record)
+        rec_lo, rec_hi = int(st.rec_offsets[r]), int(st.rec_offsets[r + 1])
+        seg_s = st.start[rec_lo:rec_hi]
+        seg_e = lay.end_sorted[rec_lo:rec_hi]
+        mlo = rec_lo + int(np.searchsorted(seg_s, qs, side="right"))
+        mhi = rec_lo + int(np.searchsorted(seg_s, qe, side="left"))
+        plo = rec_lo + int(np.searchsorted(seg_e, qs + k - 1, side="right"))
+        phi = rec_lo + int(np.searchsorted(seg_e, qe + k - 1, side="left"))
+        return mlo, mhi, plo, phi, lay.prefix_counts(st, r, qs, k)
+
+    def _query(self, record: str, qs: int, qe: int, k: int, membership: bool):
+        if qe < qs:
+            raise ValueError(f"empty/negative region {record}:{qs}-{qe}")
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        if self._children is not None:
+            return self._query_stratified(record, qs, qe, k, membership)
+        n = self.n_docs
+        stats = QueryStats(positions=qe - qs)
+        outputs = []
+        for c_qs in range(qs, qe, self.chunk_positions):
+            c_qe = min(c_qs + self.chunk_positions, qe)
+            outputs.append(self._query_chunk(record, c_qs, c_qe, k, membership, stats))
+            stats.chunks += 1
+        self.last_stats = stats
+        if self.device_output:
+            if not outputs:
+                if membership:
+                    return torch.zeros((0, n), dtype=torch.int8, device=self.device)
+                return torch.zeros(0, dtype=torch.int32, device=self.device)
+            return torch.cat(outputs) if len(outputs) > 1 else outputs[0]
+        if membership:
+            return np.concatenate(outputs, axis=0) if outputs else np.zeros((0, n), np.int8)
+        return np.concatenate(outputs) if outputs else np.zeros(0, np.int64)
+
+    def _finish(self, out: torch.Tensor):
+        return out if self.device_output else out.cpu().numpy()
+
+    def _cat(self, left, right):
+        if self.device_output:
+            return torch.cat([left, right])
+        return np.concatenate([left, right], axis=0)
+
+    def _query_chunk(self, record, qs, qe, k, membership, stats: QueryStats):
+        if self.backend == "fused":
+            return self._query_chunk_fused(record, qs, qe, k, membership, stats)
+        lo, hi = self.store.window_bounds(record, qs, qe, k)
+        count = hi - lo
+        L = qe - qs
+        n = self.n_docs
+
+        if self.backend == "numpy":
+            stats.candidate_intervals += count
+            s = self.store.start[lo:hi]
+            e = self.store.end[lo:hi]
+            o = self.store.order[lo:hi]
+            marks = Q.coverage_marks_np(s, e, o, qs, k, L, n)
+            return Q.membership_np(marks) if membership else Q.conservation_np(marks, n)
+
+        M = min(_next_pow2(max(count, 1)), self.max_intervals)
+        if count > M:
+            # More candidates than the bucket cap: halve the position chunk
+            # (exact), down to interval pieces at a single position.
+            mid = (qs + qe) // 2
+            if mid == qs:
+                return self._query_interval_pieces(record, qs, qe, k, membership, lo, hi, stats)
+            left = self._query_chunk(record, qs, mid, k, membership, stats)
+            right = self._query_chunk(record, mid, qe, k, membership, stats)
+            return self._cat(left, right)
+        stats.candidate_intervals += count
+        return self._run_device_range(record, qs, k, membership, lo, M, L)
+
+    def _run_device_range(self, record, qs, k, membership, lo, M, L):
+        r = self.store.record_index(record)
+        rec_end = int(self.store.rec_offsets[r + 1])
+        return self._finish(
+            _device_query(self._d, lo, rec_end, qs, k, M, L, self.n_docs, membership)
+        )
+
+    def _query_interval_pieces(self, record, qs, qe, k, membership, lo, hi, stats: QueryStats):
+        """More covering intervals at one position than the bucket cap:
+        coverage is additive over interval subsets, so marks are a union and
+        per-piece outputs combine with an elementwise minimum."""
+        L = qe - qs
+        M = self.max_intervals
+        acc = None
+        for piece_lo in range(lo, hi, M):
+            stats.candidate_intervals += min(piece_lo + M, hi) - piece_lo
+            stats.chunks += 1
+            out = self._run_device_range(record, qs, k, membership, piece_lo, M, L)
+            if acc is None:
+                acc = out
+            elif self.device_output:
+                acc = torch.minimum(acc, out)
+            else:
+                acc = np.minimum(acc, out)
+        return acc
+
+    def _query_chunk_fused(self, record, qs, qe, k, membership, stats: QueryStats):
+        """Fused-kernel chunk: exact in-window event ranges from the two
+        sorted streams plus the host prefix counts."""
+        L = qe - qs
+        n = self.n_docs
+        mlo, mhi, plo, phi, prefix = self._window_params(record, qs, qe, k)
+        count = max(mhi - mlo, phi - plo)
+        M = min(_next_pow2(max(count, 1)), self.max_intervals)
+        if count > M:
+            mid = (qs + qe) // 2
+            if mid == qs:
+                # The two event streams do not split by interval subset, so a
+                # single position over the cap goes through the diff-array ops.
+                lo, hi = self.store.window_bounds(record, qs, qe, k)
+                return self._query_interval_pieces(record, qs, qe, k, membership, lo, hi, stats)
+            left = self._query_chunk_fused(record, qs, mid, k, membership, stats)
+            right = self._query_chunk_fused(record, mid, qe, k, membership, stats)
+            return self._cat(left, right)
+        stats.candidate_intervals += count
+        streams = prepare_streams(
+            *self._d, mlo, mhi, plo, phi, qs, k, M=M, L=L, C=n, tile=kernel_constants(n)
+        )
+        prefix_t = torch.from_numpy(prefix.astype(np.int32)).to(self.device)
+        return self._finish(fused_query(streams, prefix_t, n_docs=n, membership=membership))
+
+
+def _device_query(d: PlacedStore, lo, rec_end, qs, k, M, L, n, membership):
+    """Diff-array query of M store rows from ``lo`` (memo_tpu engine
+    ``_device_query_fn``). Rows past the record's end belong to another
+    record's coordinates and are dropped."""
+    s = d.start[lo : lo + M]
+    e = d.end[lo : lo + M]
+    idx = lo + torch.arange(s.numel(), dtype=torch.int64, device=s.device)
+    o = torch.where(idx < rec_end, d.order[lo : lo + M], -1)
+    marks = Q.coverage_marks(s, e, o, qs, k, L=L, C=n)
+    return Q.membership_from_marks(marks) if membership else Q.conservation_from_marks(marks, n)
