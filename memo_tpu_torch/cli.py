@@ -1,10 +1,10 @@
 """memo-tpu-torch CLI: ``python -m memo_tpu_torch {index, query, view, extract}``.
 
 ``index``, ``view`` and ``extract`` are memo_tpu's own commands (host only).
-``query -r`` takes memo_tpu's flags and runs on this package's engine, with
-``--device {cuda,cpu}`` (default cuda; no GPU is an error) and
-``--backend {auto,fused,torch,numpy}``. Outputs are byte-identical to
-``python -m memo_tpu query``.
+``query`` (``-r`` or ``--regions-file``) takes memo_tpu's flags and runs on
+this package's engine, with ``--device {cuda,cpu}`` (default cuda; no GPU is
+an error) and ``--backend {auto,fused,torch,numpy}``. Outputs are
+byte-identical to ``python -m memo_tpu query``.
 """
 
 from __future__ import annotations
@@ -12,8 +12,14 @@ from __future__ import annotations
 import argparse
 import sys
 
+import numpy as np
+import torch
+
 from memo_tpu import cli as ref_cli
+from memo_tpu.utils.logging import get_logger
 from memo_tpu_torch.utils.profiling import trace_context
+
+log = get_logger(f"memo_tpu.{__name__}")
 
 
 def _add_query(sub: argparse._SubParsersAction) -> None:
@@ -36,7 +42,31 @@ def _add_query(sub: argparse._SubParsersAction) -> None:
         default=None,
         help="query region (0-indexed, half open '[)' coordinates) chr:start-end",
     )
-    p.add_argument("--regions-file", default=None, help="batch mode (not yet ported; raises)")
+    p.add_argument(
+        "--regions-file",
+        default=None,
+        help="batch mode: file with one region per line; outputs are written "
+        "to <out>.<chr>_<start>_<end>.txt",
+    )
+    p.add_argument(
+        "--mesh",
+        default=None,
+        metavar="DP,SP",
+        help="device layout for --regions-file: data-parallel x position-parallel "
+        "sizes; only 1,1 (one device) is ported [1,1]",
+    )
+    p.add_argument(
+        "--strategy",
+        default="auto",
+        choices=("auto", "position", "interval", "resident", "batched"),
+        help="--regions-file strategy: 'position'/'interval' gather "
+        "per-window candidates host-side; 'resident' places the index ONCE "
+        "in device memory and serves every window from whole-record "
+        "outputs; 'batched' serves all of a record's windows with one "
+        "launch of each fused-kernel pass. 'auto' picks resident for "
+        "dense/many-window batches, batched for scattered windows on a CUDA "
+        "device, else position [auto]",
+    )
     p.add_argument("-o", dest="out_file", required=True, help="output file")
     p.add_argument(
         "-m",
@@ -87,6 +117,71 @@ def cmd_index(args) -> int:
         return ref_cli.cmd_index(args)
 
 
+def pick_batch_strategy(store, regions, device) -> str:
+    """Resolve ``--strategy auto`` for a regions batch with memo_tpu's rules
+    (memo_tpu/cli.py:256-287): resident when the windows cover at least 1/16
+    of the records they touch or there are at least 8 windows per record
+    (one whole-record dispatch serves them all); else, for scattered small
+    windows, batched where memo_tpu sees a single TPU, which here reads "the
+    query device is CUDA"; else position."""
+    by_record: dict[str, int] = {}
+    for record, qs, qe in regions:
+        by_record[record] = by_record.get(record, 0) + max(qe - qs, 0)
+    queried = sum(by_record.values())
+    touched = sum(int(store.record_lens[store.record_index(r)]) for r in by_record)
+    if queried * 16 >= touched or len(regions) >= 8 * len(by_record):
+        return "resident"
+    if torch.device(device).type == "cuda":
+        return "batched"
+    return "position"
+
+
+def _query_regions(args, device) -> int:
+    from memo_tpu.query.output import write_conservation, write_membership
+    from memo_tpu_torch.parallel import ResidentShardedQuery, ShardedQuery, check_layout
+    from memo_tpu_torch.query.engine import QueryEngine, parse_region
+
+    with open(args.regions_file) as fh:
+        regions = [parse_region(line.strip()) for line in fh if line.strip()]
+    try:
+        mesh = check_layout(args.mesh.split(",")) if args.mesh else (1, 1)
+    except ValueError as err:
+        raise SystemExit(f"--mesh {args.mesh}: {err}") from None
+    store = ref_cli.load_store(args.index, args.num_docs, args.membership, force=args.force)
+    strategy = args.strategy
+    if strategy == "auto":
+        strategy = pick_batch_strategy(store, regions, device)
+        log.info("--strategy auto resolved to %r", strategy)
+    with trace_context(args.profile):
+        if strategy == "resident":
+            # One placement serves every queried record, and all windows of a
+            # (record, k) are slices of one whole-record dispatch.
+            uniq = list(dict.fromkeys(record for record, _, _ in regions))
+            placement = {"record": uniq[0]} if len(uniq) == 1 else {"records": uniq}
+            rq = ResidentShardedQuery(store, device, k_max=max(args.k, 1024), **placement)
+            fn = rq.membership if args.membership else rq.conservation
+            results = [fn(qs, qe, args.k, record=record) for record, qs, qe in regions]
+        elif strategy == "batched":
+            engine = QueryEngine(store, backend=args.backend, device=device)
+            fn = engine.membership_batch if args.membership else engine.conservation_batch
+            by_rec: dict[str, list[tuple[int, int]]] = {}
+            for record, qs, qe in regions:
+                by_rec.setdefault(record, []).append((qs, qe))
+            outs = {}
+            for record, wins in by_rec.items():
+                for (qs, qe), o in zip(wins, fn(record, wins, args.k)):
+                    outs[(record, qs, qe)] = o
+            results = [outs[key] for key in regions]
+        else:
+            sq = ShardedQuery(store, device, strategy=strategy)
+            results = (sq.membership if args.membership else sq.conservation)(regions, args.k)
+    write = write_membership if args.membership else write_conservation
+    for (record, qs, qe), res in zip(regions, results):
+        write(np.asarray(res), f"{args.out_file}.{record}_{qs}_{qe}.txt")
+    log.info("wrote %d region outputs (mesh=%s)", len(regions), {"dp": mesh[0], "sp": mesh[1]})
+    return 0
+
+
 def cmd_query(args) -> int:
     from memo_tpu.query.output import write_conservation, write_membership
     from memo_tpu_torch.query.engine import QueryEngine, parse_region
@@ -94,12 +189,9 @@ def cmd_query(args) -> int:
 
     if (args.region is None) == (args.regions_file is None):
         raise SystemExit("exactly one of -r or --regions-file is required")
-    if args.regions_file:
-        raise SystemExit(
-            "--regions-file is not yet ported to memo_tpu_torch "
-            "(ROADMAP.md queue 1, remaining item 7: --regions-file)"
-        )
     device = resolve_device(args.device)
+    if args.regions_file:
+        return _query_regions(args, device)
     store = ref_cli.load_store(args.index, args.num_docs, args.membership, force=args.force)
     engine = QueryEngine(store, backend=args.backend, device=device)
     record, qs, qe = parse_region(args.region)

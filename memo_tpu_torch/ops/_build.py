@@ -1,8 +1,9 @@
 """Build the package's CUDA kernels with nvcc on first use and load them.
 
 The sources in ``memo_tpu_torch/csrc`` have a plain C interface: nvcc
-compiles them into one shared library (no PyTorch headers, so the build takes
-seconds), which is loaded with ctypes. The library lands in
+compiles each ``.cu`` file to an object, all of them at once in parallel (no
+PyTorch headers, so each takes seconds), and links them into one shared
+library, which is loaded with ctypes. The library lands in
 ``memo_tpu_torch/build/<hash>/``, keyed by a hash of the sources and flags, so
 an edited source builds anew and an unchanged one is reused.
 """
@@ -23,7 +24,7 @@ BUILD_DIR = _PKG / "build"
 LIB_NAME = "libmemo_tpu_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills of each kernel, kept in build.log
 )
 
@@ -57,15 +58,28 @@ def build_library() -> pathlib.Path:
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in _sources() if s.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n{proc.stderr}"
-        )
-    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
+    cu = [s for s in _sources() if s.suffix == ".cu"]
+    objects = [out_dir / f"{s.stem}.{os.getpid()}.o" for s in cu]
+    log = _run_together(
+        [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(s)] for s, obj in zip(cu, objects)]
+    )
+    log += _run_together([[nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objects)]])
+    (out_dir / "build.log").write_text(log)
+    for obj in objects:
+        obj.unlink()
     os.replace(tmp, lib)  # atomic: a concurrent loader sees the old state or the whole file
     return lib
+
+
+def _run_together(cmds: list[list[str]]) -> str:
+    """Start every command at once and wait for all; raise with nvcc's
+    stderr if any failed. Returns their combined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, proc, (_, err) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n{err}")
+    return "".join(out + err for out, err in outs)
 
 
 @functools.lru_cache(maxsize=1)
@@ -73,8 +87,11 @@ def load_library() -> ctypes.CDLL:
     """The kernel library with its C signatures declared (built if needed)."""
     lib = ctypes.CDLL(str(build_library()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.memo_fused_query.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
-    lib.memo_fused_query.restype = i32
+    # Both kernels: 6 stream pointers, prefix, two scratch pointers, out;
+    # Q, m_stride, p_stride, L, C, tile, n_docs, membership; the stream.
+    for fn in (lib.memo_fused_query, lib.memo_fused_query_v2):
+        fn.argtypes = [ptr] * 10 + [i32] * 8 + [ptr]
+        fn.restype = i32
     lib.memo_cuda_error_string.argtypes = [i32]
     lib.memo_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,4 +1,4 @@
-"""Fused single-window query: event streams in, conservation/membership out.
+"""Fused query: event streams in, conservation/membership out.
 
 Counterpart of :mod:`memo_tpu.ops.pallas_query` (its docstring derives the
 method). The store keeps its rows sorted by start and, through a permutation,
@@ -11,15 +11,19 @@ both orders, so every (qs, k) query reads two already-sorted event streams:
 Events left of the window enter as the host-computed ``prefix`` (coverage at
 position 0, ``QueryLayout.prefix_counts``); events right of it never matter.
 
-:func:`prepare_streams` builds the streams on the device; :func:`fused_query`
-runs the hand-written CUDA kernel (``csrc/fused_query.cu``) on them, and
-:func:`fused_query_reference` is its plain PyTorch version.
+:func:`prepare_streams` builds the streams on the device, for one window or
+for a batch of windows that all run at the batch's longest length;
+:func:`fused_query` runs the hand-written CUDA kernel (``csrc/fused_query.cu``)
+on them, one launch of each pass for the whole batch, and
+:func:`fused_query_reference` is its plain PyTorch version. The v2 kernel
+(:mod:`memo_tpu_torch.ops.fused_query_v2`) reads the same streams.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from memo_tpu_torch.ops import query_ops as Q
@@ -27,6 +31,8 @@ from memo_tpu_torch.ops import query_ops as Q
 SEG = 16  # positions per scan segment of the kernel's apply pass (kSeg)
 TILES = (256, 128, 64)  # position tiles the kernel is built for, widest first
 MAX_SMEM_BYTES = 232_448  # dynamic shared memory one Hopper block may use
+MAX_WINDOWS = 65_535  # the kernels put the window on grid axis y
+CPU = torch.device("cpu")
 
 
 def kernel_constants(C: int) -> int:
@@ -40,9 +46,10 @@ def kernel_constants(C: int) -> int:
 
 
 class Streams(NamedTuple):
-    """The two sorted event streams of one window. ``pos_*`` are window
-    positions (dead rows parked at ``L_pad = round_up(L, tile)``), ``val_*`` are
-    column+1 (0 = inert event), ``off_*[t]`` is the first event of tile t."""
+    """The two sorted event streams of one window (1-D tensors) or of Q
+    windows (one row each). ``pos_*`` are window positions (dead rows parked
+    at ``L_pad = round_up(L, tile)``), ``val_*`` are column+1 (0 = inert
+    event), ``off_*[..., t]`` is the first event of tile t."""
 
     pos_m: torch.Tensor
     val_m: torch.Tensor
@@ -56,100 +63,173 @@ class Streams(NamedTuple):
 
 def prepare_streams(
     d_start, d_end, d_order, d_end_s, d_start_by_end, d_order_by_end,
-    mlo: int, mhi: int, plo: int, phi: int, qs: int, k: int,
+    mlo, mhi, plo, phi, qs, k: int,
     *, M: int, L: int, C: int, tile: int,
 ) -> Streams:
-    """Event streams of the window [qs, qs+L) at k from the placed store
+    """Event streams of windows [qs, qs+L) at k from the placed store
     (``engine.place_store``): M rows from ``mlo`` in start order and from
     ``plo`` in end order, of which ``[mlo, mhi)`` and ``[plo, phi)`` are the
     window's candidates. A row is a live event when ``end - start < k - 1`` and
-    ``0 <= order < C`` (memo_tpu/ops/pallas_query.py:270-295)."""
+    ``0 <= order < C`` (memo_tpu/ops/pallas_query.py:270-295).
+
+    ``mlo, mhi, plo, phi, qs`` are ints for one window, which gives 1-D
+    streams and tile offsets [nt + 1], or equal-length sequences for Q
+    windows, which gives [Q, M] streams and [Q, nt + 1] offsets; every window
+    of a batch runs at the same L (memo_tpu engine.py:316-353)."""
+    batched = np.ndim(mlo) == 1
+    dev = d_start.device
     l_pad = -(-max(L, 1) // tile) * tile
     nt = l_pad // tile
-    idx = torch.arange(M, dtype=torch.int32, device=d_start.device)
+    idx = torch.arange(M, dtype=torch.int32, device=dev)
+    bounds = torch.arange(nt + 1, dtype=torch.int32, device=dev) * tile
+    n_win = len(mlo) if batched else 1
+    n_rows = d_start.numel()
+    if n_win > 1:
+        # Q windows gather their row ranges, one index for a stream's columns.
+        mlo, mhi, plo, phi, qs = (np.asarray(x, np.int64) for x in (mlo, mhi, plo, phi, qs))
+        bounds = bounds.expand(n_win, nt + 1).contiguous()
 
-    def stream(pos_src, start, end, order, lo, hi, shift):
-        sl = slice(lo, lo + M)
-        if pos_src[sl].numel() != M:
-            raise ValueError(f"store tensors hold fewer than {M} rows after row {lo}")
-        live = idx < (hi - lo)
-        pos = torch.where(live, pos_src[sl] - shift, l_pad)
-        ok = live & (end[sl] - start[sl] < k - 1) & (order[sl] >= 0) & (order[sl] < C)
-        return pos, torch.where(ok, order[sl] + 1, 0)
+        def row_reader(lo):
+            if int(lo.max()) + M > n_rows:
+                raise ValueError(f"store tensors hold fewer than {M} rows after row {int(lo.max())}")
+            rows = torch.from_numpy(lo).to(dev)[:, None] + idx
+            return lambda src: src[rows]
 
-    pos_m, val_m = stream(d_start, d_start, d_end, d_order, mlo, mhi, qs)
-    pos_p, val_p = stream(d_end_s, d_start_by_end, d_end_s, d_order_by_end, plo, phi, qs + k - 1)
-    bounds = torch.arange(nt + 1, dtype=torch.int32, device=d_start.device) * tile
+        def per_window(x):
+            return torch.from_numpy(x.astype(np.int32)).to(dev)[:, None]
+    else:
+        # One window reads slices (views) of the store and Python scalars.
+        if batched:
+            mlo, mhi, plo, phi, qs = (int(x[0]) for x in (mlo, mhi, plo, phi, qs))
+
+        def row_reader(lo):
+            if lo + M > n_rows:
+                raise ValueError(f"store tensors hold fewer than {M} rows after row {lo}")
+            return lambda src: src[lo : lo + M]
+
+        def per_window(x):
+            return x
+
+    def stream(start, end, order, lo, hi, shift, by_start):
+        read = row_reader(lo)
+        s, e, o = read(start), read(end), read(order)
+        live = idx < per_window(hi - lo)
+        pos = torch.where(live, (s if by_start else e) - per_window(shift), l_pad)
+        ok = live & (e - s < k - 1) & (o >= 0) & (o < C)
+        return pos, torch.where(ok, o + 1, 0)
+
+    pos_m, val_m = stream(d_start, d_end, d_order, mlo, mhi, qs, True)
+    pos_p, val_p = stream(d_start_by_end, d_end_s, d_order_by_end, plo, phi, qs + k - 1, False)
     off_m = torch.searchsorted(pos_m, bounds, side="left", out_int32=True)
     off_p = torch.searchsorted(pos_p, bounds, side="left", out_int32=True)
-    return Streams(pos_m, val_m, off_m, pos_p, val_p, off_p, L, tile)
+    parts = (pos_m, val_m, off_m, pos_p, val_p, off_p)
+    if batched and n_win == 1:
+        parts = tuple(t[None] for t in parts)
+    return Streams(*parts, L, tile)
 
 
 def fused_query_reference(streams: Streams, prefix: torch.Tensor, *, n_docs: int, membership: bool):
-    """Plain PyTorch version of the kernel: a diff array over [L, C] from the
-    live events, a cumulative sum from ``prefix`` over positions, and the
-    conservation (int32[L]) or membership (int8[L, C]) reduction. The diff
-    is laid out column by column (see ``query_ops.row_cumsum``)."""
-    L, C = streams.L, prefix.numel()
-    flat = L * C
-    diff = torch.zeros(flat + 1, dtype=torch.int32, device=prefix.device)
+    """Plain PyTorch version of the kernel: a diff array over [Q, C, L] from
+    the live events, a cumulative sum from ``prefix`` over positions, and the
+    conservation (int32[L] or [Q, L]) or membership (int8[L, C] or
+    [Q, L, C]) reduction, for 1-D or batched streams. The diff is laid out
+    window by window and column by column (see ``query_ops.row_cumsum``);
+    dead events add into sink slots of their own past it
+    (``query_ops.coverage_counts`` says why)."""
+    batched = streams.pos_m.dim() == 2
+    L, C = streams.L, prefix.shape[-1]
+    prefix = prefix.reshape(-1, C)
+    n_win = prefix.shape[0]
+    dev = prefix.device
+    flat = n_win * C * L
+    n_events = streams.pos_m.numel() + streams.pos_p.numel()
+    diff = torch.zeros(flat + n_events, dtype=torch.int32, device=dev)
+    window = torch.arange(n_win, dtype=torch.int64, device=dev)[:, None]
+    sink = flat
     for pos, val, sign in ((streams.pos_m, streams.val_m, -1), (streams.pos_p, streams.val_p, 1)):
+        pos, val = pos.reshape(n_win, -1), val.reshape(n_win, -1)
         live = (val > 0) & (val <= C) & (pos >= 0) & (pos < L)
-        idx = torch.where(live, (val.to(torch.int64) - 1) * L + pos, flat)
-        diff.scatter_add_(0, idx, torch.full(idx.shape, sign, dtype=torch.int32, device=idx.device))
-    cov = prefix.view(C, 1) + Q.row_cumsum(diff[:flat].view(C, L))
-    marks = (cov > 0).t()
-    return Q.membership_from_marks(marks) if membership else Q.conservation_from_marks(marks, n_docs)
+        slots = sink + torch.arange(pos.numel(), dtype=torch.int64, device=dev).view(pos.shape)
+        idx = torch.where(live, (window * C + val - 1) * L + pos, slots)
+        diff.scatter_add_(0, idx.view(-1), torch.full((idx.numel(),), sign, dtype=torch.int32, device=dev))
+        sink += pos.numel()
+    cov = prefix.view(n_win, C, 1) + Q.row_cumsum(diff[:flat].view(n_win * C, L)).view(n_win, C, L)
+    marks = (cov > 0).transpose(1, 2)
+    out = Q.membership_from_marks(marks) if membership else Q.conservation_from_marks(marks, n_docs)
+    return out if batched else out[0]
+
+
+def check_launch(name: str, streams: Streams, tensors: tuple, devices: set, tile: int):
+    """Validate a kernel launch on ``tensors`` (the streams' six tensors and
+    the prefix) on ``devices``: returns the leading shape of the output, ()
+    for one window or (Q,) for Q, and the tile count nt. Raises on anything
+    the kernel does not take, so that a CUDA tensor never reaches a plain
+    version."""
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{name} needs all tensors on one CUDA device, got {devices}")
+    L, C = streams.L, tensors[-1].shape[-1]
+    if L < 1:
+        raise ValueError(f"{name} needs a window of at least one position, got L={L}")
+    if streams.tile != tile:
+        raise ValueError(f"tile {streams.tile} is not the kernel's tile {tile} for C={C}")
+    lead = streams.pos_m.shape[:-1]
+    if len(lead) > 1 or not 1 <= (lead[0] if lead else 1) <= MAX_WINDOWS:
+        raise ValueError(f"{name} takes one window or 1 to {MAX_WINDOWS}, got streams {lead}")
+    for t in tensors:
+        if t.dtype != torch.int32 or t.shape[:-1] != lead or not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous int32 tensors, all 1-D or all [Q, ...]")
+    nt = -(-L // tile)
+    if streams.off_m.shape[-1] != nt + 1 or streams.off_p.shape[-1] != nt + 1:
+        raise ValueError(f"tile offsets must hold nt + 1 = {nt + 1} entries per window")
+    if streams.pos_m.shape != streams.val_m.shape or streams.pos_p.shape != streams.val_p.shape:
+        raise ValueError("each stream needs as many positions as values")
+    return tuple(lead), nt
+
+
+def output_tensor(lead: tuple, L: int, C: int, membership: bool, device) -> torch.Tensor:
+    if membership:
+        return torch.empty(lead + (L, C), dtype=torch.int8, device=device)
+    return torch.empty(lead + (L,), dtype=torch.int32, device=device)
+
+
+def launch_error(name: str, lib, err: int) -> RuntimeError:
+    return RuntimeError(
+        f"{name} launch failed: CUDA error {err} ({lib.memo_cuda_error_string(err).decode()})"
+    )
 
 
 def fused_query(streams: Streams, prefix: torch.Tensor, *, n_docs: int, membership: bool):
-    """Conservation int32[L] or membership int8[L, C] of one window.
+    """Conservation int32[L] or membership int8[L, C] of one window, or
+    [Q, L] / [Q, L, C] of Q windows (batched streams, prefix [Q, C]).
 
     On CUDA tensors this launches the kernel of ``csrc/fused_query.cu`` on the
-    current stream and counts the launch in ``fused_query.launches``; a tensor
-    the kernel does not take raises. On CPU tensors it runs
-    :func:`fused_query_reference`.
+    current stream, one launch of each pass for the whole batch, and counts
+    the launch in ``fused_query.launches``; a tensor the kernel does not take
+    raises. On CPU tensors it runs :func:`fused_query_reference`.
     """
-    tensors = (streams.pos_m, streams.val_m, streams.off_m, streams.pos_p, streams.val_p,
-               streams.off_p, prefix)
+    tensors = (*streams[:6], prefix)
     devices = {t.device for t in tensors}
-    if devices == {torch.device("cpu")}:
+    if devices == {CPU}:
         return fused_query_reference(streams, prefix, n_docs=n_docs, membership=membership)
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(f"fused_query needs all tensors on one CUDA device, got {devices}")
-    L, C, tile = streams.L, prefix.numel(), streams.tile
-    if L < 1:
-        raise ValueError(f"fused_query needs a window of at least one position, got L={L}")
-    nt = -(-L // tile)
-    if tile != kernel_constants(C):
-        raise ValueError(f"tile {tile} is not the kernel's tile {kernel_constants(C)} for C={C}")
-    for t in tensors:
-        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
-            raise ValueError("fused_query takes contiguous 1-D int32 tensors")
-    if streams.off_m.numel() != nt + 1 or streams.off_p.numel() != nt + 1:
-        raise ValueError(f"tile offsets must hold nt + 1 = {nt + 1} entries")
-    if streams.pos_m.shape != streams.val_m.shape or streams.pos_p.shape != streams.val_p.shape:
-        raise ValueError("each stream needs as many positions as values")
+    C = prefix.shape[-1]
+    lead, nt = check_launch("fused_query", streams, tensors, devices, kernel_constants(C))
 
     from memo_tpu_torch.ops._build import load_library
 
     lib = load_library()
     device = prefix.device
-    delta = torch.empty((nt, C), dtype=torch.int32, device=device)
-    carry = torch.empty((nt, C), dtype=torch.int32, device=device)
-    if membership:
-        out = torch.empty((L, C), dtype=torch.int8, device=device)
-    else:
-        out = torch.empty(L, dtype=torch.int32, device=device)
+    n_win = lead[0] if lead else 1
+    delta = torch.empty((n_win, nt, C), dtype=torch.int32, device=device)
+    carry = torch.empty((n_win, nt, C), dtype=torch.int32, device=device)
+    out = output_tensor(lead, streams.L, C, membership, device)
     with torch.cuda.device(device):  # the launch goes to the current device
         err = lib.memo_fused_query(
             *(t.data_ptr() for t in tensors), delta.data_ptr(), carry.data_ptr(), out.data_ptr(),
-            L, C, tile, n_docs, int(membership), torch.cuda.current_stream(device).cuda_stream,
+            n_win, streams.pos_m.shape[-1], streams.pos_p.shape[-1], streams.L, C, streams.tile,
+            n_docs, int(membership), torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(
-            f"fused_query launch failed: CUDA error {err} ({lib.memo_cuda_error_string(err).decode()})"
-        )
+        raise launch_error("fused_query", lib, err)
     fused_query.launches += 1
     return out
 

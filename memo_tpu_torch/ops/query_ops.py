@@ -9,8 +9,11 @@ that the formulation equals the reference's per-interval slice writes):
 
 These are plain tensor ops on whatever device the inputs live on. They back
 the engine's ``torch`` backend and its over-cap fallback
-(``QueryEngine._query_interval_pieces``). The numpy twins at the bottom back
-the ``numpy`` backend.
+(``QueryEngine._query_interval_pieces``), and the one-device strategies of
+:mod:`memo_tpu_torch.parallel`, which run many windows at once: where
+memo_tpu maps ``coverage_counts`` over windows with ``jax.vmap``, the window
+batch here is a leading dimension of the inputs. The numpy twins at the
+bottom back the ``numpy`` backend.
 """
 
 from __future__ import annotations
@@ -40,44 +43,63 @@ def row_cumsum(x: torch.Tensor) -> torch.Tensor:
     return flat - before
 
 
-def coverage_counts(starts, ends, orders, qs: int, k: int, *, L: int, C: int) -> torch.Tensor:
-    """int32[L, C] interval-coverage counts for one window.
+def coverage_counts(starts, ends, orders, qs, k: int, *, L: int, C: int) -> torch.Tensor:
+    """int32 interval-coverage counts: [L, C] for one window, [W, L, C] for W.
 
     ``starts/ends/orders`` are int tensors of candidate intervals in absolute
-    pivot coordinates; rows outside the window clip to empty. Rows with an
-    order outside [0, C) go to a sink slot past the diff and are dropped.
-    The diff is laid out column by column, (L+1) positions each, so that the
-    scan over positions runs along rows (:func:`row_cumsum`).
+    pivot coordinates, [M] for one window at ``qs`` (an int) or [W, M] for W
+    windows at ``qs`` (an int, or W ints as a sequence or tensor). Rows
+    outside their window clip to empty. The diff is laid out window by window
+    and column by column, (L+1) positions each, so that the scan over
+    positions runs along rows (:func:`row_cumsum`).
+
+    Rows with an order outside [0, C) are dropped: each one adds into a sink
+    slot of its own, in a sink region as wide as the input past the diff. A
+    single shared sink slot (memo_tpu's ``mode="drop"``) puts every dropped
+    row's atomic add on one address, which serialised millions of them on a
+    GPU; compacting the live rows instead would cost a device-to-host sync
+    for their count, and the sink keeps every shape static.
     """
+    batched = starts.dim() == 2
+    if not batched:
+        starts, ends, orders = starts[None], ends[None], orders[None]
+    W, M = starts.shape
+    dev = starts.device
+    if not isinstance(qs, int):
+        qs = torch.as_tensor(qs, dtype=torch.int64, device=dev).reshape(-1, 1)
     st, ce, valid = cast_and_clip(starts, ends, qs, L, k)
     order = orders.to(torch.int64)
     ok = valid & (order >= 0) & (order < C)
-    flat_size = (L + 1) * C
-    idx_plus = torch.where(ok, order * (L + 1) + ce, flat_size)
-    idx_minus = torch.where(ok, order * (L + 1) + st, flat_size)
-    diff = torch.zeros(flat_size + 1, dtype=torch.int32, device=starts.device)
-    ones = torch.ones(idx_plus.shape, dtype=torch.int32, device=starts.device)
-    diff.scatter_add_(0, idx_plus, ones)
-    diff.scatter_add_(0, idx_minus, -ones)
-    return row_cumsum(diff[:flat_size].view(C, L + 1))[:, :L].t().contiguous()
+    flat_size = W * C * (L + 1)
+    row = (torch.arange(W, dtype=torch.int64, device=dev)[:, None] * C + order) * (L + 1)
+    sink = flat_size + torch.arange(W * M, dtype=torch.int64, device=dev).view(W, M)
+    idx_plus = torch.where(ok, row + ce, sink)
+    idx_minus = torch.where(ok, row + st, sink)
+    diff = torch.zeros(flat_size + W * M, dtype=torch.int32, device=dev)
+    ones = torch.ones(W * M, dtype=torch.int32, device=dev)
+    diff.scatter_add_(0, idx_plus.view(-1), ones)
+    diff.scatter_add_(0, idx_minus.view(-1), -ones)
+    counts = row_cumsum(diff[:flat_size].view(W * C, L + 1)).view(W, C, L + 1)
+    counts = counts[:, :, :L].transpose(1, 2).contiguous()
+    return counts if batched else counts[0]
 
 
-def coverage_marks(starts, ends, orders, qs: int, k: int, *, L: int, C: int) -> torch.Tensor:
-    """bool[L, C] absence marks for one window (counts > 0)."""
+def coverage_marks(starts, ends, orders, qs, k: int, *, L: int, C: int) -> torch.Tensor:
+    """bool[L, C] (or [W, L, C]) absence marks (counts > 0)."""
     return coverage_counts(starts, ends, orders, qs, k, L=L, C=C) > 0
 
 
 def conservation_from_marks(marks: torch.Tensor, n_docs: int) -> torch.Tensor:
-    """int32[L] conservation values: first marked column, else n_docs
-    (== reference argmax with sentinel column, memo_query.py:52-54,70)."""
-    L, C = marks.shape
-    cols = torch.arange(C, dtype=torch.int32, device=marks.device).expand(L, C)
+    """int32[...] conservation values of bool[..., C] marks: first marked
+    column, else n_docs (== reference argmax with sentinel column,
+    memo_query.py:52-54,70)."""
+    cols = torch.arange(marks.shape[-1], dtype=torch.int32, device=marks.device)
     vals = torch.where(marks, cols, n_docs)
-    return torch.clamp(vals.amin(dim=1), max=n_docs)
+    return torch.clamp(vals.amin(dim=-1), max=n_docs)
 
 
 def membership_from_marks(marks: torch.Tensor) -> torch.Tensor:
-    """int8[L, C] presence matrix (row-major); column 0 (pivot) is always 1."""
+    """int8[..., C] presence matrix (row-major); column 0 (pivot) is always 1."""
     return (~marks).to(torch.int8).contiguous()
 
 

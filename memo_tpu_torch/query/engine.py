@@ -12,12 +12,15 @@ Counterpart of :mod:`memo_tpu.query.engine`, with the same contracts:
 Large windows run in position chunks and oversized candidate sets halve the
 chunk, down to interval pieces combined with an elementwise minimum; dense
 stores split into length buckets (the proofs are in the JAX engine's
-docstrings and in memo_tpu/ops/query_ops.py). PyTorch runs eagerly, so the
-pow2 candidate bucket M only bounds the working set of one step.
+docstrings and in memo_tpu/ops/query_ops.py). A batch of windows of one
+record (``conservation_batch``/``membership_batch``) runs as one launch of
+each kernel pass. PyTorch runs eagerly, so the pow2 candidate bucket M only
+bounds the working set of one step.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -27,9 +30,12 @@ from memo_tpu.index.store import IntervalStore
 from memo_tpu.query.engine import QueryStats, _next_pow2, parse_region
 from memo_tpu_torch.ops import query_ops as Q
 from memo_tpu_torch.ops.fused_query import fused_query, kernel_constants, prepare_streams
+from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2, kernel_constants_v2
 from memo_tpu_torch.utils.device import resolve_device
 
 BACKENDS = ("fused", "torch", "numpy")
+# Fused kernel generation -> (wrapper, position tile for C columns).
+KERNELS = {"v1": (fused_query, kernel_constants), "v2": (fused_query_v2, kernel_constants_v2)}
 
 
 class PlacedStore(NamedTuple):
@@ -76,7 +82,9 @@ class QueryEngine:
 
     ``device`` is "cuda" or "cpu"; "cuda" raises where no GPU exists.
     ``device_output=True`` returns tensors on the device instead of numpy
-    arrays.
+    arrays. ``kernel_version`` picks the fused kernel: "v1"
+    (``csrc/fused_query.cu``) or "v2" (``csrc/fused_query_v2.cu``), else
+    ``$MEMO_TPU_PALLAS_KERNEL``, else "v1", as in memo_tpu.
     """
 
     def __init__(
@@ -88,6 +96,7 @@ class QueryEngine:
         max_intervals_per_chunk: int | None = None,
         device_output: bool = False,
         stratify: bool | str = "auto",
+        kernel_version: str | None = None,
     ):
         if store.kind not in ("conservation", "membership"):
             raise ValueError(f"bad store kind {store.kind!r}")
@@ -98,6 +107,9 @@ class QueryEngine:
         self.store = store
         self.backend = backend
         self.device = resolve_device(device)
+        self.kernel_version = kernel_version or os.environ.get("MEMO_TPU_PALLAS_KERNEL") or "v1"
+        if self.kernel_version not in KERNELS:
+            raise ValueError(f"unknown kernel_version {self.kernel_version!r}")
         # Large position chunks and interval buckets amortise per-step
         # overhead on the GPU; the CPU keeps small shapes for the tests.
         on_gpu = backend != "numpy" and self.device.type == "cuda"
@@ -161,6 +173,7 @@ class QueryEngine:
                 max_intervals_per_chunk=self.max_intervals,
                 device_output=True,
                 stratify=False,
+                kernel_version=self.kernel_version,
             )
             children.append((lb, child))
         self._children = children
@@ -181,11 +194,14 @@ class QueryEngine:
             acc = out if acc is None else torch.minimum(acc, out)
         self.last_stats = stats
         if acc is None:  # k too small for any stored interval: nothing marks
-            if membership:
-                acc = torch.ones((L, n), dtype=torch.int8, device=self.device)
-            else:
-                acc = torch.full((L,), n, dtype=torch.int32, device=self.device)
+            acc = self._unmarked(L, membership)
         return acc if self.device_output else acc.cpu().numpy()
+
+    def _unmarked(self, L: int, membership: bool) -> torch.Tensor:
+        """The output of a window where nothing marks."""
+        if membership:
+            return torch.ones((L, self.n_docs), dtype=torch.int8, device=self.device)
+        return torch.full((L,), self.n_docs, dtype=torch.int32, device=self.device)
 
     # ------------------------------------------------------------------ public
     def conservation(self, record: str, qs: int, qe: int, k: int):
@@ -199,6 +215,20 @@ class QueryEngine:
     def query_region(self, region: str, k: int, membership: bool = False):
         record, qs, qe = parse_region(region)
         return self._query(record, qs, qe, k, membership=membership)
+
+    def conservation_batch(self, record: str, windows, k: int) -> list:
+        """Conservation of each window ``(qs, qe)`` of one record. On the
+        ``fused`` backend the batch is one launch of each kernel pass: every
+        window runs at the batch's longest length L from its own candidate
+        ranges and prefix, and keeps its first ``qe - qs`` positions (exact:
+        a window's row is what the single-window kernel computes over
+        [qs, qs + L)). Windows longer than ``chunk_positions``, candidate sets
+        over the bucket cap and the other backends run per window."""
+        return self._query_batch(record, windows, k, membership=False)
+
+    def membership_batch(self, record: str, windows, k: int) -> list:
+        """Membership twin of :meth:`conservation_batch`."""
+        return self._query_batch(record, windows, k, membership=True)
 
     # ----------------------------------------------------------------- internals
     def _window_params(self, record: str, qs: int, qe: int, k: int):
@@ -241,6 +271,71 @@ class QueryEngine:
         if membership:
             return np.concatenate(outputs, axis=0) if outputs else np.zeros((0, n), np.int8)
         return np.concatenate(outputs) if outputs else np.zeros(0, np.int64)
+
+    def _query_batch(self, record: str, windows, k: int, membership: bool) -> list:
+        windows = [(int(qs), int(qe)) for qs, qe in windows]
+        for qs, qe in windows:
+            if qe < qs:
+                raise ValueError(f"empty/negative window {qs}-{qe}")
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        if not windows:
+            return []
+        if self._children is not None:
+            return self._query_batch_stratified(record, windows, k, membership)
+        L = max(qe - qs for qs, qe in windows)
+        # A batch of empty windows has nothing to launch.
+        fallback = self.backend != "fused" or not 0 < L <= self.chunk_positions
+        if not fallback:
+            params = [self._window_params(record, qs, qs + L, k) for qs, _ in windows]
+            counts = [max(p[1] - p[0], p[3] - p[2]) for p in params]
+            fallback = max(counts) > self.max_intervals
+        if fallback:
+            outs, stats = [], QueryStats()
+            for qs, qe in windows:
+                outs.append(self._query(record, qs, qe, k, membership))
+                stats.candidate_intervals += self.last_stats.candidate_intervals
+                stats.chunks += self.last_stats.chunks
+                stats.positions += self.last_stats.positions
+            self.last_stats = stats
+            return outs
+        n = self.n_docs
+        M = min(_next_pow2(max(max(counts), 1)), self.max_intervals)
+        # memo_tpu pads the window count to a power of two to bound the
+        # programs XLA compiles; nothing here compiles per shape, so the
+        # batch keeps its own count.
+        mlo, mhi, plo, phi = (np.array([p[i] for p in params], np.int64) for i in range(4))
+        run, constants = KERNELS[self.kernel_version]
+        streams = prepare_streams(
+            *self._d, mlo, mhi, plo, phi, [qs for qs, _ in windows], k,
+            M=M, L=L, C=n, tile=constants(n),
+        )
+        prefix = torch.from_numpy(np.stack([p[4] for p in params]).astype(np.int32)).to(self.device)
+        out = run(streams, prefix, n_docs=n, membership=membership)
+        self.last_stats = QueryStats(
+            candidate_intervals=sum(counts),
+            chunks=len(windows),
+            positions=sum(qe - qs for qs, qe in windows),
+        )
+        if not self.device_output:
+            out = out.cpu().numpy()
+        return [out[i, : qe - qs] for i, (qs, qe) in enumerate(windows)]
+
+    def _query_batch_stratified(self, record, windows, k, membership) -> list:
+        """Per-bucket batches, min-combined as in :meth:`_query_stratified`."""
+        stats = QueryStats(positions=sum(qe - qs for qs, qe in windows))
+        accs = None
+        for lb, child in self._children:
+            if lb >= k - 1:
+                continue
+            outs = child._query_batch(record, windows, k, membership)
+            stats.candidate_intervals += child.last_stats.candidate_intervals
+            stats.chunks += child.last_stats.chunks
+            accs = outs if accs is None else [torch.minimum(a, o) for a, o in zip(accs, outs)]
+        self.last_stats = stats
+        if accs is None:  # k too small for any stored interval: nothing marks
+            accs = [self._unmarked(qe - qs, membership) for qs, qe in windows]
+        return accs if self.device_output else [a.cpu().numpy() for a in accs]
 
     def _finish(self, out: torch.Tensor):
         return out if self.device_output else out.cpu().numpy()
@@ -324,11 +419,12 @@ class QueryEngine:
             right = self._query_chunk_fused(record, mid, qe, k, membership, stats)
             return self._cat(left, right)
         stats.candidate_intervals += count
+        run, constants = KERNELS[self.kernel_version]
         streams = prepare_streams(
-            *self._d, mlo, mhi, plo, phi, qs, k, M=M, L=L, C=n, tile=kernel_constants(n)
+            *self._d, mlo, mhi, plo, phi, qs, k, M=M, L=L, C=n, tile=constants(n)
         )
         prefix_t = torch.from_numpy(prefix.astype(np.int32)).to(self.device)
-        return self._finish(fused_query(streams, prefix_t, n_docs=n, membership=membership))
+        return self._finish(run(streams, prefix_t, n_docs=n, membership=membership))
 
 
 def _device_query(d: PlacedStore, lo, rec_end, qs, k, M, L, n, membership):

@@ -53,12 +53,84 @@ def test_query_kind_mismatch_refused(indexes, tmp_path):
         cli.main(args)
 
 
+REGIONS = ["piv_1:0-40", "piv_1:10-70", "piv_1:69-70", "piv_1:33-34"]
+
+
+def _regions_bytes(prefix, regions):
+    return [pathlib.Path(f"{prefix}.{r.replace(':', '_').replace('-', '_')}.txt").read_bytes()
+            for r in regions]
+
+
+@pytest.mark.parametrize("strategy", ["auto", "position", "interval", "resident", "batched"])
+@pytest.mark.parametrize("index,flags", [("cons", ["-k", "3"]), ("cons", ["-k", "31"]),
+                                         ("memb", ["-k", "3", "-m"])])
+def test_regions_file_bytes_match_memo_tpu(indexes, tmp_path, strategy, index, flags):
+    regions = tmp_path / "regions.txt"
+    regions.write_text("\n".join(REGIONS) + "\n")
+    npz = str(indexes / f"{index}.npz")
+    want, got = tmp_path / "want", tmp_path / "got"
+    assert ref_cli.main(["query", "-b", npz, "--regions-file", str(regions), "-o", str(want),
+                         "--strategy", strategy, *flags]) == 0
+    assert cli.main(["query", "-b", npz, "--regions-file", str(regions), "-o", str(got),
+                     "--strategy", strategy, "--device", "cpu", *flags]) == 0
+    assert _regions_bytes(got, REGIONS) == _regions_bytes(want, REGIONS)
+
+
+def test_regions_file_batched_v2_and_mesh_one_by_one(indexes, tmp_path, monkeypatch):
+    regions = tmp_path / "regions.txt"
+    regions.write_text("\n".join(REGIONS) + "\n")
+    npz = str(indexes / "cons.npz")
+    want, got = tmp_path / "want", tmp_path / "got"
+    assert ref_cli.main(["query", "-b", npz, "--regions-file", str(regions), "-o", str(want),
+                         "--backend", "numpy", "--strategy", "batched"]) == 0
+    monkeypatch.setenv("MEMO_TPU_PALLAS_KERNEL", "v2")
+    assert cli.main(["query", "-b", npz, "--regions-file", str(regions), "-o", str(got),
+                     "--strategy", "batched", "--mesh", "1,1", "--device", "cpu"]) == 0
+    assert _regions_bytes(got, REGIONS) == _regions_bytes(want, REGIONS)
+
+
 def test_regions_file_not_yet_ported(indexes, tmp_path):
+    """--regions-file runs on one device; other --mesh layouts raise and
+    name the ROADMAP item that ports them."""
     regions = tmp_path / "regions.txt"
     regions.write_text("piv_1:0-40\n")
-    with pytest.raises(SystemExit, match="not yet ported.*ROADMAP"):
-        cli.main(["query", "-b", str(indexes / "cons.npz"), "--regions-file", str(regions),
-                  "-o", str(tmp_path / "b"), "--device", "cpu"])
+    for mesh in ("2,1", "1,2"):
+        with pytest.raises(SystemExit, match="not yet ported.*ROADMAP"):
+            cli.main(["query", "-b", str(indexes / "cons.npz"), "--regions-file", str(regions),
+                      "-o", str(tmp_path / "b"), "--device", "cpu", "--mesh", mesh])
+
+
+def test_pick_batch_strategy_matches_memo_tpu(indexes):
+    """The JAX rules on the same inputs; its "single TPU" rule reads "the
+    query device is CUDA" (the JAX side runs on 8 CPU devices here)."""
+    from memo_tpu.index.store import IntervalStore
+    from memo_tpu.query.engine import parse_region
+
+    store = IntervalStore.load(indexes / "cons.npz")
+    for regions in (["piv_1:0-70"], ["piv_1:0-2"], ["piv_1:0-2", "piv_1:9-11"],
+                    [f"piv_1:{i}-{i + 1}" for i in range(8)]):
+        parsed = [parse_region(r) for r in regions]
+        want = ref_cli.pick_batch_strategy(store, parsed)
+        assert cli.pick_batch_strategy(store, parsed, "cpu") == want
+        assert cli.pick_batch_strategy(store, parsed, "cuda") == (
+            "batched" if want == "position" else want
+        )
+
+
+def test_regions_file_auto_logs_its_choice(indexes, tmp_path, caplog):
+    import logging
+
+    regions = tmp_path / "regions.txt"
+    regions.write_text("piv_1:0-40\n")
+    logger = logging.getLogger(cli.log.name)
+    logger.addHandler(caplog.handler)
+    try:
+        with caplog.at_level(logging.INFO, logger=cli.log.name):
+            assert cli.main(["query", "-b", str(indexes / "cons.npz"), "--regions-file",
+                             str(regions), "-o", str(tmp_path / "a"), "--device", "cpu"]) == 0
+    finally:
+        logger.removeHandler(caplog.handler)
+    assert "--strategy auto resolved to 'resident'" in caplog.text
 
 
 def test_query_device_cuda_without_gpu_raises(indexes, tmp_path, monkeypatch):

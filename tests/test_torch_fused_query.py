@@ -1,6 +1,7 @@
 """memo_tpu_torch.ops.fused_query: the stream set-up and the plain version
 of the CUDA kernel, held exactly against memo_query_pallas run in interpret
-mode on the CPU. At most 8 interpret-mode programs are compiled in this file
+mode on the CPU, for one window and for a batch. At most 8 interpret-mode
+programs are compiled in this file
 (more in one process can crash the XLA CPU compiler). The CUDA kernel itself
 runs only on a GPU: its test carries the ``cuda`` marker and skips here.
 
@@ -33,6 +34,26 @@ def _window(store, record, qs, qe, k):
     mlo, mhi, plo, phi, prefix = jeng._window_params(record, qs, qe, k)
     M = min(_next_pow2(max(mhi - mlo, phi - plo, 1)), jeng.max_intervals)
     return jeng, (mlo, mhi, plo, phi), M, prefix
+
+
+def _random_streams(rng, n_win, L, C, per_pos, tile, device):
+    """Sorted random event streams over L positions (val 0 = inert) with a
+    dead tail parked at L_pad, and a random prefix: 1-D for one window,
+    one row per window for n_win > 1."""
+    l_pad = -(-L // tile) * tile
+    bounds = np.arange(0, l_pad + 1, tile)
+    rows = {name: [] for name in ("pos_m", "val_m", "off_m", "pos_p", "val_p", "off_p")}
+    for _ in range(n_win):
+        for suffix in ("m", "p"):
+            pos = np.sort(rng.integers(0, L, L * per_pos))
+            pos = np.concatenate([pos, np.full(5, l_pad)]).astype(np.int32)
+            rows[f"pos_{suffix}"].append(pos)
+            rows[f"val_{suffix}"].append(rng.integers(0, C + 1, pos.size).astype(np.int32))
+            rows[f"off_{suffix}"].append(np.searchsorted(pos, bounds).astype(np.int32))
+    prefix = rng.integers(0, 3, (n_win, C)).astype(np.int32)
+    pick = (lambda a: a[0]) if n_win == 1 else np.stack
+    parts = [torch.from_numpy(pick(v)).to(device) for v in rows.values()]
+    return Streams(*parts, L, tile), torch.from_numpy(pick(prefix)).to(device)
 
 
 def _port(store, ranges, qs, k, M, L, prefix, membership):
@@ -115,6 +136,35 @@ def test_prepare_streams_layout(k):
         np.testing.assert_array_equal(off, np.searchsorted(pos, np.arange(0, l_pad + 1, tile)))
 
 
+def test_prepare_streams_batch_rows_equal_single_windows():
+    """Batched streams: row q is the single-window streams of window q, at
+    the batch's common L, M and tile."""
+    rng = np.random.default_rng(6)
+    store = _store(rng, True, n_records=1, n_docs=6, rec_len=700)
+    placed = place_store(store, "cpu", _next_pow2(store.num_intervals))
+    k, L, M, tile = 31, 260, 512, 64
+    wins = [0, 123, 690]  # the last window runs past the record's end
+    params = [_window(store, "chr0", qs, qs + L, k)[1] for qs in wins]
+    batch = prepare_streams(*placed, *np.array(params).T, wins, k, M=M, L=L, C=6, tile=tile)
+    assert batch.pos_m.shape == batch.val_p.shape == (3, M)
+    assert batch.off_m.shape == (3, -(-L // tile) + 1)
+    for q, (qs, ranges) in enumerate(zip(wins, params)):
+        one = prepare_streams(*placed, *ranges, qs, k, M=M, L=L, C=6, tile=tile)
+        for got, want in zip(batch[:6], one[:6]):
+            assert torch.equal(got[q], want)
+
+
+def test_reference_batch_rows_equal_single_windows():
+    rng = np.random.default_rng(8)
+    streams, prefix = _random_streams(rng, 3, 300, 7, 3, kernel_constants(7), "cpu")
+    for membership in (False, True):
+        batch = fused_query_reference(streams, prefix, n_docs=7, membership=membership)
+        for q in range(3):
+            one = Streams(*(t[q] for t in streams[:6]), streams.L, streams.tile)
+            want = fused_query_reference(one, prefix[q], n_docs=7, membership=membership)
+            assert torch.equal(batch[q], want)
+
+
 def test_fused_query_cpu_runs_plain_version_and_counts_no_launch():
     rng = np.random.default_rng(9)
     L, C, tile = 300, 7, kernel_constants(7)
@@ -191,6 +241,23 @@ def test_cuda_kernel_matches_reference(cuda_device, C, membership):
                       torch.searchsorted(p, bounds, side="left", out_int32=True)]
         streams = Streams(*parts, L, tile)
         prefix = torch.from_numpy(rng.integers(0, 3, C).astype(np.int32)).to(cuda_device)
+        before = fused_query.launches
+        got = fused_query(streams, prefix, n_docs=C, membership=membership)
+        torch.cuda.synchronize()
+        assert fused_query.launches == before + 1
+        want = fused_query_reference(streams, prefix, n_docs=C, membership=membership)
+        assert torch.equal(got, want), (C, L, membership)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [6, 16, 90, 160, 257])
+@pytest.mark.parametrize("membership", [False, True])
+def test_cuda_kernel_batch_matches_reference(cuda_device, C, membership):
+    """Three windows in one launch of each pass."""
+    rng = np.random.default_rng(C + 7)
+    tile = kernel_constants(C)
+    for L, per_pos in ((1, 2), (777, 3), (5 * tile + 3, 20)):
+        streams, prefix = _random_streams(rng, 3, L, C, per_pos, tile, cuda_device)
         before = fused_query.launches
         got = fused_query(streams, prefix, n_docs=C, membership=membership)
         torch.cuda.synchronize()
