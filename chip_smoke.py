@@ -2,20 +2,27 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA device
 
-Builds the CUDA kernels from ``memo_tpu_torch/csrc`` (v1 ``fused_query`` and
-v2 ``fused_query_v2``), holds each against its plain PyTorch version for one
-window and for a batch of windows, and drives the query paths: the
-single-window path through the CLI at the headline size (2 Mbp pivot, 16
-genomes, k=31); the batched-windows path (16 staggered 1 Mbp windows, one
-launch per kernel pass, v1 and v2) through the engine and through the CLI's
-``--regions-file`` with every strategy; the HPRC-width store (90 genomes,
-~75M intervals) and a 160-genome store through the stratified engine with
-both kernels; and a membership store. Every output is checked exactly
-against the reference loop of bench.py, the port's single-window outputs or
-the port's numpy engine. Each phase prints one line; the last line is
+Builds the CUDA kernels from ``memo_tpu_torch/csrc`` (v1 ``fused_query_rows``,
+which reads the placed store's rows, and v2 ``fused_query_v2``), holds each
+against its plain PyTorch version (v1 on random stores with edge cases, one
+and three windows per launch, both carries; v2 on random event streams), and
+drives the query paths: the single-window path through the CLI at the
+headline size (2 Mbp pivot, 16 genomes, k=31), with the device operations of
+one query counted by torch.profiler; the batched-windows path (16 staggered
+1 Mbp windows, one launch, v1 and v2) through the engine and through the
+CLI's ``--regions-file`` with every strategy; the HPRC-width store (90
+genomes, ~75M intervals) and a 160-genome store through the stratified
+engine with both kernels; and a membership store. Every output is checked
+exactly against the reference loop below (memo_query.py's per-interval slice
+writes), the port's single-window outputs or the port's numpy engine. The
+v1 function's device time is printed at the headline, n=90, n=160 and for
+the batch beside its bound. Each phase prints one line; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
 non-zero and prints no result. It exits non-zero at once where no CUDA
 device is available.
+
+The stores are synthetic and made from a seed here, on the port's own index
+builder; nothing of the JAX package is imported.
 """
 
 from __future__ import annotations
@@ -34,13 +41,23 @@ import numpy as np
 import torch
 
 SEED = 12345
+K = 31
+N_DOCS = 16  # pangenome size incl. pivot
+PIVOT_LEN = 1 << 21  # 2 Mbp pivot: the headline window
+WINDOW = 1 << 19  # positions per reference-loop window
+LARGE_N_DOCS = 90  # HPRC width
+LARGE_PIVOT_LEN = 2 << 20
 KERNEL_REPS = 20  # launches per CUDA-event timing
 WALL_REPS = 10  # timed end-to-end queries (median), after one warm-up
 HPRC_REPS = 5
 MEMB_LEN = 200_000  # membership store pivot length
 MEMB_DOCS = 16
-BATCH_WINDOWS, BATCH_LEN = 16, 1 << 20  # bench.py:632-636
-WIDE_DOCS, WIDE_LEN = 160, 1 << 19  # bench.py:263-265
+BATCH_WINDOWS, BATCH_LEN = 16, 1 << 20
+WIDE_DOCS, WIDE_LEN = 160, 1 << 19
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+INT_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores, for int32 ALU work
+RUN_SWEEP = (1, 2, 4, 8, 16)  # tiles per block timed for the run variant
+EDGE_REC_LEN = 200_000  # records of the random stores that phase 2 checks v1 on
 
 
 def check(cond: bool, what: str) -> None:
@@ -87,12 +104,136 @@ def wall_median_s(fn, device: torch.device, reps: int = WALL_REPS) -> float:
     return statistics.median(walls)
 
 
+def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
+    """The least time the card could take: bytes over the memory rate or
+    integer operations over the ALU rate, whichever is larger."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / INT_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip()
+
+
+# ------------------------------------------------- stores and reference loops
+def build_store(rng):
+    """The headline store: 2 Mbp pivot, 16 genomes, genome-like MS columns."""
+    from memo_tpu_torch.index.builder import store_from_ms
+
+    # MS columns with long-match structure: piecewise runs that decay by 1
+    # (exact-match runs) interleaved with low-identity stretches.
+    n_cols = N_DOCS - 1
+    ms = np.zeros((PIVOT_LEN, n_cols), np.int32)
+    for c in range(n_cols):
+        pos = 0
+        while pos < PIVOT_LEN:
+            run = int(rng.integers(40, 4000))
+            run = min(run, PIVOT_LEN - pos)
+            if rng.random() < 0.8:  # conserved stretch: MS counts down from run
+                ms[pos : pos + run, c] = np.arange(run, 0, -1)
+            else:  # diverged stretch: short noisy matches
+                ms[pos : pos + run, c] = rng.integers(0, K - 1, run)
+            pos += run
+    # Enforce the matching-statistics law ms[p] <= ms[p+1] + 1:
+    # out[p] = min_{q>=p} (ms[q] + q) - p.
+    idx = np.arange(PIVOT_LEN, dtype=np.int64)[:, None]
+    ms = (np.minimum.accumulate((ms + idx)[::-1])[::-1] - idx).astype(np.int32)
+    return store_from_ms([ms], ["chr1"], [PIVOT_LEN], N_DOCS, "conservation")
+
+
+def synth_ms(rng, pivot_len: int, n_cols: int, k: int, gap: int = 15) -> np.ndarray:
+    """Genome-like MS matrix, fast at HPRC width: per column, sparse match
+    anchors (~1 per ``gap`` positions, value = match length 8..120) joined by
+    the suffix-min transform, which enforces ms[p] <= ms[p+1] + 1 and turns
+    each anchor into a descending exact-match ramp. Column blocks keep peak
+    memory at O(P) int32 whatever the width."""
+    out = np.empty((pivot_len, n_cols), np.int32)
+    idx = np.arange(pivot_len, dtype=np.int32)
+    n_anchor = max(pivot_len // gap, 1)
+    for c0 in range(0, n_cols, 8):
+        c1 = min(c0 + 8, n_cols)
+        blk = np.full((pivot_len, c1 - c0), 1 << 28, np.int32)
+        for j in range(c1 - c0):
+            pos = rng.choice(pivot_len, n_anchor, replace=False)
+            blk[pos, j] = rng.integers(8, 120, n_anchor).astype(np.int32)
+        blk += idx[:, None]
+        np.minimum.accumulate(blk[::-1], axis=0, out=blk[::-1])
+        blk -= idx[:, None]
+        np.minimum(blk, (pivot_len - idx)[:, None], out=blk)
+        out[:, c0:c1] = blk
+    return out
+
+
+def build_large_store(rng):
+    """The HPRC-width store: 90 haplotypes over a 2 Mbp pivot."""
+    from memo_tpu_torch.index.builder import store_from_ms
+
+    ms = synth_ms(rng, LARGE_PIVOT_LEN, LARGE_N_DOCS - 1, K, gap=25)
+    return store_from_ms([ms], ["chr1"], [LARGE_PIVOT_LEN], LARGE_N_DOCS, "conservation")
+
+
+def reference_membership_np(store, qs: int, qe: int, k: int) -> np.ndarray:
+    """The reference membership path (memo_query.py:50-51,57-68): a ones
+    matrix and per-interval slice writes of False."""
+    lo, hi = store.window_bounds("chr1", qs, qe, k)
+    L = qe - qs
+    n = store.n_docs
+    starts = np.clip(store.start[lo:hi] - qs, 0, L)
+    ends = np.clip(store.end[lo:hi] - qs - (k - 1), 0, L)
+    orders = store.order[lo:hi]
+    keep = ends < starts
+    starts, ends, orders = starts[keep], ends[keep], orders[keep]
+    rec = np.ones((L, n), bool)
+    for s, ce, o in zip(starts, ends, orders):
+        rec[ce:s, o] = False
+    return rec.astype(np.int8)
+
+
+def reference_query_np(store, qs: int, qe: int, k: int) -> np.ndarray:
+    """The reference query path (memo_query.py:42-71) on this window:
+    recenter/shadow-cast/clip, per-interval slice writes, argmax."""
+    lo, hi = store.window_bounds("chr1", qs, qe, k)
+    L = qe - qs
+    n = store.n_docs
+    starts = store.start[lo:hi] - qs
+    ends = store.end[lo:hi] - qs - (k - 1)
+    orders = store.order[lo:hi]
+    starts = np.clip(starts, 0, L)
+    ends = np.clip(ends, 0, L)
+    keep = ends < starts
+    starts, ends, orders = starts[keep], ends[keep], orders[keep]
+    rec = np.zeros((L, n + 1), bool)
+    rec[:, n] = True
+    for s, ce, o in zip(starts, ends, orders):
+        rec[ce:s, o] = True
+    return np.argmax(rec, axis=1)
+
+
+def random_store(rng, C: int, kind: str, rec_len: int, per_pos: int = 3):
+    """Random intervals on chr0 and chr1 (chr2 has none): most short enough
+    to mark at k=31, ends up to 2x past the record, 5% of orders -1 and 5%
+    >= C (rows the kernel must drop)."""
+    from memo_tpu_torch.index.store import IntervalStore
+
+    rows = []
+    for r, n in ((0, rec_len * per_pos), (1, rec_len * per_pos), (2, 0)):
+        start = rng.integers(0, rec_len, n)
+        span = np.where(rng.random(n) < 0.7, rng.integers(0, 40, n), rng.integers(40, rec_len, n))
+        order = rng.integers(0, C, n)
+        bad = rng.random(n)
+        order[bad < 0.05] = -1
+        order[bad > 0.95] = C + rng.integers(0, 3, int((bad > 0.95).sum()))
+        rows.append((np.full(n, r), start, start + span, order))
+    rec, start, end, order = (np.concatenate(c) for c in zip(*rows))
+    keep = np.lexsort((end, start, rec))
+    return IntervalStore(record_names=["chr0", "chr1", "chr2"], record_lens=[rec_len] * 3,
+                         n_docs=C, kind=kind, rec_id=rec[keep], start=start[keep],
+                         end=end[keep], order=order[keep])
 
 
 # ---------------------------------------------------------------- phases
@@ -122,25 +263,93 @@ def phase_env() -> str:
 
 
 def phase_build() -> None:
+    from memo_tpu_torch.native.build import build_error, load_libms
     from memo_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     lib = _build.build_library()
     seconds = time.perf_counter() - t0
     _build.load_library()
+    t0 = time.perf_counter()
+    check(load_libms() is not None, f"libms (the index builder's MS library) built: {build_error()}")
+    libms_s = time.perf_counter() - t0
     log = (lib.parent / "build.log").read_text() if (lib.parent / "build.log").exists() else ""
     ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "Compiling entry" in ln]
-    emit("phase1_build", seconds=seconds, library=os.path.relpath(lib), ptxas=ptxas)
+    emit("phase1_build", seconds=seconds, libms_seconds=libms_s, library=os.path.relpath(lib),
+         ptxas=ptxas)
 
 
-def random_streams(rng, L: int, C: int, n_events: int, device, tile=None, n_win: int = 1):
+def v1_inputs(engine, record: str, windows, k: int):
+    """(mlo, mhi, plo, phi, qs) rows, prefixes and the common length L of
+    ``windows``, from the engine's host search (every window at the longest
+    length, as conservation_batch runs them)."""
+    L = max(qe - qs for qs, qe in windows)
+    params = [engine._window_params(record, qs, qs + L, k) for qs, _ in windows]
+    ranges = np.array([p[:4] + (qs,) for p, (qs, _) in zip(params, windows)], np.int64)
+    return ranges, np.stack([p[4] for p in params]), L
+
+
+def v1_case(engine, record, windows, k, membership, variants=(("runs", None), ("tiles", None))):
+    """The v1 kernel with each (variant, run) against its plain version on the
+    same device tensors; returns the errors (each must be 0)."""
+    from memo_tpu_torch.ops.fused_query import (
+        fused_query_rows, fused_query_rows_reference, window_args,
+    )
+
+    ranges, prefix, L = v1_inputs(engine, record, windows, k)
+    args = window_args(ranges, prefix, engine.device)
+    C = engine.n_docs
+    want = fused_query_rows_reference(engine._d, *args, k=k, L=L, C=C, n_docs=C,
+                                      membership=membership)
+    errors = []
+    for variant, run in variants:
+        got = fused_query_rows(engine._d, *args, k=k, L=L, C=C, n_docs=C, membership=membership,
+                               variant=variant, run=run)
+        torch.cuda.synchronize()
+        where = f"v1 {variant} run={run} C={C} k={k} {record} {windows} membership={membership}"
+        check(got.dtype == want.dtype and got.shape == want.shape, f"{where} shape/dtype")
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        check(err == 0, f"kernel != plain: {where}")
+        errors.append(err)
+    return errors
+
+
+def phase_kernels(device) -> int:
+    """The v1 row kernel against fused_query_rows_reference on random stores
+    at C = 16/90/160: k in {1, 2, 31}, one window at a record's start, at its
+    end (the rows after it are the next record's), of one position, of an
+    empty record and of a whole 200 Kbp record (many runs), and three windows
+    per launch at the longest length (one runs past the record's end); both
+    kinds; the run carry with the default and with 1 and 16 tiles per block,
+    and the tile carry."""
+    from memo_tpu_torch.query.engine import QueryEngine
+
+    rng = np.random.default_rng(SEED)
+    rec_len = EDGE_REC_LEN
+    singles = (("chr0", [(0, 4096 + 17)]), ("chr0", [(rec_len - 777, rec_len)]),
+               ("chr1", [(5555, 5556)]), ("chr2", [(0, 1000)]), ("chr1", [(0, rec_len)]))
+    batch = ("chr0", [(0, 3000), (rec_len - 1000, rec_len), (77_777, 77_778)])
+    variants = (("runs", None), ("runs", 1), ("runs", 16), ("tiles", None))
+    errors = []
+    for C in (16, 90, 160):
+        for kind in ("conservation", "membership"):
+            eng = QueryEngine(random_store(rng, C, kind, rec_len), device=device, stratify=False)
+            for k in (1, 2, 31):
+                for record, wins in (*singles, batch):
+                    errors += v1_case(eng, record, wins, k, kind == "membership", variants)
+            del eng
+    emit("phase2_kernels", cases=len(errors), max_abs_err=max(errors), widths=[16, 90, 160],
+         k=[1, 2, 31], windows_per_launch=[1, 3], variants=[list(v) for v in variants])
+    return max(errors)
+
+
+def random_streams(rng, L: int, C: int, n_events: int, device, tile, n_win: int = 1):
     """Two sorted event streams over a window of L positions: events at
     random positions in [0, L) with random columns (val 0 = inert), then a
     dead tail parked at L_pad, as ``prepare_streams`` lays them out; 1-D for
     one window, one row per window (each its own events) for n_win > 1."""
-    from memo_tpu_torch.ops.fused_query import Streams, kernel_constants
+    from memo_tpu_torch.ops.fused_query import Streams
 
-    tile = tile or kernel_constants(C)
     l_pad = -(-L // tile) * tile
     bounds = np.arange(0, l_pad + 1, tile)
     rows = [[] for _ in range(6)]
@@ -157,114 +366,157 @@ def random_streams(rng, L: int, C: int, n_events: int, device, tile=None, n_win:
     return Streams(*parts, L, tile), torch.from_numpy(pick(prefix)).to(device)
 
 
-def kernel_cases(device, run, reference, tile_of, n_wins) -> list[int]:
-    """``run`` against ``reference`` on random streams at C = 16/90/160/257,
-    the lengths below and ``n_wins`` windows per launch: every value is an
-    integer, so the two must be equal. Returns the errors."""
-    rng = np.random.default_rng(SEED)
-    errors = []
-    for C in (16, 90, 160, 257):
-        for L, per_pos in ((1, 3), (1000, 3), (4096 + 17, 30), (300_001, 2), (2048, 0)):
-            for n_win in n_wins:
-                for membership in (False, True):
-                    streams, prefix = random_streams(rng, L, C, L * per_pos, device, tile_of(C),
-                                                     n_win)
-                    got = run(streams, prefix, n_docs=C, membership=membership)
-                    want = reference(streams, prefix, n_docs=C, membership=membership)
-                    sync(device)
-                    where = f"{run.__name__} C={C} L={L} Q={n_win} membership={membership}"
-                    check(got.dtype == want.dtype and got.shape == want.shape, f"{where} shape/dtype")
-                    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-                    check(err == 0, f"kernel != plain: {where}")
-                    errors.append(err)
-    return errors
-
-
-def phase_kernels(device) -> int:
-    """The v1 kernel against fused_query_reference, one window per launch."""
-    from memo_tpu_torch.ops.fused_query import fused_query, fused_query_reference, kernel_constants
-
-    errors = kernel_cases(device, fused_query, fused_query_reference, kernel_constants, (1,))
-    emit("phase2_kernels", cases=len(errors), max_abs_err=max(errors),
-         widths=[16, 90, 160, 257], lengths=[1, 1000, 4113, 300001, 2048])
-    return max(errors)
-
-
-def phase_kernels_v2_and_batch(device) -> tuple[int, int]:
-    """The v2 kernel against its plain version with 1 and 3 windows per
-    launch, and the v1 kernel with 3 windows per launch."""
-    from memo_tpu_torch.ops.fused_query import fused_query, fused_query_reference, kernel_constants
+def phase_kernels_v2(device) -> int:
+    """The v2 kernel against its plain version on random streams at
+    C = 16/90/160/257, with 1 and 3 windows per launch."""
     from memo_tpu_torch.ops.fused_query_v2 import (
         fused_query_v2, fused_query_v2_reference, kernel_constants_v2,
     )
 
-    v2 = kernel_cases(device, fused_query_v2, fused_query_v2_reference, kernel_constants_v2, (1, 3))
-    v1 = kernel_cases(device, fused_query, fused_query_reference, kernel_constants, (3,))
-    emit("phase6_kernels_v2_and_batch", v2_cases=len(v2), v2_max_abs_err=max(v2),
-         v1_batch_cases=len(v1), v1_batch_max_abs_err=max(v1), windows_per_launch={"v2": [1, 3],
-         "v1": [3]}, widths=[16, 90, 160, 257], lengths=[1, 1000, 4113, 300001, 2048])
-    return max(v2), max(v1)
+    rng = np.random.default_rng(SEED)
+    errors = []
+    for C in (16, 90, 160, 257):
+        for L, per_pos in ((1, 3), (1000, 3), (4096 + 17, 30), (300_001, 2), (2048, 0)):
+            for n_win in (1, 3):
+                for membership in (False, True):
+                    streams, prefix = random_streams(rng, L, C, L * per_pos, device,
+                                                     kernel_constants_v2(C), n_win)
+                    got = fused_query_v2(streams, prefix, n_docs=C, membership=membership)
+                    want = fused_query_v2_reference(streams, prefix, n_docs=C, membership=membership)
+                    sync(device)
+                    where = f"v2 C={C} L={L} Q={n_win} membership={membership}"
+                    check(got.dtype == want.dtype and got.shape == want.shape, f"{where} shape/dtype")
+                    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+                    check(err == 0, f"kernel != plain: {where}")
+                    errors.append(err)
+    emit("phase6_kernels_v2", cases=len(errors), max_abs_err=max(errors),
+         windows_per_launch=[1, 3], widths=[16, 90, 160, 257],
+         lengths=[1, 1000, 4113, 300001, 2048])
+    return max(errors)
 
 
-def time_kernel_against_plain(engine, record: str, qs: int, qe: int, k: int, version: str = "v1"):
-    """Kernel and plain-version device times on the streams that ``engine``
-    builds for one window with kernel ``version``, after checking they agree
-    exactly."""
+def time_v1(engine, record: str, windows, k: int) -> dict:
+    """The v1 function (fused_query_rows) on ``windows``: exact against its
+    plain version with both carries; device times of the run carry (default
+    run length and each of RUN_SWEEP) and the tile carry, taken in turns
+    (runs, tiles, tiles, runs), of the plain version and of the parameter
+    upload; ``ms`` is the default carry's. Its bound from this input's row
+    counts."""
+    from memo_tpu_torch.ops.fused_query import (
+        DEFAULT_VARIANT, fused_query_rows, fused_query_rows_reference, run_length, rows_tile,
+        window_args,
+    )
+
+    ranges, prefix, L = v1_inputs(engine, record, windows, k)
+    args = window_args(ranges, prefix, engine.device)
+    C = engine.n_docs
+    n_win = len(windows)
+    err = max(v1_case(engine, record, windows, k, False))
+
+    def run(variant="runs", r=None):
+        return fused_query_rows(engine._d, *args, k=k, L=L, C=C, n_docs=C, membership=False,
+                                variant=variant, run=r)
+
+    a = [kernel_ms(lambda: run("runs")), kernel_ms(lambda: run("tiles"))]
+    a += [kernel_ms(lambda: run("tiles")), kernel_ms(lambda: run("runs"))]
+    sweep = {r: kernel_ms(lambda: run("runs", r)) for r in RUN_SWEEP}
+    plain = kernel_ms(lambda: fused_query_rows_reference(engine._d, *args, k=k, L=L, C=C,
+                                                         n_docs=C, membership=False), reps=5)
+    upload = kernel_ms(lambda: window_args(ranges, prefix, engine.device))
+    rows = int((ranges[:, 1] - ranges[:, 0]).sum() + (ranges[:, 3] - ranges[:, 2]).sum())
+    n_bytes = rows * 12 + n_win * L * 4 + ranges.size * 4 + prefix.size * 4
+    n_ops = n_win * L * C + rows  # one scan add per (position, column), one atomic per row
+    bound, bound_by = bound_ms(n_bytes, n_ops)
+    tile = rows_tile(C)
+    nt = -(-L // tile)
+    ms = (a[1] + a[2]) / 2 if DEFAULT_VARIANT == "tiles" else (a[0] + a[3]) / 2
+    return {"C": C, "L": L, "windows": n_win, "candidate_rows": rows, "tile": tile,
+            "run_tiles": run_length(nt * n_win, engine.device), "max_abs_err": err,
+            "ms": ms, "runs_ms": [a[0], a[3]], "tiles_ms": [a[1], a[2]],
+            "run_sweep_ms": sweep, "plain_ms": plain, "upload_ms": upload,
+            "bytes": n_bytes, "ops": n_ops, "bound_ms": bound, "bound_by": bound_by,
+            "bound_share": bound / ms}
+
+
+def time_v2(engine, record: str, qs: int, qe: int, k: int) -> dict:
+    """The v2 kernel and its plain version on the streams that
+    prepare_streams builds for one window, after checking they agree; the
+    set-up's time; the kernel's bound (8 bytes per in-window event read
+    once, plus the output)."""
     from memo_tpu_torch.ops.fused_query import fused_query_reference, prepare_streams
-    from memo_tpu_torch.query.engine import KERNELS
-    from memo_tpu.query.engine import _next_pow2
+    from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2, kernel_constants_v2
+    from memo_tpu_torch.query.engine import _next_pow2
 
-    run, constants = KERNELS[version]
     n = engine.n_docs
     mlo, mhi, plo, phi, prefix = engine._window_params(record, qs, qe, k)
     M = min(_next_pow2(max(mhi - mlo, phi - plo, 1)), engine.max_intervals)
-    streams = prepare_streams(
-        *engine._d, mlo, mhi, plo, phi, qs, k, M=M, L=qe - qs, C=n, tile=constants(n)
-    )
+
+    def setup():
+        return prepare_streams(*engine._d, mlo, mhi, plo, phi, qs, k, M=M, L=qe - qs, C=n,
+                               tile=kernel_constants_v2(n))
+
+    streams = setup()
     prefix_t = torch.from_numpy(prefix.astype(np.int32)).to(engine.device)
-    got = run(streams, prefix_t, n_docs=n, membership=False)
+    got = fused_query_v2(streams, prefix_t, n_docs=n, membership=False)
     want = fused_query_reference(streams, prefix_t, n_docs=n, membership=False)
     torch.cuda.synchronize()
     err = int((got - want).abs().max())
-    check(err == 0, f"{version} kernel != plain on the engine's streams (C={n})")
-    ms = kernel_ms(lambda: run(streams, prefix_t, n_docs=n, membership=False))
-    plain_ms = kernel_ms(lambda: fused_query_reference(streams, prefix_t, n_docs=n, membership=False))
-    setup_ms = kernel_ms(lambda: prepare_streams(
-        *engine._d, mlo, mhi, plo, phi, qs, k, M=M, L=qe - qs, C=n, tile=constants(n)
-    ))
+    check(err == 0, f"v2 kernel != plain on the engine's streams (C={n})")
+    ms = kernel_ms(lambda: fused_query_v2(streams, prefix_t, n_docs=n, membership=False))
+    plain_ms = kernel_ms(lambda: fused_query_reference(streams, prefix_t, n_docs=n,
+                                                       membership=False))
     events = int(streams.off_m[-1]) + int(streams.off_p[-1])
-    return {"version": version, "C": n, "L": qe - qs, "M": M, "events": events,
+    n_bytes = events * 8 + (qe - qs) * 4 + 2 * streams.off_m.numel() * 4 + n * 4
+    bound, bound_by = bound_ms(n_bytes, (qe - qs) * n + events)
+    return {"version": "v2", "C": n, "L": qe - qs, "M": M, "events": events,
             "tile": streams.tile, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "stream_setup_ms": setup_ms}
+            "stream_setup_ms": kernel_ms(setup), "bytes": n_bytes, "bound_ms": bound,
+            "bound_by": bound_by}
+
+
+def device_ops(fn) -> list[tuple[str, float]]:
+    """The device operations (kernels, copies, memsets) of one call of
+    ``fn``, with their device microseconds, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = []
+    for evt in prof.events():
+        if str(evt.device_type).endswith("CUDA"):
+            ops.append((evt.name, evt.time_range.end - evt.time_range.start))
+    return ops
 
 
 def phase_headline(device, tmp: str):
-    import bench
-    from memo_tpu.query.output import format_conservation
     from memo_tpu_torch import cli
-    from memo_tpu_torch.ops.fused_query import fused_query
+    from memo_tpu_torch.ops.fused_query import fused_query_rows
     from memo_tpu_torch.query.engine import QueryEngine
+    from memo_tpu_torch.query.output import format_conservation
 
-    L, K = bench.PIVOT_LEN, bench.K
+    L = PIVOT_LEN
     t0 = time.perf_counter()
-    store = bench.build_store(np.random.default_rng(SEED))
+    store = build_store(np.random.default_rng(SEED))
     build_s = time.perf_counter() - t0
     npz = os.path.join(tmp, "headline.npz")
     out = os.path.join(tmp, "cons.txt")
     store.save(npz)
 
-    fused_query.launches = 0
+    fused_query_rows.launches = 0
     t0 = time.perf_counter()
     rc = cli.main(["query", "-b", npz, "-k", str(K), "-r", f"chr1:0-{L}", "-o", out,
                    "--device", device.type, "--stats"])
     cli_s = time.perf_counter() - t0
-    launches = fused_query.launches
+    launches = fused_query_rows.launches
     check(rc == 0, "CLI query exit code")
-    check(launches > 0, "the CLI query launched the fused kernel")
+    check(launches > 0, "the CLI query launched the v1 kernel")
 
-    windows = [(w, min(w + bench.WINDOW, L)) for w in range(0, L, bench.WINDOW)]
+    windows = [(w, min(w + WINDOW, L)) for w in range(0, L, WINDOW)]
     t0 = time.perf_counter()
-    ref = np.concatenate([bench.reference_query_np(store, qs, qe, K) for qs, qe in windows])
+    ref = np.concatenate([reference_query_np(store, qs, qe, K) for qs, qe in windows])
     ref_s = time.perf_counter() - t0
     with open(out, "rb") as fh:
         got_bytes = fh.read()
@@ -283,13 +535,19 @@ def phase_headline(device, tmp: str):
         check(np.array_equal(fused.conservation("chr1", 0, L, k), oracle.conservation("chr1", 0, L, k)),
               f"fused == numpy engine at k={k}")
 
-    # Layer breakdown of one query: host range search and prefix, stream
-    # set-up and kernel (device time), result copy and text formatting.
+    # The device operations of one headline query (result left on the device).
+    resident = QueryEngine(store, backend="fused", device=device, chunk_positions=L,
+                           device_output=True)
+    ops = device_ops(lambda: resident.conservation("chr1", 0, L, K))
+    check(0 < len(ops) <= 4, f"one headline query issues at most 4 device operations: {ops}")
+
+    # Layer breakdown of one query: host range search and prefix, parameter
+    # upload and the v1 function (device time), result copy and formatting.
     t0 = time.perf_counter()
     fused._window_params("chr1", 0, L, K)
     host_ms = (time.perf_counter() - t0) * 1e3
-    kern = time_kernel_against_plain(fused, "chr1", 0, L, K)
-    kern_v2 = time_kernel_against_plain(fused, "chr1", 0, L, K, version="v2")
+    kern = time_v1(fused, "chr1", [(0, L)], K)
+    kern_v2 = time_v2(fused, "chr1", 0, L, K)
     res = fused.conservation("chr1", 0, L, K)
     t0 = time.perf_counter()
     format_conservation(res)
@@ -297,65 +555,69 @@ def phase_headline(device, tmp: str):
     emit("phase3_headline", intervals=store.num_intervals, n_docs=store.n_docs, L=L, k=K,
          store_build_s=build_s, cli_query_s=cli_s, launches=launches, exact_cli_bytes=True,
          reference_loop_s=ref_s, mbp_s=mbp_s, k_sweep_exact=[21, 51, 101],
-         layers_ms={"host_ranges_prefix": host_ms, "stream_setup": kern["stream_setup_ms"],
-                    "kernel": kern["ms"], "format_output": format_ms},
+         device_ops=len(ops), device_op_list=ops,
+         layers_ms={"host_ranges_prefix": host_ms, "upload": kern["upload_ms"],
+                    "v1_function": kern["ms"], "format_output": format_ms},
          kernel=kern, kernel_v2=kern_v2)
     return launches, kern, kern_v2, store, mbp_s
 
 
 def batch_windows(pivot_len: int) -> list[tuple[int, int]]:
-    """16 staggered 1 Mbp windows over the pivot (bench.py:632-636)."""
+    """16 staggered 1 Mbp windows over the pivot."""
     span = pivot_len - BATCH_LEN
     return [(round(i * span / (BATCH_WINDOWS - 1)), round(i * span / (BATCH_WINDOWS - 1)) + BATCH_LEN)
             for i in range(BATCH_WINDOWS)]
 
 
-def phase_batched(device, store) -> list[np.ndarray]:
+def phase_batched(device, store):
     """conservation_batch at the headline with v1 and v2: one launch for the
     whole batch, every window == the single-window output, window 3's first
-    16 Kbp == the reference loop. Returns the single-window outputs."""
-    import bench
-    from memo_tpu_torch.ops.fused_query import fused_query
+    16 Kbp == the reference loop; the v1 function's device time on the batch
+    and the device operations of one v1 batch. Returns the single-window
+    outputs and the v1 timing."""
+    from memo_tpu_torch.ops.fused_query import fused_query_rows
     from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2
     from memo_tpu_torch.query.engine import QueryEngine
 
-    wins = batch_windows(bench.PIVOT_LEN)
-    sub = 1 << 14
-    ref = bench.reference_query_np(store, wins[3][0], wins[3][0] + sub, bench.K)
-    fields, singles = {}, None
+    wins = batch_windows(PIVOT_LEN)
+    sub = min(1 << 14, BATCH_LEN)
+    ref = reference_query_np(store, wins[3][0], wins[3][0] + sub, K)
+    fields, singles, kern = {}, None, None
     for version in ("v1", "v2"):
-        eng = QueryEngine(store, backend="fused", device=device, chunk_positions=bench.PIVOT_LEN,
+        eng = QueryEngine(store, backend="fused", device=device, chunk_positions=PIVOT_LEN,
                           device_output=True, stratify=False, kernel_version=version)
-        fused_query.launches = fused_query_v2.launches = 0
-        outs = eng.conservation_batch("chr1", wins, bench.K)
+        fused_query_rows.launches = fused_query_v2.launches = 0
+        outs = eng.conservation_batch("chr1", wins, K)
         sync(device)
-        launches = {"v1": fused_query.launches, "v2": fused_query_v2.launches}
+        launches = {"v1": fused_query_rows.launches, "v2": fused_query_v2.launches}
         check(launches == {"v1": int(version == "v1"), "v2": int(version == "v2")},
               f"{version} batch of {len(wins)} windows ran as one launch: {launches}")
-        single = [eng.conservation("chr1", qs, qe, bench.K) for qs, qe in wins]
+        single = [eng.conservation("chr1", qs, qe, K) for qs, qe in wins]
         for (qs, qe), got, one in zip(wins, outs, single):
             check(torch.equal(got, one), f"{version} batch window {qs}-{qe} == single window")
         check(np.array_equal(outs[3][:sub].cpu().numpy(), ref), f"{version} window 3 == reference loop")
-        batch_s = wall_median_s(lambda: eng.conservation_batch("chr1", wins, bench.K), device)
-        single_s = wall_median_s(lambda: eng.conservation("chr1", *wins[0], bench.K), device)
+        batch_s = wall_median_s(lambda: eng.conservation_batch("chr1", wins, K), device)
+        single_s = wall_median_s(lambda: eng.conservation("chr1", *wins[0], K), device)
         fields[version] = {"launches": launches[version], "batch_wall_ms": batch_s * 1e3,
                            "per_window_ms": batch_s * 1e3 / len(wins),
                            "single_window_ms": single_s * 1e3,
                            "batch_mbp_s": len(wins) * BATCH_LEN / batch_s / 1e6}
-        if singles is None:
+        if version == "v1":
             singles = [o.cpu().numpy() for o in single]
-    emit("phase7_batched", windows=len(wins), window_len=BATCH_LEN, k=bench.K,
+            ops = device_ops(lambda: eng.conservation_batch("chr1", wins, K))
+            kern = time_v1(eng, "chr1", wins, K)
+            fields["v1"].update(device_ops=len(ops), device_op_list=ops, kernel=kern)
+    emit("phase7_batched", windows=len(wins), window_len=BATCH_LEN, k=K,
          exact_vs_single=True, exact_window3_vs_reference=True, **fields)
-    return singles
+    return singles, kern
 
 
 def phase_hprc(device):
-    import bench
     from memo_tpu_torch.query.engine import QueryEngine
 
-    L, K = bench.LARGE_PIVOT_LEN, bench.K
+    L = LARGE_PIVOT_LEN
     t0 = time.perf_counter()
-    store = bench.build_large_store(np.random.default_rng(SEED))
+    store = build_large_store(np.random.default_rng(SEED))
     build_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -367,16 +629,15 @@ def phase_hprc(device):
     out = eng.conservation("chr1", 0, L, K).cpu().numpy()
     stats = eng.last_stats.as_dict()
     peak = torch.cuda.max_memory_allocated()
-    for sub_qs in (bench.WINDOW, L - (1 << 15) - 7):
+    for sub_qs in (WINDOW, L - (1 << 15) - 7):
         sub = (sub_qs, sub_qs + (1 << 15))
-        check(np.array_equal(out[sub[0]:sub[1]], bench.reference_query_np(store, *sub, K)),
+        check(np.array_equal(out[sub[0]:sub[1]], reference_query_np(store, *sub, K)),
               f"HPRC spot window {sub}")
-    kern = time_kernel_against_plain(eng._children[0][1], "chr1", 0, L, K)
     emit("phase4_hprc", intervals=store.num_intervals, n_docs=store.n_docs, L=L, k=K,
          store_build_s=build_s, engine_init_s=init_s, mbp_s=L / dt / 1e6, last_stats=stats,
          buckets=[lb for lb, _ in eng._children], peak_device_bytes=peak,
-         spot_windows_exact=2, kernel=kern)
-    return kern, store
+         spot_windows_exact=2)
+    return store
 
 
 @contextlib.contextmanager
@@ -393,28 +654,26 @@ def kernel_env(version: str | None):
             os.environ["MEMO_TPU_PALLAS_KERNEL"] = old
 
 
-def phase_v2_full_width(device, large_store) -> list[dict]:
-    """The stratified engine with kernel_version="v2" at the n=90 store
-    (bucket 0 runs at k=31) and at a 160-genome store (bench.py:255-292):
-    spot windows exact against the reference loop; v2's, its plain
-    version's and v1's device times on the same window."""
-    import bench
-    from memo_tpu.index.builder import store_from_ms
+def phase_full_width(device, large_store) -> dict:
+    """The stratified engine with each kernel at the n=90 store (bucket 0
+    runs at k=31) and at a 160-genome store: spot windows exact against the
+    reference loop; v2's and v1's device times on bucket 0's window, the
+    plain versions' times and the bounds."""
+    from memo_tpu_torch.index.builder import store_from_ms
     from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2
     from memo_tpu_torch.query.engine import QueryEngine
 
-    K = bench.K
     t0 = time.perf_counter()
-    ms = bench.synth_ms(np.random.default_rng(SEED), WIDE_LEN, WIDE_DOCS - 1, K, gap=30)
+    ms = synth_ms(np.random.default_rng(SEED), WIDE_LEN, WIDE_DOCS - 1, K, gap=30)
     wide = store_from_ms([ms], ["chr1"], [WIDE_LEN], WIDE_DOCS, "conservation")
     del ms
     wide_build_s = time.perf_counter() - t0
-    L90 = bench.LARGE_PIVOT_LEN
     cells = (
-        ("n90", large_store, L90, ((bench.WINDOW, 1 << 15), (L90 - (1 << 15) - 7, 1 << 15))),
+        ("n90", large_store, LARGE_PIVOT_LEN,
+         ((WINDOW, 1 << 15), (LARGE_PIVOT_LEN - (1 << 15) - 7, 1 << 15))),
         ("n160", wide, WIDE_LEN, ((1 << 16, 1 << 14),)),
     )
-    fields, kernels = {}, []
+    fields = {}
     for name, store, L, spots in cells:
         eng = QueryEngine(store, backend="fused", device=device, chunk_positions=L,
                           max_intervals_per_chunk=1 << 25, device_output=True, kernel_version="v2")
@@ -423,22 +682,20 @@ def phase_v2_full_width(device, large_store) -> list[dict]:
         launches = fused_query_v2.launches
         check(launches > 0, f"{name}: the v2 engine launched the v2 kernel")
         for qs, n in spots:
-            check(np.array_equal(out[qs:qs + n], bench.reference_query_np(store, qs, qs + n, K)),
+            check(np.array_equal(out[qs:qs + n], reference_query_np(store, qs, qs + n, K)),
                   f"{name} v2 spot window {qs}-{qs + n}")
         dt = wall_median_s(lambda: eng.conservation("chr1", 0, L, K), device, reps=HPRC_REPS)
         child = eng._children[0][1] if eng._children else eng
-        kern = {v: time_kernel_against_plain(child, "chr1", 0, L, K, version=v) for v in ("v2", "v1")}
-        kernels += kern.values()
+        v2 = time_v2(child, "chr1", 0, L, K)
+        v1 = time_v1(child, "chr1", [(0, L)], K)
         fields[name] = {"intervals": store.num_intervals, "n_docs": store.n_docs, "L": L,
-                        "stratified": eng._children is not None, "launches": launches,
-                        "spot_windows_exact": len(spots), "mbp_s": L / dt / 1e6,
-                        "v2_ms": kern["v2"]["ms"], "plain_ms": kern["v2"]["plain_ms"],
-                        "v1_ms": kern["v1"]["ms"], "kernel_v2": kern["v2"],
-                        "kernel_v1": kern["v1"]}
+                        "stratified": eng._children is not None, "v2_launches": launches,
+                        "spot_windows_exact": len(spots), "v2_mbp_s": L / dt / 1e6,
+                        "kernel_v2": v2, "kernel_v1": v1}
         del eng, child
         torch.cuda.empty_cache()
-    emit("phase8_v2_full_width", k=K, wide_store_build_s=wide_build_s, **fields)
-    return kernels
+    emit("phase8_full_width", k=K, wide_store_build_s=wide_build_s, **fields)
+    return fields
 
 
 def phase_cli_regions(device, tmp: str, singles: list[np.ndarray], torch_mbp_s: float) -> int:
@@ -447,13 +704,12 @@ def phase_cli_regions(device, tmp: str, singles: list[np.ndarray], torch_mbp_s: 
     position: every file byte-identical across the runs and to
     write_conservation of the single-window outputs. Returns the v2 run's
     launches."""
-    import bench
-    from memo_tpu.query.output import format_conservation
     from memo_tpu_torch import cli
-    from memo_tpu_torch.ops.fused_query import fused_query
+    from memo_tpu_torch.ops.fused_query import fused_query_rows
     from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2
+    from memo_tpu_torch.query.output import format_conservation
 
-    wins = batch_windows(bench.PIVOT_LEN)
+    wins = batch_windows(PIVOT_LEN)
     npz = os.path.join(tmp, "headline.npz")  # written by phase 3
     regions = os.path.join(tmp, "regions.txt")
     with open(regions, "w") as fh:
@@ -472,13 +728,13 @@ def phase_cli_regions(device, tmp: str, singles: list[np.ndarray], torch_mbp_s: 
             ("position", "position", None, (0, 0)),
         ):
             out = os.path.join(tmp, f"regions_{name}")
-            fused_query.launches = fused_query_v2.launches = 0
+            fused_query_rows.launches = fused_query_v2.launches = 0
             t0 = time.perf_counter()
             with kernel_env(version):
-                rc = cli.main(["query", "-b", npz, "-k", str(bench.K), "--regions-file", regions,
+                rc = cli.main(["query", "-b", npz, "-k", str(K), "--regions-file", regions,
                                "-o", out, "--strategy", strategy, "--device", device.type])
             wall = time.perf_counter() - t0
-            launches = (fused_query.launches, fused_query_v2.launches)
+            launches = (fused_query_rows.launches, fused_query_v2.launches)
             check(rc == 0, f"CLI --regions-file --strategy {name} exit code")
             check(launches == expect, f"CLI {name}: launches (v1, v2) {launches} != {expect}")
             for (qs, qe), w in zip(wins, want):
@@ -494,7 +750,7 @@ def phase_cli_regions(device, tmp: str, singles: list[np.ndarray], torch_mbp_s: 
 
 
 def phase_membership(device) -> None:
-    from memo_tpu.index.builder import store_from_ms
+    from memo_tpu_torch.index.builder import store_from_ms
     from memo_tpu_torch.query.engine import QueryEngine
 
     rng = np.random.default_rng(SEED)
@@ -510,6 +766,9 @@ def phase_membership(device) -> None:
         check(got.dtype == np.int8 and got.shape == (qe - qs, MEMB_DOCS), "membership shape/dtype")
         check(np.array_equal(got, oracle.membership("chr1", qs, qe, k)),
               f"membership fused == numpy engine {qs}-{qe} k={k}")
+    check(np.array_equal(fused.membership("chr1", 777, 8_777, 31),
+                         reference_membership_np(store, 777, 8_777, 31)),
+          "membership fused == reference loop 777-8777")
     emit("phase5_membership", intervals=store.num_intervals, n_docs=MEMB_DOCS, L=MEMB_LEN,
          exact=True)
 
@@ -522,37 +781,47 @@ def main() -> int:
     device = torch.device("cuda")
     card = phase_env()
     phase_build()
-    max_err = phase_kernels(device)
-    v2_err, v1_batch_err = phase_kernels_v2_and_batch(device)
+    v1_err = phase_kernels(device)
+    v2_err = phase_kernels_v2(device)
     with tempfile.TemporaryDirectory() as tmp:
         launches, head, head_v2, store, mbp_s = phase_headline(device, tmp)
-        singles = phase_batched(device, store)
+        singles, batch = phase_batched(device, store)
         del store
         v2_launches = phase_cli_regions(device, tmp, singles, mbp_s["torch"])
-    hprc, large = phase_hprc(device)
-    wide = phase_v2_full_width(device, large)
+    large = phase_hprc(device)
+    wide = phase_full_width(device, large)
     del large
     phase_membership(device)
-    errs = {v: [kern["max_abs_err"] for kern in wide if kern["version"] == v] for v in ("v1", "v2")}
+    v1_cells = {"headline": head, "batch": batch, "n90": wide["n90"]["kernel_v1"],
+                "n160": wide["n160"]["kernel_v1"]}
+    emit("v1_function", card=card, **{name: {key: cell[key] for key in (
+        "C", "L", "windows", "candidate_rows", "ms", "runs_ms", "tiles_ms", "run_sweep_ms",
+        "plain_ms", "bytes", "bound_ms", "bound_share")} for name, cell in v1_cells.items()})
     print(json.dumps({"kernels": [{
-        "name": "fused_query",
+        "name": "fused_query_rows",
         "route": "cuda",
         "source": "memo_tpu_torch/csrc/fused_query.cu",
         "replaces": "memo_tpu/ops/pallas_query.py:236",
         "launches": launches,
-        "max_abs_err": max(max_err, v1_batch_err, head["max_abs_err"], hprc["max_abs_err"],
-                           *errs["v1"]),
+        "max_abs_err": max(v1_err, *(cell["max_abs_err"] for cell in v1_cells.values())),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": None,
     }, {
         "name": "fused_query_v2",
         "route": "cuda",
         "source": "memo_tpu_torch/csrc/fused_query_v2.cu",
         "replaces": "memo_tpu/ops/pallas_query_v2.py:301",
         "launches": v2_launches,
-        "max_abs_err": max(v2_err, head_v2["max_abs_err"], *errs["v2"]),
+        "max_abs_err": max(v2_err, head_v2["max_abs_err"], wide["n90"]["kernel_v2"]["max_abs_err"],
+                           wide["n160"]["kernel_v2"]["max_abs_err"]),
         "ms": head_v2["ms"],
         "plain_ms": head_v2["plain_ms"],
+        "bound_ms": head_v2["bound_ms"],
+        "bound_by": head_v2["bound_by"],
+        "library_ms": None,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

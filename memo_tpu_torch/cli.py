@@ -1,25 +1,113 @@
 """memo-tpu-torch CLI: ``python -m memo_tpu_torch {index, query, view, extract}``.
 
-``index``, ``view`` and ``extract`` are memo_tpu's own commands (host only).
-``query`` (``-r`` or ``--regions-file``) takes memo_tpu's flags and runs on
-this package's engine, with ``--device {cuda,cpu}`` (default cuda; no GPU is
-an error) and ``--backend {auto,fused,torch,numpy}``. Outputs are
-byte-identical to ``python -m memo_tpu query``.
+The same subcommands and flags as ``python -m memo_tpu``, and the same output
+bytes. ``index``, ``view`` and ``extract`` run on the host, on the port's own
+copies of memo_tpu's builder, plotter and compat writers (memo_tpu/cli.py).
+``query`` (``-r`` or ``--regions-file``) runs on this package's engine, with
+``--device {cuda,cpu}`` (default cuda; no GPU is an error) and ``--backend
+{auto,fused,torch,numpy}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
 import torch
 
-from memo_tpu import cli as ref_cli
-from memo_tpu.utils.logging import get_logger
-from memo_tpu_torch.utils.profiling import trace_context
+from memo_tpu_torch.utils.logging import get_logger
+from memo_tpu_torch.utils.profiling import GLOBAL_TIMES, trace_context
 
-log = get_logger(f"memo_tpu.{__name__}")
+log = get_logger(__name__)
+
+
+def _add_index(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser(
+        "index", help="index pangenome into MEMO membership or conservation indexes"
+    )
+    p.add_argument("-g", dest="genome_list", required=True, help="document list (line 1 = pivot)")
+    p.add_argument("-o", dest="output_dir", default=".", help="output directory ['.']")
+    p.add_argument("-p", dest="prefix", required=True, help="output file prefix")
+    p.add_argument(
+        "-m", dest="membership", action="store_true", help="make membership index"
+    )
+    p.add_argument(
+        "--ms-backend",
+        default="auto",
+        choices=["auto", "native", "python", "sa"],
+        help="matching-statistics engine: auto (automaton when the document "
+        "fits the RAM budget, else partitioned suffix-array groups), "
+        "native/python (automaton), sa (suffix array) [auto]",
+    )
+    p.add_argument(
+        "--ms-budget-mb",
+        type=int,
+        default=None,
+        metavar="MB",
+        help="RAM budget per matching-statistics group build; documents "
+        "larger than the budget are partitioned at record boundaries and "
+        "max-merged (exact) [8192]",
+    )
+    p.add_argument(
+        "--ms-pooled",
+        default="auto",
+        choices=["auto", "on", "off"],
+        help="pool documents into shared colored-GSA suffix-array groups "
+        "(one SA per RAM-budget group serves every document in it; fastest "
+        "at pangenome widths). auto estimates from input sizes [auto]",
+    )
+    p.add_argument(
+        "--emit-compat",
+        action="store_true",
+        help="also write reference-format artifacts (fai, dap.txt, bed, parquet)",
+    )
+    p.add_argument("--no-cache", action="store_true", help="disable resumable MS caching")
+    p.add_argument(
+        "--jobs", type=int, default=1, help="parallel per-genome MS builds [1]"
+    )
+    p.add_argument(
+        "--preserve-case",
+        action="store_true",
+        help="byte-literal matching like MONI (the reference pipeline never "
+        "case-folds, so soft-masked lowercase only matches lowercase — see "
+        "docs/MONI_PARITY.md); default uppercases pivot and documents first",
+    )
+    p.add_argument("--profile", metavar="DIR", default=None, help="write a torch.profiler trace")
+
+
+def _add_extract(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser(
+        "extract",
+        help="extract region chr:start-end from an overlap MEM index "
+        "(legacy omem extract, reference extract.sh)",
+    )
+    p.add_argument(
+        "-b", dest="index", required=True, help="MEMO index (.npz native, .parquet or .bed compat)"
+    )
+    p.add_argument(
+        "-r", dest="region", required=True, help="target query region chr:start-end (0-indexed, half open)"
+    )
+    p.add_argument("-o", dest="output_dir", default=".", help="output directory ['.']")
+    p.add_argument(
+        "-n",
+        dest="num_docs",
+        type=int,
+        default=None,
+        help="total documents (only needed for .parquet/.bed inputs)",
+    )
+
+
+def _add_view(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser("view", help="plot sequence conservation")
+    p.add_argument("-i", dest="in_file", required=True, help="input conservation.out")
+    p.add_argument("-o", dest="out_file", required=True, help="output plot.png")
+    p.add_argument(
+        "-n", dest="num_docs", type=int, required=True, help="total number of documents"
+    )
+    p.add_argument("-b", dest="num_bins", type=int, default=500, help="genomic bins [500]")
+    p.add_argument("-d", dest="dpi", type=int, default=600, help="plot DPI [600]")
 
 
 def _add_query(sub: argparse._SubParsersAction) -> None:
@@ -101,20 +189,99 @@ def build_parser() -> argparse.ArgumentParser:
         description="MEMO pangenome k-mer membership/conservation queries on PyTorch and CUDA",
     )
     sub = ap.add_subparsers(dest="command", required=True)
-    ref_cli._add_index(sub)
-    for action in sub.choices["index"]._actions:
-        if action.dest == "profile":
-            action.help = "write a torch.profiler trace"
+    _add_index(sub)
     _add_query(sub)
-    ref_cli._add_view(sub)
-    ref_cli._add_extract(sub)
+    _add_view(sub)
+    _add_extract(sub)
     return ap
 
 
 def cmd_index(args) -> int:
-    profile, args.profile = args.profile, None  # traced here, not by memo_tpu
-    with trace_context(profile):
-        return ref_cli.cmd_index(args)
+    from memo_tpu_torch.index.builder import BuildConfig, build_index
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    cfg = BuildConfig(
+        kind="membership" if args.membership else "conservation",
+        backend=args.ms_backend,
+        ms_budget_bytes=args.ms_budget_mb << 20 if args.ms_budget_mb else None,
+        uppercase=not args.preserve_case,
+        workdir=None if args.no_cache else args.output_dir,
+        emit_compat=args.emit_compat,
+        compat_prefix=args.prefix,
+        jobs=args.jobs,
+        pooled={"auto": None, "on": True, "off": False}[args.ms_pooled],
+    )
+    with trace_context(args.profile):
+        store = build_index(args.genome_list, cfg)
+    out = os.path.join(args.output_dir, f"{args.prefix}.npz")
+    store.save(out)
+    log.info("index written: %s (%s)", out, store.stats())
+    log.info("stage times: %s", GLOBAL_TIMES.report())
+    print(f"DONE — index at {out}")
+    return 0
+
+
+def load_store(path: str, num_docs: int | None, membership: bool, force: bool = False):
+    """The index at ``path`` (.npz native, .parquet or .bed compat), checked
+    against the query's kind as memo_tpu checks it."""
+    from memo_tpu_torch.index.store import IntervalStore
+
+    kind = "membership" if membership else "conservation"
+    if path.endswith(".npz"):
+        store = IntervalStore.load(path)
+        if num_docs is not None and num_docs != store.n_docs:
+            log.warning("-n %d overrides stored n_docs=%d", num_docs, store.n_docs)
+            store.n_docs = num_docs
+        if store.kind != kind:
+            # The native index stores its kind, so a mismatched query flag is
+            # a user error that gives garbage-shaped output: refuse unless forced.
+            msg = (
+                f"index {path} is a {store.kind!r} index but the query "
+                f"requests {kind!r} (-m flag mismatch)"
+            )
+            if not force:
+                raise SystemExit(msg + "; pass --force to run anyway")
+            log.warning("%s — forced; results follow the query flag", msg)
+        return store
+    from memo_tpu_torch.io import compat
+
+    if num_docs is None:
+        raise SystemExit("-n is required when querying a .parquet/.bed index")
+    if path.endswith(".parquet"):
+        return compat.read_parquet(path, num_docs, kind)
+    if path.endswith(".bed"):
+        return compat.read_bed(path, num_docs, kind)
+    raise SystemExit(f"unrecognized index format: {path}")
+
+
+def cmd_extract(args) -> int:
+    from memo_tpu_torch.io.compat import write_extracted_bed
+    from memo_tpu_torch.query.engine import parse_region
+
+    record, qs, qe = parse_region(args.region)
+    if args.index.endswith(".npz"):
+        from memo_tpu_torch.index.store import IntervalStore
+
+        store = IntervalStore.load(args.index)
+    else:
+        # kind/n_docs do not matter to extraction; placeholders load compat
+        # inputs, with the record pushed into the reader.
+        from memo_tpu_torch.io import compat
+
+        reader = compat.read_parquet if args.index.endswith(".parquet") else compat.read_bed
+        store = reader(args.index, args.num_docs or 2, "conservation", record=record)
+    os.makedirs(args.output_dir, exist_ok=True)
+    path = write_extracted_bed(store, record, qs, qe, args.output_dir)
+    print(f"Output order MEM overlaps file: {path}")
+    return 0
+
+
+def cmd_view(args) -> int:
+    from memo_tpu_torch.view.plot import save_conservation_plot
+
+    save_conservation_plot(args.in_file, args.out_file, args.num_docs, args.num_bins, args.dpi)
+    log.info("plot written: %s", args.out_file)
+    return 0
 
 
 def pick_batch_strategy(store, regions, device) -> str:
@@ -137,7 +304,7 @@ def pick_batch_strategy(store, regions, device) -> str:
 
 
 def _query_regions(args, device) -> int:
-    from memo_tpu.query.output import write_conservation, write_membership
+    from memo_tpu_torch.query.output import write_conservation, write_membership
     from memo_tpu_torch.parallel import ResidentShardedQuery, ShardedQuery, check_layout
     from memo_tpu_torch.query.engine import QueryEngine, parse_region
 
@@ -147,7 +314,7 @@ def _query_regions(args, device) -> int:
         mesh = check_layout(args.mesh.split(",")) if args.mesh else (1, 1)
     except ValueError as err:
         raise SystemExit(f"--mesh {args.mesh}: {err}") from None
-    store = ref_cli.load_store(args.index, args.num_docs, args.membership, force=args.force)
+    store = load_store(args.index, args.num_docs, args.membership, force=args.force)
     strategy = args.strategy
     if strategy == "auto":
         strategy = pick_batch_strategy(store, regions, device)
@@ -183,7 +350,7 @@ def _query_regions(args, device) -> int:
 
 
 def cmd_query(args) -> int:
-    from memo_tpu.query.output import write_conservation, write_membership
+    from memo_tpu_torch.query.output import write_conservation, write_membership
     from memo_tpu_torch.query.engine import QueryEngine, parse_region
     from memo_tpu_torch.utils.device import resolve_device
 
@@ -192,7 +359,7 @@ def cmd_query(args) -> int:
     device = resolve_device(args.device)
     if args.regions_file:
         return _query_regions(args, device)
-    store = ref_cli.load_store(args.index, args.num_docs, args.membership, force=args.force)
+    store = load_store(args.index, args.num_docs, args.membership, force=args.force)
     engine = QueryEngine(store, backend=args.backend, device=device)
     record, qs, qe = parse_region(args.region)
     with trace_context(args.profile):
@@ -212,9 +379,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.command == "query":
         return cmd_query(args)
     if args.command == "view":
-        return ref_cli.cmd_view(args)
+        return cmd_view(args)
     if args.command == "extract":
-        return ref_cli.cmd_extract(args)
+        return cmd_extract(args)
     raise SystemExit(f"unknown command {args.command}")
 
 

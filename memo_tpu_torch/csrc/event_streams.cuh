@@ -1,6 +1,6 @@
-// The event streams of a batch of query windows, as the fused-query kernels
-// read them (memo_tpu_torch/ops/fused_query.py::prepare_streams lays them
-// out): for window q, the minus stream pos_m/val_m holds m_stride events from
+// The event streams of a batch of query windows, as the v2 kernel reads them
+// (memo_tpu_torch/ops/fused_query.py::prepare_streams lays them out): for
+// window q, the minus stream pos_m/val_m holds m_stride events from
 // q * m_stride and the plus stream p_stride events from q * p_stride; tile t
 // of window q reads events [off[q][t], off[q][t + 1]) of each stream, with
 // off holding nt + 1 entries per window.

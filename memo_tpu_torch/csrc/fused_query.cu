@@ -1,87 +1,479 @@
-// Fused MEMO query over a batch of windows for NVIDIA Hopper (sm_90a).
+// Fused MEMO query for NVIDIA Hopper (sm_90a), read straight from the placed
+// store's rows.
 //
-// Replaces the TPU kernel memo_tpu/ops/pallas_query.py::_make_kernel (the
-// body that memo_query_pallas hands to pl.pallas_call, which memo_tpu runs
-// once per window, and in a fori_loop over windows for a batch). Same
-// contract: two pre-sorted event streams per window [qs, qs+L) at k, as built
-// by memo_tpu_torch/ops/fused_query.py::prepare_streams,
+// Replaces the TPU function memo_tpu/ops/pallas_query.py::memo_query_pallas
+// as a whole: its stream set-up (:270-293, which cuts the minus and plus
+// event streams out of the store's rows, shadow-casts them and masks the
+// dead ones) and its kernel body (_make_kernel, :100, handed to
+// pl.pallas_call at :328). Same contract: window q is [qs, qs + L) at k, with
+// candidate rows [mlo, mhi) in start order and [plo, phi) in end order
+// (memo_tpu_torch/query/engine.py::_window_params finds them on the host);
+// row i of a range is an event when it is live, end - start < k - 1 and
+// 0 <= order < C:
 //
-//   minus stream: -1 at st = start - qs      (start order)
-//   plus stream:  +1 at ce = end - qs - (k-1) (end order)
-//   val = column + 1 for live events, 0 for inert ones,
+//   minus stream: -1 in column order at window position start - qs
+//   plus stream:  +1 in column order at window position end - qs - (k - 1)
 //
-// give the coverage cov[p, c] = prefix[c] + sum of the events at positions
-// <= p in column c. It is reduced in the kernel to conservation (first column
-// with cov > 0, else n_docs; int32[L]) or membership (1 - marked; int8[L, C]).
-// A batch of Q windows runs at one L (the longest); blockIdx.y is the window,
-// so the whole batch is one launch of each pass.
+// and the coverage cov[p][c] = prefix[q][c] + the events at positions <= p in
+// column c is reduced in the kernel to conservation (first column with
+// cov > 0, else n_docs; int32[Q, L]) or membership (1 - marked;
+// int8[Q, L, C]). The store's rows are sorted by start (and, through the
+// layout's permutation, by end) within a record, so the events of positions
+// [p0, p1) are a contiguous run of rows, found in the kernel by a search.
 //
-// Why three passes: the TPU walks its grid in order and carries the running
-// coverage from one tile to the next in VMEM scratch. Blocks here run in
-// parallel and in no order, so the carry comes from a scan instead:
-//   1. tile_delta_kernel: one block per (tile of T positions, window) sums
-//      the net per-column events of its [off[t], off[t+1]) ranges into
-//      delta[q, t, C];
-//   2. tile_scan_kernel: one block per (column, window) scans delta over
-//      tiles, starting from prefix[q], into carry[q, t, C] (exclusive);
-//   3. tile_apply_kernel: one block per (tile, window) scatters its events
-//      with shared-memory atomics into a T x C diff tile, scans it over the T
-//      positions from carry[q, t], and writes the reduced output. The
-//      coverage never goes to device memory.
+// What bounds it on this card: a few integer operations per event and per
+// (position, column), far below the compute roof, so bytes: each candidate
+// row's start, end and order read once (12 bytes per event), plus the output
+// written once (4 bytes per position, or C bytes for membership). At the
+// headline (2 Mbp, C=16) that is 4,433,764 x 12 + 2,097,152 x 4 bytes.
 //
-// What bounds it on this card: it does a few integer operations per event and
-// per (position, column), far below the compute roof, so it is bound by bytes:
-// the event streams read (pos + val in passes 1 and 3: 16 bytes per event)
-// plus the output written (4 bytes per position, or C bytes per
-// position for membership). delta and carry are Q * nt * C int32 each, small
-// next to the streams. Where events are dense (tens per position at pangenome
-// widths), the shared-memory atomics of pass 3 are the next limit; they stay in
-// shared memory, spread over T * C addresses, and never touch device memory.
-// The tile T is the widest of 256/128/64 whose T x C int32 tile fits the
-// 227 KB a block may use (fused_query.py::kernel_constants picks it).
+// What the design does about the faults of the three-pass stream kernel it
+// replaces (kernel plus a stream set-up of some 25 torch operations):
+//  1. Set-up over padded rows: there is none. The kernel reads the rows of
+//     [mlo, mhi) and [plo, phi) where the store keeps them; no pos/val
+//     streams, no pow2-padded M rows, no batch gather, no searchsorted.
+//  2. Events read twice: the run variant reads each row once from device
+//     memory (its second touch, microseconds later, hits L2); the tile
+//     variant reads each row twice.
+//  3. Bank conflicts in the conservation reduction: the tile is
+//     cov[C][T + 1]. T is a multiple of 32, so column c's row starts at
+//     bank (c * (T + 1)) % 32 = c % 32, and word (c, p) sits in bank
+//     (c + p) % 32. Every warp access is conflict-free whatever C is (16,
+//     90, 160, ...): the scan reads a column's 32 consecutive positions (32
+//     banks); the membership write reads (c..c+31, p) with threads over c
+//     (32 banks). Conservation reads the tile once: each warp scans its
+//     columns in registers and keeps each position's first marked column
+//     there, and one atomicMin per position and warp merges them.
+//  4. Launches: one host-to-device copy of the parameters and prefix (the
+//     wrapper's), then three kernels (tiles) or one memset and one kernel
+//     (runs); about 30 before.
+//
+// The carry across tiles, two variants (the wrapper picks one):
+//  - tiles (variant 1): rows_net_kernel sums each tile's net events per
+//    column, tile_scan_kernel scans them over tiles from the prefix, and
+//    rows_apply_kernel applies each tile from its carry. No block waits on
+//    another; every row is read twice.
+//  - runs (variant 2): one block walks a run of R consecutive tiles and
+//    carries the coverage through them itself. It first reads the run's rows
+//    once for the run's net per column (and the first row of each tile),
+//    publishes that aggregate, gets the coverage entering the run by a
+//    decoupled look-back over the earlier runs of its window, then applies
+//    the run tile by tile. The run index comes from an atomic ticket per
+//    window, so a block only waits on runs whose blocks already started, and
+//    the look-back cannot deadlock; sums are published with a fence, a
+//    barrier and a release store of the status, read after an acquire load
+//    through L2 (__ldcg). The look-back takes up to blockDim.x runs a step.
 //
 // The launcher runs on the caller's stream, does not synchronise and does not
-// allocate: the wrapper passes delta, carry and the output.
+// allocate: the wrapper passes the scratch and the output.
 
 #include <cstddef>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
-#include "event_streams.cuh"
-
 namespace {
 
-constexpr int kSeg = 16;  // positions per scan segment in the apply pass
-constexpr int kDeltaThreads = 256;
-constexpr int kApplyThreads = 256;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxGridY = 65535;  // blockIdx.y carries the window
+constexpr int kMaxRun = 16;       // tiles one block walks in the run variant
+constexpr int kMaxChunks = 8;    // 32-position chunks of the widest tile (256)
+constexpr int kNetThreads = 128;  // rows_net_kernel: four warps, one search each
 constexpr int kScanThreads = 1024;
 constexpr int kScanWarps = kScanThreads / 32;
-constexpr int kMaxGridY = 65535;  // blockIdx.y carries the window
-static_assert(kScanWarps == 32, "the scan's second level is one warp wide");
+constexpr int kNotReady = 0;   // run status words: nothing published yet,
+constexpr int kAggregate = 1;  // the run's net per column published,
+constexpr int kInclusive = 2;  // the coverage after the run published
+static_assert(kScanWarps == 32, "the tile scan's second level is one warp wide");
+static_assert(kWarps >= 4 && kNetThreads >= 128, "four warps search the row bounds");
 
-__global__ void __launch_bounds__(kDeltaThreads)
-tile_delta_kernel(EventStreams streams, int T, int C, int32_t* __restrict__ delta) {
-  extern __shared__ int net[];  // [C]
-  const int t = blockIdx.x;
-  const int q = blockIdx.y;
-  const EventStreams s = streams.window(q);
-  const int base = t * T;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) net[c] = 0;
-  __syncthreads();
-  for (int i = s.off_m[t] + threadIdx.x; i < s.off_m[t + 1]; i += blockDim.x) {
-    const int v = s.val_m[i];
-    if (live_event(v, s.pos_m[i] - base, T, C)) atomicSub(&net[v - 1], 1);
-  }
-  for (int i = s.off_p[t] + threadIdx.x; i < s.off_p[t + 1]; i += blockDim.x) {
-    const int v = s.val_p[i];
-    if (live_event(v, s.pos_p[i] - base, T, C)) atomicAdd(&net[v - 1], 1);
-  }
-  __syncthreads();
-  int32_t* d = delta + (static_cast<size_t>(q) * s.nt + t) * C;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) d[c] = net[c];
+// The placed store (memo_tpu_torch/query/engine.py::PlacedStore): n_rows
+// int32 rows in start order and, permuted, in end order.
+struct Store {
+  const int32_t* start;
+  const int32_t* end;
+  const int32_t* order;
+  const int32_t* end_s;
+  const int32_t* start_by_end;
+  const int32_t* order_by_end;
+  int n_rows;
+};
+
+// One event stream of one window: rows [lo, hi) of the sorted coordinate
+// `key` (start for the minus stream, end for the plus one), with the partner
+// coordinate and the column; row i's event sits at key[i] - shift.
+struct Stream {
+  const int32_t* key;
+  const int32_t* partner;
+  const int32_t* order;
+  int lo;
+  int hi;
+  int shift;
+};
+
+struct Window {
+  Stream minus;
+  Stream plus;
+};
+
+// Window q's streams from its parameter row (mlo, mhi, plo, phi, qs); the
+// row ranges are clamped to the store, so no parameter reads outside it.
+__device__ Window load_window(const Store& s, const int32_t* params, int q, int k) {
+  const int32_t* w = params + static_cast<size_t>(q) * 5;
+  const int mlo = min(max(w[0], 0), s.n_rows);
+  const int plo = min(max(w[2], 0), s.n_rows);
+  const int qs = w[4];
+  return {{s.start, s.end, s.order, mlo, min(max(w[1], mlo), s.n_rows), qs},
+          {s.end_s, s.start_by_end, s.order_by_end, plo, min(max(w[3], plo), s.n_rows),
+           qs + k - 1}};
 }
 
+// Row i's event: its column, or -1 when the row is not live; *pos gets its
+// window position. end - start is key - partner in end order and
+// partner - key in start order.
+template <bool kPlus>
+__device__ __forceinline__ int event_column(const Stream& st, int i, int k, int C, int* pos) {
+  const int key = st.key[i];
+  const int partner = st.partner[i];
+  const int o = st.order[i];
+  *pos = key - st.shift;
+  const int span = kPlus ? key - partner : partner - key;
+  return span < k - 1 && o >= 0 && o < C ? o : -1;
+}
+
+// First row of [lo, hi) whose key is >= v, or hi (the keys are sorted on
+// [lo, hi)). One warp: 32 probes cut the range into 33 parts a step, so a
+// range of 4M rows takes 5 steps. Every lane returns the answer.
+__device__ int warp_lower_bound(const int32_t* __restrict__ key, int lo, int hi, int v) {
+  const int lane = threadIdx.x & 31;
+  // Invariant: the answer lies in [lo, hi].
+  while (lo < hi) {
+    const long long n = hi - lo;
+    const int probe = lo + static_cast<int>(n * (lane + 1) / 33);  // in [lo, hi)
+    const int below = __popc(__ballot_sync(0xffffffffu, key[probe] < v));
+    const int new_lo = below == 0 ? lo : lo + static_cast<int>(n * below / 33) + 1;
+    hi = below == 32 ? hi : lo + static_cast<int>(n * (below + 1) / 33);
+    lo = new_lo;
+  }
+  return lo;
+}
+
+// The rows of window positions [p0, p1): found[0..1] in the minus stream,
+// found[2..3] in the plus stream. Warps 0-3 search one bound each; the caller
+// synchronises before reading found.
+__device__ void find_bounds(const Window& w, int p0, int p1, int* found) {
+  const int warp = threadIdx.x >> 5;
+  if (warp < 4) {
+    const Stream& st = warp < 2 ? w.minus : w.plus;
+    const int row = warp_lower_bound(st.key, st.lo, st.hi, st.shift + ((warp & 1) ? p1 : p0));
+    if ((threadIdx.x & 31) == 0) found[warp] = row;
+  }
+}
+
+// Add the live events of rows [lo, hi) at positions [base, base + T) into
+// dst[c * S + (p - base) * P]: a diff tile with P = 1, per-column sums with
+// S = 1 and P = 0.
+template <bool kPlus>
+__device__ void scatter(const Stream& st, int lo, int hi, int base, int T, int k, int C, int* dst,
+                        int S, int P) {
+  for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+    int pos;
+    const int c = event_column<kPlus>(st, i, k, C, &pos);
+    const int p = pos - base;
+    if (c >= 0 && p >= 0 && p < T) atomicAdd(&dst[c * S + p * P], kPlus ? 1 : -1);
+  }
+}
+
+// Pass A of a run of nr tiles from position base: the net live events per
+// column into net[C], and bound[j] = the first row at or past tile j (the
+// caller sets bound[0..nr] to hi first). The tile of row i - 1 comes from its
+// key, so every tile boundary between two rows is written by exactly one
+// thread.
+template <bool kPlus>
+__device__ void run_net(const Stream& st, int lo, int hi, int base, int T, int nr, int k, int C,
+                        int* net, int* bound) {
+  for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+    int pos;
+    const int c = event_column<kPlus>(st, i, k, C, &pos);
+    const int j = min(max((pos - base) / T, 0), nr - 1);
+    const int prev = i == lo ? -1 : min(max((st.key[i - 1] - st.shift - base) / T, 0), nr - 1);
+    for (int b = prev + 1; b <= j; ++b) bound[b] = i;
+    if (c >= 0 && pos >= base && pos - base < nr * T) atomicAdd(&net[c], kPlus ? 1 : -1);
+  }
+}
+
+// Coverage along each column of the tile from carry[c]: one warp per column.
+// The column's T / 32 chunks of 32 positions are scanned with shuffles side
+// by side (independent chains), then chained by their totals; carry[c]
+// becomes the coverage at the tile's last position.
+__device__ void scan_tile(int* cov, int* carry, int T, int S, int C) {
+  const int lane = threadIdx.x & 31;
+  const int n_chunks = T / 32;
+  for (int c = threadIdx.x >> 5; c < C; c += kWarps) {
+    int* row = cov + c * S;
+    int x[kMaxChunks];
+#pragma unroll
+    for (int j = 0; j < kMaxChunks; ++j) x[j] = j < n_chunks ? row[j * 32 + lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+#pragma unroll
+      for (int j = 0; j < kMaxChunks; ++j) {
+        const int y = __shfl_up_sync(0xffffffffu, x[j], o);
+        if (lane >= o) x[j] += y;
+      }
+    }
+    int run = carry[c];
+#pragma unroll
+    for (int j = 0; j < kMaxChunks; ++j) {
+      const int total = __shfl_sync(0xffffffffu, x[j], 31);
+      if (j < n_chunks) row[j * 32 + lane] = x[j] + run;
+      run += total;
+    }
+    if (lane == 0) carry[c] = run;
+  }
+}
+
+// Conservation of the tile: the scan of scan_tile, reduced in registers.
+// Each lane keeps, for its positions, the first of its warp's columns with
+// coverage > 0 (a warp takes its columns in increasing order), and one shared
+// atomicMin per position and warp merges the warps into first[T] (which
+// holds n_docs on entry). With rezero the diff is zeroed as it is read, for
+// the block's next tile; carry[c] becomes the coverage after the tile.
+__device__ void scan_conservation(int* cov, int* carry, int* first, int T, int S, int C,
+                                  int n_docs, bool rezero) {
+  const int lane = threadIdx.x & 31;
+  const int n_chunks = T / 32;
+  int best[kMaxChunks];
+#pragma unroll
+  for (int j = 0; j < kMaxChunks; ++j) best[j] = n_docs;
+  for (int c = threadIdx.x >> 5; c < C; c += kWarps) {
+    int* row = cov + c * S;
+    int x[kMaxChunks];
+#pragma unroll
+    for (int j = 0; j < kMaxChunks; ++j) {
+      x[j] = j < n_chunks ? row[j * 32 + lane] : 0;
+      if (rezero && j < n_chunks) row[j * 32 + lane] = 0;
+    }
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+#pragma unroll
+      for (int j = 0; j < kMaxChunks; ++j) {
+        const int y = __shfl_up_sync(0xffffffffu, x[j], o);
+        if (lane >= o) x[j] += y;
+      }
+    }
+    int run = carry[c];
+#pragma unroll
+    for (int j = 0; j < kMaxChunks; ++j) {
+      const int total = __shfl_sync(0xffffffffu, x[j], 31);
+      if (x[j] + run > 0) best[j] = min(best[j], c);
+      run += total;
+    }
+    if (lane == 0) carry[c] = run;
+  }
+#pragma unroll
+  for (int j = 0; j < kMaxChunks; ++j) {
+    if (j < n_chunks && best[j] < n_docs) atomicMin(&first[j * 32 + lane], best[j]);
+  }
+}
+
+// Membership of the tile from its scanned coverage (scan_tile): one warp per
+// position, lanes over columns, coalesced int8 stores of the first `rows`
+// positions from out; zeroes the tile for the block's next one.
+__device__ void reduce_membership(int* cov, int T, int S, int C, int rows, int8_t* out) {
+  const int lane = threadIdx.x & 31;
+  for (int p = threadIdx.x >> 5; p < T; p += kWarps) {
+    for (int c = lane; c < C; c += 32) {
+      const int v = cov[c * S + p];
+      cov[c * S + p] = 0;
+      if (p < rows) out[static_cast<size_t>(p) * C + c] = v > 0 ? 0 : 1;
+    }
+  }
+}
+
+// Apply one tile of window positions [base, base + T) from the zeroed tile
+// cov[C][T + 1], carry[C] and first[T] (all n_docs): scatter its minus rows
+// [m0, m1) and plus rows [p0, p1), scan, and write the output of its first
+// `rows` positions from out_row (an index into out's Q * L positions).
+// Leaves carry[c] at the coverage after the tile, first[] at n_docs and, with
+// rezero (membership always), the tile zeroed for the block's next tile.
+template <bool kMembership>
+__device__ void apply_tile(const Window& w, int* cov, int* carry, int* first, int m0, int m1,
+                           int p0, int p1, int base, int T, int k, int C, int rows, int n_docs,
+                           bool rezero, void* out, size_t out_row) {
+  const int S = T + 1;
+  scatter<false>(w.minus, m0, m1, base, T, k, C, cov, S, 1);
+  scatter<true>(w.plus, p0, p1, base, T, k, C, cov, S, 1);
+  __syncthreads();
+  if constexpr (kMembership) {
+    scan_tile(cov, carry, T, S, C);
+    __syncthreads();
+    reduce_membership(cov, T, S, C, rows, static_cast<int8_t*>(out) + out_row * C);
+  } else {
+    scan_conservation(cov, carry, first, T, S, C, n_docs, rezero);
+    __syncthreads();
+    int32_t* o = static_cast<int32_t*>(out) + out_row;
+    for (int p = threadIdx.x; p < T; p += blockDim.x) {
+      if (p < rows) o[p] = first[p];
+      first[p] = n_docs;
+    }
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" : : "l"(p), "r"(v) : "memory");
+}
+
+// Make this block's writes to the sums visible, then set the run's status.
+__device__ __forceinline__ void publish(int* status, int flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) store_release(status, flag);
+}
+
+// The coverage entering run r of a window into carry[C]: a decoupled
+// look-back over runs [0, r) of the window, whose status words and sums
+// (aggregate[C], inclusive[C]) start at status and sums. Each step takes up
+// to blockDim.x runs: every thread acquires one run's status, the block finds
+// the nearest run with its inclusive sums published (*stop, shared), and
+// thread c adds column c of the runs after it. Run 0 always publishes its
+// inclusive sums, so the walk ends.
+__device__ void look_back(const int* status, const int32_t* sums, int r, int C, int* carry,
+                          int* stop) {
+  for (int c = threadIdx.x; c < C; c += blockDim.x) carry[c] = 0;
+  for (int end = r;;) {
+    const int lo = max(0, end - static_cast<int>(blockDim.x));
+    if (threadIdx.x == 0) *stop = -1;
+    __syncthreads();
+    const int pred = end - 1 - static_cast<int>(threadIdx.x);
+    if (pred >= lo) {
+      int flag;
+      while ((flag = load_acquire(&status[pred])) == kNotReady) __nanosleep(32);
+      if (flag == kInclusive) atomicMax(stop, pred);
+    }
+    __syncthreads();
+    const int found = *stop;
+    const int from = found >= 0 ? found : lo;
+    for (int c = threadIdx.x; c < C; c += blockDim.x) {
+      int acc = carry[c];
+      for (int p = end - 1; p >= from; --p) {
+        acc += __ldcg(sums + static_cast<size_t>(p) * 2 * C + (p == found ? C : 0) + c);
+      }
+      carry[c] = acc;
+    }
+    if (found >= 0 || lo == 0) break;
+    end = lo;
+    __syncthreads();  // *stop is reset for the next step
+  }
+  __syncthreads();
+}
+
+// ------------------------------------------------------------ runs (variant 2)
+template <bool kMembership>
+__global__ void __launch_bounds__(kThreads)
+rows_run_kernel(Store store, const int32_t* __restrict__ params,
+                const int32_t* __restrict__ prefix, int* __restrict__ status,
+                int* __restrict__ ticket, int32_t* __restrict__ sums, int L, int C, int T, int R,
+                int k, int n_docs, void* __restrict__ out) {
+  extern __shared__ int smem[];
+  int* cov = smem;                       // [C][T + 1]: diff, then coverage
+  int* carry = cov + C * (T + 1);        // [C]: coverage entering the tile
+  int* first = carry + C;                // [T]: first marked column per position
+  int* net = first + T;                  // [C]: the run's net events
+  int* bound_m = net + C;                // [kMaxRun + 1]: first row of each tile
+  int* bound_p = bound_m + kMaxRun + 1;  // [kMaxRun + 1]
+  int* found = bound_p + kMaxRun + 1;    // [4]: the run's rows
+  int* misc = found + 4;                 // [2]: ticket, look-back stop
+  const int q = blockIdx.y;
+  const int nt = (L + T - 1) / T;
+  const int n_runs = gridDim.x;
+  const Window w = load_window(store, params, q, k);
+
+  if (threadIdx.x == 0) misc[0] = atomicAdd(&ticket[q], 1);
+  for (int i = threadIdx.x; i < C * (T + 1); i += blockDim.x) cov[i] = 0;
+  for (int p = threadIdx.x; p < T; p += blockDim.x) first[p] = n_docs;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) net[c] = 0;
+  __syncthreads();
+  const int r = misc[0];
+  const int nr = min(R, nt - r * R);
+  const int base = r * R * T;
+  find_bounds(w, base, base + nr * T, found);
+  __syncthreads();
+  for (int j = threadIdx.x; j <= nr; j += blockDim.x) {
+    bound_m[j] = found[1];
+    bound_p[j] = found[3];
+  }
+  __syncthreads();
+
+  // Pass A: the run's net per column and its tile bounds.
+  run_net<false>(w.minus, found[0], found[1], base, T, nr, k, C, net, bound_m);
+  run_net<true>(w.plus, found[2], found[3], base, T, nr, k, C, net, bound_p);
+  __syncthreads();
+
+  // The carry into the run.
+  const size_t window_run = static_cast<size_t>(q) * n_runs;
+  int32_t* aggregate = sums + (window_run + r) * 2 * C;
+  int32_t* inclusive = aggregate + C;
+  if (r == 0) {
+    for (int c = threadIdx.x; c < C; c += blockDim.x) {
+      carry[c] = prefix[static_cast<size_t>(q) * C + c];
+      inclusive[c] = carry[c] + net[c];
+    }
+  } else {
+    for (int c = threadIdx.x; c < C; c += blockDim.x) aggregate[c] = net[c];
+    publish(&status[window_run + r], kAggregate);
+    look_back(status + window_run, sums + window_run * 2 * C, r, C, carry, misc + 1);
+    for (int c = threadIdx.x; c < C; c += blockDim.x) inclusive[c] = carry[c] + net[c];
+  }
+  publish(&status[window_run + r], kInclusive);
+
+  // Pass B: apply the run tile by tile.
+  for (int j = 0; j < nr; ++j) {
+    const int tile_base = base + j * T;
+    apply_tile<kMembership>(w, cov, carry, first, bound_m[j], bound_m[j + 1], bound_p[j],
+                            bound_p[j + 1], tile_base, T, k, C, min(T, L - tile_base), n_docs,
+                            true, out, static_cast<size_t>(q) * L + tile_base);
+  }
+}
+
+// ----------------------------------------------------------- tiles (variant 1)
+// One block per (tile, window): the tile's rows (minus lo, hi, plus lo, hi)
+// into bounds[q, t, 4] and its net events per column into delta[q, c, t].
+__global__ void __launch_bounds__(kNetThreads)
+rows_net_kernel(Store store, const int32_t* __restrict__ params, int C, int T, int k,
+                int32_t* __restrict__ bounds, int32_t* __restrict__ delta) {
+  extern __shared__ int smem[];
+  int* net = smem;       // [C]
+  int* found = net + C;  // [4]
+  const int t = blockIdx.x;
+  const int q = blockIdx.y;
+  const int nt = gridDim.x;
+  const Window w = load_window(store, params, q, k);
+  const int base = t * T;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) net[c] = 0;
+  find_bounds(w, base, base + T, found);
+  __syncthreads();
+  scatter<false>(w.minus, found[0], found[1], base, T, k, C, net, 1, 0);
+  scatter<true>(w.plus, found[2], found[3], base, T, k, C, net, 1, 0);
+  __syncthreads();
+  const size_t tile = static_cast<size_t>(q) * nt + t;
+  if (threadIdx.x < 4) bounds[tile * 4 + threadIdx.x] = found[threadIdx.x];
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    delta[(static_cast<size_t>(q) * C + c) * nt + t] = net[c];
+  }
+}
+
+// carry[q, c, t] = prefix[q, c] + sum of delta[q, c, t'] over t' < t: one
+// block per (column, window), reading and writing its row of tiles
+// contiguously.
 __global__ void __launch_bounds__(kScanThreads)
 tile_scan_kernel(const int32_t* __restrict__ delta, const int32_t* __restrict__ prefix, int nt,
                  int C, int32_t* __restrict__ carry) {
@@ -90,11 +482,11 @@ tile_scan_kernel(const int32_t* __restrict__ delta, const int32_t* __restrict__ 
   const int q = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const size_t window = static_cast<size_t>(q) * nt * C;
+  const size_t row = (static_cast<size_t>(q) * C + c) * nt;
   int running = prefix[static_cast<size_t>(q) * C + c];
   for (int first = 0; first < nt; first += kScanThreads) {
     const int t = first + threadIdx.x;
-    const int v = t < nt ? delta[window + static_cast<size_t>(t) * C + c] : 0;
+    const int v = t < nt ? delta[row + t] : 0;
     int x = v;  // inclusive scan within the warp
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
@@ -104,146 +496,138 @@ tile_scan_kernel(const int32_t* __restrict__ delta, const int32_t* __restrict__ 
     if (lane == 31) warp_sum[warp] = x;
     __syncthreads();
     if (warp == 0) {  // inclusive scan of the 32 warp totals
-      int w = warp_sum[lane];
+      int s = warp_sum[lane];
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, w, o);
-        if (lane >= o) w += y;
+        const int y = __shfl_up_sync(0xffffffffu, s, o);
+        if (lane >= o) s += y;
       }
-      warp_sum[lane] = w;
+      warp_sum[lane] = s;
     }
     __syncthreads();
-    if (t < nt) {
-      carry[window + static_cast<size_t>(t) * C + c] =
-          running + (warp > 0 ? warp_sum[warp - 1] : 0) + x - v;
-    }
+    if (t < nt) carry[row + t] = running + (warp > 0 ? warp_sum[warp - 1] : 0) + x - v;
     running += warp_sum[kScanWarps - 1];
     __syncthreads();  // warp_sum is rewritten by the next round
   }
 }
 
+// One block per (tile, window): the tile applied from its carry.
 template <bool kMembership>
-__global__ void __launch_bounds__(kApplyThreads)
-tile_apply_kernel(EventStreams streams, const int32_t* __restrict__ carry, int L, int C, int T,
-                  int n_docs, void* __restrict__ out) {
+__global__ void __launch_bounds__(kThreads)
+rows_apply_kernel(Store store, const int32_t* __restrict__ params,
+                  const int32_t* __restrict__ bounds, const int32_t* __restrict__ tile_carry,
+                  int L, int C, int T, int k, int n_docs, void* __restrict__ out) {
   extern __shared__ int smem[];
-  int* cov = smem;          // [T][C]: event diff, then coverage
-  int* seg = smem + T * C;  // [T / kSeg][C]: segment sums, then segment carries
-  const int S = T / kSeg;
+  int* cov = smem;                 // [C][T + 1]
+  int* carry = cov + C * (T + 1);  // [C]
+  int* first = carry + C;          // [T]
   const int t = blockIdx.x;
   const int q = blockIdx.y;
-  const EventStreams s = streams.window(q);
+  const int nt = gridDim.x;
+  const Window w = load_window(store, params, q, k);
+  const int32_t* b = bounds + (static_cast<size_t>(q) * nt + t) * 4;
   const int base = t * T;
-
-  for (int i = threadIdx.x; i < T * C; i += blockDim.x) cov[i] = 0;
-  __syncthreads();
-  for (int i = s.off_m[t] + threadIdx.x; i < s.off_m[t + 1]; i += blockDim.x) {
-    const int v = s.val_m[i];
-    const int p = s.pos_m[i] - base;
-    if (live_event(v, p, T, C)) atomicSub(&cov[p * C + v - 1], 1);
-  }
-  for (int i = s.off_p[t] + threadIdx.x; i < s.off_p[t + 1]; i += blockDim.x) {
-    const int v = s.val_p[i];
-    const int p = s.pos_p[i] - base;
-    if (live_event(v, p, T, C)) atomicAdd(&cov[p * C + v - 1], 1);
-  }
-  __syncthreads();
-
-  // Column-wise scan over T positions in two levels: each (segment, column)
-  // item sums kSeg positions, one thread per column scans the T / kSeg
-  // segment sums from carry[q, t], then each item rescans its segment. Items
-  // with consecutive columns sit on consecutive banks.
-  for (int w = threadIdx.x; w < S * C; w += blockDim.x) {
-    const int* col = cov + (w / C) * kSeg * C + (w % C);
-    int acc = 0;
-#pragma unroll
-    for (int j = 0; j < kSeg; ++j) acc += col[j * C];
-    seg[w] = acc;
-  }
-  __syncthreads();
-  const int32_t* tile_carry = carry + (static_cast<size_t>(q) * s.nt + t) * C;
+  for (int i = threadIdx.x; i < C * (T + 1); i += blockDim.x) cov[i] = 0;
+  for (int p = threadIdx.x; p < T; p += blockDim.x) first[p] = n_docs;
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    int run = tile_carry[c];
-    for (int j = 0; j < S; ++j) {
-      const int v = seg[j * C + c];
-      seg[j * C + c] = run;
-      run += v;
-    }
+    carry[c] = tile_carry[(static_cast<size_t>(q) * C + c) * nt + t];
   }
   __syncthreads();
-  for (int w = threadIdx.x; w < S * C; w += blockDim.x) {
-    int* col = cov + (w / C) * kSeg * C + (w % C);
-    int run = seg[w];
-#pragma unroll
-    for (int j = 0; j < kSeg; ++j) {
-      run += col[j * C];
-      col[j * C] = run;
-    }
-  }
-  __syncthreads();
+  apply_tile<kMembership>(w, cov, carry, first, b[0], b[1], b[2], b[3], base, T, k, C,
+                          min(T, L - base), n_docs, false, out,
+                          static_cast<size_t>(q) * L + base);
+}
 
-  const int rows = min(T, L - base);
-  const size_t first_row = static_cast<size_t>(q) * L + base;
-  if constexpr (kMembership) {
-    int8_t* o = static_cast<int8_t*>(out) + first_row * C;
-    for (int i = threadIdx.x; i < rows * C; i += blockDim.x) o[i] = cov[i] > 0 ? 0 : 1;
-  } else {
-    int32_t* o = static_cast<int32_t*>(out) + first_row;
-    for (int p = threadIdx.x; p < rows; p += blockDim.x) {
-      const int* row = cov + p * C;
-      int first = n_docs;
-      for (int c = 0; c < C; ++c) {
-        if (row[c] > 0) {
-          first = c;
-          break;
-        }
-      }
-      o[p] = first < n_docs ? first : n_docs;
-    }
-  }
+size_t tile_smem_bytes(int C, int T) {
+  return (static_cast<size_t>(C) * (T + 1) + 2 * C + T + 2 * (kMaxRun + 1) + 8) * sizeof(int);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 template <bool kMembership>
-cudaError_t launch_apply(const EventStreams& streams, const int32_t* carry, void* out, int Q,
-                         int L, int C, int T, int n_docs, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(T + T / kSeg) * C * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(tile_apply_kernel<kMembership>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+cudaError_t launch_runs(const Store& store, const int32_t* params, const int32_t* prefix,
+                        int32_t* scratch, void* out, int Q, int L, int C, int T, int R, int k,
+                        int n_docs, cudaStream_t stream) {
+  const int nt = (L + T - 1) / T;
+  const int n_runs = (nt + R - 1) / R;
+  const size_t words = static_cast<size_t>(Q) * n_runs + Q;  // statuses, then tickets
+  int* status = scratch;
+  int* ticket = scratch + static_cast<size_t>(Q) * n_runs;
+  int32_t* sums = scratch + words;
+  cudaError_t err = cudaMemsetAsync(scratch, 0, words * sizeof(int), stream);
   if (err != cudaSuccess) return err;
-  tile_apply_kernel<kMembership><<<dim3(streams.nt, Q), kApplyThreads, smem, stream>>>(
-      streams, carry, L, C, T, n_docs, out);
+  const size_t smem = tile_smem_bytes(C, T);
+  err = allow_smem(rows_run_kernel<kMembership>, smem);
+  if (err != cudaSuccess) return err;
+  rows_run_kernel<kMembership><<<dim3(n_runs, Q), kThreads, smem, stream>>>(
+      store, params, prefix, status, ticket, sums, L, C, T, R, k, n_docs, out);
+  return cudaGetLastError();
+}
+
+template <bool kMembership>
+cudaError_t launch_tiles(const Store& store, const int32_t* params, const int32_t* prefix,
+                         int32_t* scratch, void* out, int Q, int L, int C, int T, int k,
+                         int n_docs, cudaStream_t stream) {
+  const int nt = (L + T - 1) / T;
+  const size_t tiles = static_cast<size_t>(Q) * nt;
+  int32_t* bounds = scratch;               // [Q, nt, 4]
+  int32_t* delta = bounds + tiles * 4;     // [Q, C, nt]
+  int32_t* carry = delta + tiles * C;      // [Q, C, nt]
+  rows_net_kernel<<<dim3(nt, Q), kNetThreads, (C + 4) * sizeof(int), stream>>>(
+      store, params, C, T, k, bounds, delta);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  tile_scan_kernel<<<dim3(C, Q), kScanThreads, 0, stream>>>(delta, prefix, nt, C, carry);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = tile_smem_bytes(C, T);
+  err = allow_smem(rows_apply_kernel<kMembership>, smem);
+  if (err != cudaSuccess) return err;
+  rows_apply_kernel<kMembership><<<dim3(nt, Q), kThreads, smem, stream>>>(
+      store, params, bounds, carry, L, C, T, k, n_docs, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch the three passes for Q windows on `stream`. Window q's streams hold
-// m_stride (minus) and p_stride (plus) events from row q, its offsets nt + 1
-// entries with nt = ceil(L / tile), its prefix C entries. delta and carry are
-// int32[Q, nt, C] scratch; out is int32[Q, L] (conservation) or int8[Q, L, C]
-// (membership). Returns the CUDA error code of the first launch that failed,
-// 0 when all three were accepted.
-extern "C" int memo_fused_query(const int32_t* pos_m, const int32_t* val_m, const int32_t* off_m,
-                                const int32_t* pos_p, const int32_t* val_p, const int32_t* off_p,
-                                const int32_t* prefix, int32_t* delta, int32_t* carry, void* out,
-                                int Q, int m_stride, int p_stride, int L, int C, int tile,
-                                int n_docs, int membership, void* stream) {
-  if (Q < 1 || Q > kMaxGridY || L < 1 || C < 1 || tile < kSeg || tile % kSeg != 0) {
+// Query Q windows of L positions on `stream` from the placed store's six
+// row arrays (n_rows rows each). params is int32[Q, 5] (mlo, mhi, plo, phi,
+// qs per window), prefix int32[Q, C], out int32[Q, L] (conservation) or
+// int8[Q, L, C] (membership). variant 1 (tiles) needs scratch of
+// Q * nt * (4 + 2 * C) int32 words with nt = ceil(L / tile); variant 2 (runs
+// of `run` tiles) needs Q * n_runs + Q + Q * n_runs * 2 * C with n_runs =
+// ceil(nt / run), of which it zeroes the first Q * n_runs + Q. Returns the
+// CUDA error code of the first call that failed, 0 when all were accepted.
+extern "C" int memo_fused_query_rows(const int32_t* start, const int32_t* end,
+                                     const int32_t* order, const int32_t* end_s,
+                                     const int32_t* start_by_end, const int32_t* order_by_end,
+                                     const int32_t* params, const int32_t* prefix,
+                                     int32_t* scratch, void* out, int n_rows, int Q, int L, int C,
+                                     int k, int tile, int run, int n_docs, int membership,
+                                     int variant, void* stream) {
+  if (n_rows < 0 || Q < 1 || Q > kMaxGridY || L < 1 || C < 1 || k < 1 || tile < 32 ||
+      tile % 32 != 0 || tile > 32 * kMaxChunks || run < 1 || run > kMaxRun ||
+      (variant != 1 && variant != 2)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nt = (L + tile - 1) / tile;
-  const EventStreams streams{pos_m, val_m, off_m, pos_p, val_p, off_p, m_stride, p_stride, nt};
-
-  tile_delta_kernel<<<dim3(nt, Q), kDeltaThreads, C * sizeof(int), s>>>(streams, tile, C, delta);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  tile_scan_kernel<<<dim3(C, Q), kScanThreads, 0, s>>>(delta, prefix, nt, C, carry);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if (membership) return launch_apply<true>(streams, carry, out, Q, L, C, tile, n_docs, s);
-  return launch_apply<false>(streams, carry, out, Q, L, C, tile, n_docs, s);
+  const Store store{start, end, order, end_s, start_by_end, order_by_end, n_rows};
+  if (variant == 2) {
+    if (membership) {
+      return launch_runs<true>(store, params, prefix, scratch, out, Q, L, C, tile, run, k,
+                               n_docs, s);
+    }
+    return launch_runs<false>(store, params, prefix, scratch, out, Q, L, C, tile, run, k, n_docs,
+                              s);
+  }
+  if (membership) {
+    return launch_tiles<true>(store, params, prefix, scratch, out, Q, L, C, tile, k, n_docs, s);
+  }
+  return launch_tiles<false>(store, params, prefix, scratch, out, Q, L, C, tile, k, n_docs, s);
 }
 
 extern "C" const char* memo_cuda_error_string(int err) {

@@ -214,7 +214,7 @@ cudaError_t launch(const EventStreams& streams, const int32_t* prefix, int* stat
 }  // namespace
 
 // Launch the one-pass kernel for Q windows on `stream`. The streams are laid
-// out as for memo_fused_query; `state` is int32[Q * nt + Q], zeroed by the
+// out as event_streams.cuh says; `state` is int32[Q * nt + Q], zeroed by the
 // caller on this stream (the tiles' status words, then one ticket per
 // window); `sums` is int32[Q, nt, 2, C] scratch (aggregate, inclusive); out is
 // int32[Q, L] or int8[Q, L, C]. Returns the CUDA error code of the launch, 0

@@ -87,11 +87,14 @@ def load_library() -> ctypes.CDLL:
     """The kernel library with its C signatures declared (built if needed)."""
     lib = ctypes.CDLL(str(build_library()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    # Both kernels: 6 stream pointers, prefix, two scratch pointers, out;
-    # Q, m_stride, p_stride, L, C, tile, n_docs, membership; the stream.
-    for fn in (lib.memo_fused_query, lib.memo_fused_query_v2):
-        fn.argtypes = [ptr] * 10 + [i32] * 8 + [ptr]
-        fn.restype = i32
+    # v1: 6 store row pointers, params, prefix, scratch, out; n_rows, Q, L,
+    # C, k, tile, run, n_docs, membership, variant; the stream.
+    lib.memo_fused_query_rows.argtypes = [ptr] * 10 + [i32] * 10 + [ptr]
+    lib.memo_fused_query_rows.restype = i32
+    # v2: 6 stream pointers, prefix, two scratch pointers, out; Q, m_stride,
+    # p_stride, L, C, tile, n_docs, membership; the stream.
+    lib.memo_fused_query_v2.argtypes = [ptr] * 10 + [i32] * 8 + [ptr]
+    lib.memo_fused_query_v2.restype = i32
     lib.memo_cuda_error_string.argtypes = [i32]
     lib.memo_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,4 +1,4 @@
-"""Fused query: event streams in, conservation/membership out.
+"""Fused query: the placed store's rows in, conservation/membership out.
 
 Counterpart of :mod:`memo_tpu.ops.pallas_query` (its docstring derives the
 method). The store keeps its rows sorted by start and, through a permutation,
@@ -11,12 +11,15 @@ both orders, so every (qs, k) query reads two already-sorted event streams:
 Events left of the window enter as the host-computed ``prefix`` (coverage at
 position 0, ``QueryLayout.prefix_counts``); events right of it never matter.
 
-:func:`prepare_streams` builds the streams on the device, for one window or
-for a batch of windows that all run at the batch's longest length;
-:func:`fused_query` runs the hand-written CUDA kernel (``csrc/fused_query.cu``)
-on them, one launch of each pass for the whole batch, and
-:func:`fused_query_reference` is its plain PyTorch version. The v2 kernel
-(:mod:`memo_tpu_torch.ops.fused_query_v2`) reads the same streams.
+:func:`fused_query_rows` runs the hand-written CUDA kernel
+(``csrc/fused_query.cu``) on the store's rows as ``engine.place_store`` put
+them on the device, for one window or a batch, from one int32 [Q, 5]
+parameter block (mlo, mhi, plo, phi, qs) and the prefix [Q, C]; the kernel
+finds each tile's rows itself. Its plain PyTorch version is
+:func:`prepare_streams` (the streams as memo_query_pallas builds them, over
+M rows from ``mlo`` and ``plo``) followed by :func:`fused_query_reference`.
+The v2 kernel (:mod:`memo_tpu_torch.ops.fused_query_v2`) reads those
+streams.
 """
 
 from __future__ import annotations
@@ -28,21 +31,48 @@ import torch
 
 from memo_tpu_torch.ops import query_ops as Q
 
-SEG = 16  # positions per scan segment of the kernel's apply pass (kSeg)
-TILES = (256, 128, 64)  # position tiles the kernel is built for, widest first
+SEG = 16  # segment sums in kernel_constants' tile budget, which sets v1's widest C
+TILES = (256, 128, 64)  # position tiles the kernels are built for, widest first
 MAX_SMEM_BYTES = 232_448  # dynamic shared memory one Hopper block may use
 MAX_WINDOWS = 65_535  # the kernels put the window on grid axis y
+MAX_RUN = 16  # tiles one block walks in the run variant (kMaxRun)
+VARIANTS = {"tiles": 1, "runs": 2}  # the two carries of csrc/fused_query.cu
+DEFAULT_VARIANT = "tiles"  # the faster on every measured shape (PERF.md)
 CPU = torch.device("cpu")
 
 
 def kernel_constants(C: int) -> int:
-    """Position tile T for ``C`` columns: the widest tile whose int32 coverage
-    tile (T x C) plus segment sums (T/SEG x C) fits one block's shared memory."""
+    """Position tile T for ``C`` columns at which the plain version builds
+    its streams: the widest tile whose int32 (T x C) tile plus segment sums
+    (T/SEG x C) fits one block. It bounds the widths v1 takes (C <= 854)."""
     for tile in TILES:
         if (tile + tile // SEG) * C * 4 <= MAX_SMEM_BYTES:
             return tile
     widest = MAX_SMEM_BYTES // ((TILES[-1] + TILES[-1] // SEG) * 4)
     raise ValueError(f"fused query supports at most {widest} columns, got C={C}")
+
+
+def _rows_smem_bytes(tile: int, C: int) -> int:
+    """Shared memory of one block of the row kernel (tile_smem_bytes in
+    csrc/fused_query.cu): the tile int32[C][tile + 1], carry and net [C],
+    the first marked column of each position [tile], the run's tile bounds
+    and a few words."""
+    return (C * (tile + 1) + 2 * C + tile + 2 * (MAX_RUN + 1) + 8) * 4
+
+
+def rows_tile(C: int) -> int:
+    """Position tile of the row kernel for ``C`` columns: the widest of
+    256/128/64 whose shared memory fits one block. Takes every C that v1
+    took before it (:func:`kernel_constants` raises past that)."""
+    kernel_constants(C)
+    return next(tile for tile in TILES if _rows_smem_bytes(tile, C) <= MAX_SMEM_BYTES)
+
+
+def run_length(n_tiles: int, device: torch.device) -> int:
+    """Tiles per block of the run variant for ``n_tiles`` tiles in all:
+    about four runs per SM, from 1 to MAX_RUN tiles each."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(MAX_RUN, n_tiles // (4 * sms)))
 
 
 class Streams(NamedTuple):
@@ -198,40 +228,104 @@ def launch_error(name: str, lib, err: int) -> RuntimeError:
     )
 
 
-def fused_query(streams: Streams, prefix: torch.Tensor, *, n_docs: int, membership: bool):
-    """Conservation int32[L] or membership int8[L, C] of one window, or
-    [Q, L] / [Q, L, C] of Q windows (batched streams, prefix [Q, C]).
+def window_args(params: np.ndarray, prefix: np.ndarray,
+                device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The parameter block int32[Q, 5] (mlo, mhi, plo, phi, qs per window)
+    and the prefix int32[Q, C] on ``device``, as two views of one tensor:
+    the host writes both into one pinned buffer, so a CUDA device gets them
+    in one host-to-device copy, without waiting on it."""
+    params = np.asarray(params).reshape(-1, 5)
+    prefix = np.asarray(prefix).reshape(params.shape[0], -1)
+    n_win, C = prefix.shape
+    device = torch.device(device)
+    host = torch.empty(n_win * (5 + C), dtype=torch.int32, pin_memory=device.type == "cuda")
+    view = host.numpy()
+    view[: n_win * 5] = params.ravel()
+    view[n_win * 5 :] = prefix.ravel()
+    dev = host.to(device, non_blocking=True)
+    return dev[: n_win * 5].view(n_win, 5), dev[n_win * 5 :].view(n_win, C)
 
-    On CUDA tensors this launches the kernel of ``csrc/fused_query.cu`` on the
-    current stream, one launch of each pass for the whole batch, and counts
-    the launch in ``fused_query.launches``; a tensor the kernel does not take
-    raises. On CPU tensors it runs :func:`fused_query_reference`.
+
+def fused_query_rows_reference(placed, params, prefix, *, k: int, L: int, C: int, n_docs: int,
+                               membership: bool):
+    """Plain PyTorch version of :func:`fused_query_rows`: the event streams
+    of every window (:func:`prepare_streams`, over as many rows as the
+    largest candidate range) and their diff-array query
+    (:func:`fused_query_reference`). Output [Q, L] or [Q, L, C]."""
+    mlo, mhi, plo, phi, qs = params.cpu().numpy().astype(np.int64).T
+    M = max(int((mhi - mlo).max()), int((phi - plo).max()), 1)
+    streams = prepare_streams(*placed, mlo, mhi, plo, phi, qs, k, M=M, L=L, C=C,
+                              tile=kernel_constants(C))
+    return fused_query_reference(streams, prefix, n_docs=n_docs, membership=membership)
+
+
+def fused_query_rows(placed, params: torch.Tensor, prefix: torch.Tensor, *, k: int, L: int, C: int,
+                     n_docs: int, membership: bool, variant: str = DEFAULT_VARIANT,
+                     run: int | None = None):
+    """Conservation int32[Q, L] or membership int8[Q, L, C] of Q windows of
+    L positions at k, from the placed store (``engine.PlacedStore``, six
+    int32 row tensors), the parameter block ``params`` int32[Q, 5] and the
+    prefix int32[Q, C] (:func:`window_args` puts both on the device).
+
+    On CUDA tensors this launches the kernel of ``csrc/fused_query.cu`` on
+    the current stream, once for the whole batch, with the carry of
+    ``variant`` ("tiles" or "runs", see the source note; for "runs", ``run``
+    tiles per block, else :func:`run_length`), and counts the launch in
+    ``fused_query_rows.launches``; a tensor the kernel does not take raises.
+    On CPU tensors it runs :func:`fused_query_rows_reference`.
     """
-    tensors = (*streams[:6], prefix)
+    tensors = (*placed, params, prefix)
     devices = {t.device for t in tensors}
     if devices == {CPU}:
-        return fused_query_reference(streams, prefix, n_docs=n_docs, membership=membership)
-    C = prefix.shape[-1]
-    lead, nt = check_launch("fused_query", streams, tensors, devices, kernel_constants(C))
+        return fused_query_rows_reference(placed, params, prefix, k=k, L=L, C=C, n_docs=n_docs,
+                                          membership=membership)
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"fused_query_rows needs all tensors on one CUDA device, got {devices}")
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}, expected one of {sorted(VARIANTS)}")
+    tile = rows_tile(C)
+    n_win = params.shape[0] if params.dim() == 2 else 0
+    if L < 1 or k < 1:
+        raise ValueError(f"fused_query_rows needs L >= 1 and k >= 1, got L={L}, k={k}")
+    if params.shape != (n_win, 5) or not 1 <= n_win <= MAX_WINDOWS:
+        raise ValueError(
+            f"params must be [Q, 5] with 1 <= Q <= {MAX_WINDOWS}, got {tuple(params.shape)}"
+        )
+    if prefix.shape != (n_win, C):
+        raise ValueError(f"prefix must be [Q, C] = [{n_win}, {C}], got {tuple(prefix.shape)}")
+    n_rows = placed[0].numel()
+    for t in tensors:
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError("fused_query_rows takes contiguous int32 tensors")
+    if any(t.dim() != 1 or t.numel() != n_rows for t in placed) or n_rows >= 2**31:
+        raise ValueError("the placed store needs six 1-D row tensors of one length below 2**31")
 
     from memo_tpu_torch.ops._build import load_library
 
     lib = load_library()
-    device = prefix.device
-    n_win = lead[0] if lead else 1
-    delta = torch.empty((n_win, nt, C), dtype=torch.int32, device=device)
-    carry = torch.empty((n_win, nt, C), dtype=torch.int32, device=device)
-    out = output_tensor(lead, streams.L, C, membership, device)
+    device = params.device
+    nt = -(-L // tile)
+    if variant == "runs":
+        run = run or run_length(nt * n_win, device)
+        if not 1 <= run <= MAX_RUN:
+            raise ValueError(f"run must be 1 to {MAX_RUN} tiles, got {run}")
+        n_runs = -(-nt // run)
+        words = n_win * n_runs + n_win + n_win * n_runs * 2 * C
+    else:
+        run = 1
+        words = n_win * nt * (4 + 2 * C)
+    scratch = torch.empty(words, dtype=torch.int32, device=device)
+    out = output_tensor((n_win,), L, C, membership, device)
     with torch.cuda.device(device):  # the launch goes to the current device
-        err = lib.memo_fused_query(
-            *(t.data_ptr() for t in tensors), delta.data_ptr(), carry.data_ptr(), out.data_ptr(),
-            n_win, streams.pos_m.shape[-1], streams.pos_p.shape[-1], streams.L, C, streams.tile,
-            n_docs, int(membership), torch.cuda.current_stream(device).cuda_stream,
+        err = lib.memo_fused_query_rows(
+            *(t.data_ptr() for t in tensors), scratch.data_ptr(), out.data_ptr(),
+            n_rows, n_win, L, C, k, tile, run, n_docs, int(membership), VARIANTS[variant],
+            torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
-        raise launch_error("fused_query", lib, err)
-    fused_query.launches += 1
+        raise launch_error("fused_query_rows", lib, err)
+    fused_query_rows.launches += 1
     return out
 
 
-fused_query.launches = 0
+fused_query_rows.launches = 0

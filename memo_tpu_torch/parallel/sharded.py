@@ -8,7 +8,7 @@ sums over ``sp``). The port runs on one device, the 1 x 1 layout, until its
 multi-GPU slice (ROADMAP.md). On that layout the two strategies are the same
 computation, the diff-array coverage of each window from its whole
 candidate set (``query_ops.coverage_counts`` with a window dimension), and
-the ``psum_scatter`` is the identity. The host side is memo_tpu's: the
+the ``psum_scatter`` is the identity. The host side follows memo_tpu's: the
 gather of candidate rows per window, pow2 buckets by candidate count, and
 the padding of a bucket's windows to a multiple of dp with a repeat row.
 """
@@ -18,8 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from memo_tpu.query.engine import _next_pow2
 from memo_tpu_torch.ops import query_ops as Q
+from memo_tpu_torch.query.engine import _next_pow2
 from memo_tpu_torch.utils.device import resolve_device
 
 STRATEGIES = ("position", "interval")

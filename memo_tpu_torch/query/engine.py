@@ -4,38 +4,65 @@ conservation/membership.
 Counterpart of :mod:`memo_tpu.query.engine`, with the same contracts:
 
 1. host-side binary search for the candidate row ranges of a window,
-2. a device step per (window, interval bucket): the fused CUDA kernel over
-   the two sorted event streams (backend ``fused``), or the diff-array tensor
-   ops (backend ``torch``); ``numpy`` runs on the host,
-3. bit-exact text output (:mod:`memo_tpu.query.output`, reused as it is).
+2. a device step per (window, interval bucket): the fused CUDA kernel
+   (backend ``fused``; v1 reads the placed rows of the candidate ranges from
+   one parameter upload, v2 the event streams of ``prepare_streams``), or
+   the diff-array tensor ops (backend ``torch``); ``numpy`` runs on the host,
+3. bit-exact text output (:mod:`memo_tpu_torch.query.output`).
 
 Large windows run in position chunks and oversized candidate sets halve the
 chunk, down to interval pieces combined with an elementwise minimum; dense
 stores split into length buckets (the proofs are in the JAX engine's
 docstrings and in memo_tpu/ops/query_ops.py). A batch of windows of one
 record (``conservation_batch``/``membership_batch``) runs as one launch of
-each kernel pass. PyTorch runs eagerly, so the pow2 candidate bucket M only
-bounds the working set of one step.
+the kernel. PyTorch runs eagerly, so the pow2 candidate bucket M only
+bounds the working set of one step (v1 does not read it).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from memo_tpu.index.store import IntervalStore
-from memo_tpu.query.engine import QueryStats, _next_pow2, parse_region
+from memo_tpu_torch.index.store import IntervalStore
 from memo_tpu_torch.ops import query_ops as Q
-from memo_tpu_torch.ops.fused_query import fused_query, kernel_constants, prepare_streams
+from memo_tpu_torch.ops.fused_query import fused_query_rows, prepare_streams, rows_tile, window_args
 from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2, kernel_constants_v2
 from memo_tpu_torch.utils.device import resolve_device
 
 BACKENDS = ("fused", "torch", "numpy")
-# Fused kernel generation -> (wrapper, position tile for C columns).
-KERNELS = {"v1": (fused_query, kernel_constants), "v2": (fused_query_v2, kernel_constants_v2)}
+# Fused kernel generation -> (wrapper, position tile for C columns). v1 reads
+# the placed store's rows; v2 reads the event streams of prepare_streams.
+KERNELS = {"v1": (fused_query_rows, rows_tile), "v2": (fused_query_v2, kernel_constants_v2)}
+
+
+def _next_pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+@dataclasses.dataclass
+class QueryStats:
+    """Per-query counters, as memo_tpu's engine keeps them."""
+
+    candidate_intervals: int = 0
+    chunks: int = 0
+    positions: int = 0
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def parse_region(region: str) -> tuple[str, int, int]:
+    """Parse ``chr:start-end`` (0-indexed half-open, reference query.sh:24)."""
+    record, _, start_end = region.rpartition(":")
+    if not record:
+        raise ValueError(f"bad region {region!r}, expected chr:start-end")
+    start_s, _, end_s = start_end.partition("-")
+    return record, int(start_s), int(end_s)
 
 
 class PlacedStore(NamedTuple):
@@ -218,7 +245,7 @@ class QueryEngine:
 
     def conservation_batch(self, record: str, windows, k: int) -> list:
         """Conservation of each window ``(qs, qe)`` of one record. On the
-        ``fused`` backend the batch is one launch of each kernel pass: every
+        ``fused`` backend the batch is one launch of the kernel: every
         window runs at the batch's longest length L from its own candidate
         ranges and prefix, and keeps its first ``qe - qs`` positions (exact:
         a window's row is what the single-window kernel computes over
@@ -299,19 +326,12 @@ class QueryEngine:
                 stats.positions += self.last_stats.positions
             self.last_stats = stats
             return outs
-        n = self.n_docs
-        M = min(_next_pow2(max(max(counts), 1)), self.max_intervals)
         # memo_tpu pads the window count to a power of two to bound the
         # programs XLA compiles; nothing here compiles per shape, so the
         # batch keeps its own count.
-        mlo, mhi, plo, phi = (np.array([p[i] for p in params], np.int64) for i in range(4))
-        run, constants = KERNELS[self.kernel_version]
-        streams = prepare_streams(
-            *self._d, mlo, mhi, plo, phi, [qs for qs, _ in windows], k,
-            M=M, L=L, C=n, tile=constants(n),
-        )
-        prefix = torch.from_numpy(np.stack([p[4] for p in params]).astype(np.int32)).to(self.device)
-        out = run(streams, prefix, n_docs=n, membership=membership)
+        M = min(_next_pow2(max(max(counts), 1)), self.max_intervals)
+        ranges = np.array([p[:4] + (qs,) for p, (qs, _) in zip(params, windows)], np.int64)
+        out = self._run_kernel(ranges, np.stack([p[4] for p in params]), k, M, L, membership)
         self.last_stats = QueryStats(
             candidate_intervals=sum(counts),
             chunks=len(windows),
@@ -404,7 +424,6 @@ class QueryEngine:
         """Fused-kernel chunk: exact in-window event ranges from the two
         sorted streams plus the host prefix counts."""
         L = qe - qs
-        n = self.n_docs
         mlo, mhi, plo, phi, prefix = self._window_params(record, qs, qe, k)
         count = max(mhi - mlo, phi - plo)
         M = min(_next_pow2(max(count, 1)), self.max_intervals)
@@ -419,12 +438,24 @@ class QueryEngine:
             right = self._query_chunk_fused(record, mid, qe, k, membership, stats)
             return self._cat(left, right)
         stats.candidate_intervals += count
+        ranges = np.array([[mlo, mhi, plo, phi, qs]])
+        return self._finish(self._run_kernel(ranges, prefix[None], k, M, L, membership)[0])
+
+    def _run_kernel(self, ranges: np.ndarray, prefix: np.ndarray, k: int, M: int, L: int,
+                    membership: bool) -> torch.Tensor:
+        """The fused kernel on Q windows of L positions: ``ranges`` holds
+        (mlo, mhi, plo, phi, qs) per window, ``prefix`` int[Q, C]. v1 reads
+        the placed rows from one parameter upload; v2 runs on the event
+        streams of M rows. Output [Q, L] or [Q, L, C]."""
+        n = self.n_docs
         run, constants = KERNELS[self.kernel_version]
-        streams = prepare_streams(
-            *self._d, mlo, mhi, plo, phi, qs, k, M=M, L=L, C=n, tile=constants(n)
-        )
-        prefix_t = torch.from_numpy(prefix.astype(np.int32)).to(self.device)
-        return self._finish(run(streams, prefix_t, n_docs=n, membership=membership))
+        params, prefix_t = window_args(ranges, prefix, self.device)
+        if self.kernel_version == "v1":
+            return run(self._d, params, prefix_t, k=k, L=L, C=n, n_docs=n, membership=membership)
+        mlo, mhi, plo, phi, qs = ranges.T
+        streams = prepare_streams(*self._d, mlo, mhi, plo, phi, qs, k, M=M, L=L, C=n,
+                                  tile=constants(n))
+        return run(streams, prefix_t, n_docs=n, membership=membership)
 
 
 def _device_query(d: PlacedStore, lo, rec_end, qs, k, M, L, n, membership):

@@ -184,14 +184,14 @@ def cuda_device():
 @pytest.mark.parametrize("kernel_version", ["v1", "v2"])
 @pytest.mark.parametrize("kind", ["conservation", "membership"])
 def test_cuda_batch_matches_numpy_oracle(cuda_device, kernel_version, kind):
-    from memo_tpu_torch.ops.fused_query import fused_query
+    from memo_tpu_torch.ops.fused_query import fused_query_rows
     from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2
 
     store = _store(np.random.default_rng(29), True, kind=kind, n_records=2, n_docs=16,
                    rec_len=3000)
     oracle = JaxEngine(store, backend="numpy")
     eng = QueryEngine(store, device=cuda_device, kernel_version=kernel_version)
-    run = fused_query if kernel_version == "v1" else fused_query_v2
+    run = fused_query_rows if kernel_version == "v1" else fused_query_v2
     wins = [(0, 3000), (123, 2456), (2990, 3000), (1500, 1501)]
     fn = getattr(eng, f"{kind}_batch")
     for k in (1, 3, 31, 101):

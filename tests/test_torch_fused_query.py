@@ -1,11 +1,13 @@
 """memo_tpu_torch.ops.fused_query: the stream set-up and the plain version
-of the CUDA kernel, held exactly against memo_query_pallas run in interpret
+of the v1 kernel, held exactly against memo_query_pallas run in interpret
 mode on the CPU, for one window and for a batch. At most 8 interpret-mode
 programs are compiled in this file
-(more in one process can crash the XLA CPU compiler). The CUDA kernel itself
-runs only on a GPU: its test carries the ``cuda`` marker and skips here.
+(more in one process can crash the XLA CPU compiler). The CUDA kernel
+(fused_query_rows, which reads the placed store's rows) runs only on a GPU:
+its tests carry the ``cuda`` marker and skip here; tests/test_torch_fused_rows.py
+holds its plain version against memo_tpu.
 
-JAX is imported inside the tests that use it, so that the ``cuda`` test runs
+JAX is imported inside the tests that use it, so that the ``cuda`` tests run
 where JAX is not installed (``MEMO_TPU_TEST_REAL_DEVICE=1`` keeps
 tests/conftest.py from importing it)."""
 
@@ -19,12 +21,14 @@ from memo_tpu.query.engine import _next_pow2
 from memo_tpu_torch.ops import _build
 from memo_tpu_torch.ops.fused_query import (
     Streams,
-    fused_query,
     fused_query_reference,
+    fused_query_rows,
+    fused_query_rows_reference,
     kernel_constants,
     prepare_streams,
+    window_args,
 )
-from memo_tpu_torch.query.engine import place_store
+from memo_tpu_torch.query.engine import QueryEngine, place_store
 
 
 def _window(store, record, qs, qe, k):
@@ -166,31 +170,29 @@ def test_reference_batch_rows_equal_single_windows():
 
 
 def test_fused_query_cpu_runs_plain_version_and_counts_no_launch():
-    rng = np.random.default_rng(9)
-    L, C, tile = 300, 7, kernel_constants(7)
-    parts = []
-    for _ in range(2):
-        pos = np.sort(rng.integers(0, L, 200)).astype(np.int32)
-        val = rng.integers(0, C + 1, 200).astype(np.int32)
-        off = np.searchsorted(pos, np.arange(0, L + tile, tile)).astype(np.int32)
-        parts += [torch.from_numpy(a) for a in (pos, val, off)]
-    streams = Streams(*parts, L, tile)
-    prefix = torch.ones(C, dtype=torch.int32)
-    before = fused_query.launches
+    """fused_query_rows on CPU tensors is its plain version and launches
+    nothing."""
+    store = _store(np.random.default_rng(9), True, n_records=2, n_docs=7, rec_len=300)
+    eng = QueryEngine(store, device="cpu", stratify=False)
+    params = [eng._window_params("chr1", qs, qs + 120, 5) for qs in (0, 100, 180)]
+    ranges = np.array([p[:4] + (qs,) for p, qs in zip(params, (0, 100, 180))])
+    args = window_args(ranges, np.stack([p[4] for p in params]), "cpu")
+    before = fused_query_rows.launches
     for membership in (False, True):
-        got = fused_query(streams, prefix, n_docs=C, membership=membership)
-        want = fused_query_reference(streams, prefix, n_docs=C, membership=membership)
+        got = fused_query_rows(eng._d, *args, k=5, L=120, C=7, n_docs=7, membership=membership)
+        want = fused_query_rows_reference(eng._d, *args, k=5, L=120, C=7, n_docs=7,
+                                          membership=membership)
         assert torch.equal(got, want)
-    assert fused_query.launches == before
+    assert fused_query_rows.launches == before
 
 
 def test_fused_query_refuses_tensors_off_cpu_and_cuda():
     """A tensor that is neither on the CPU nor on a CUDA device never falls
     back to the plain version."""
-    z = torch.zeros(4, dtype=torch.int32, device="meta")
-    streams = Streams(z, z, z, z, z, z, 4, 64)
+    z = torch.zeros(5, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        fused_query(streams, z, n_docs=4, membership=False)
+        fused_query_rows((z,) * 6, z.view(1, 5), z.view(1, 5), k=3, L=4, C=5, n_docs=5,
+                         membership=False)
 
 
 @pytest.mark.parametrize(
@@ -222,45 +224,41 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _store_windows(C: int, seed: int, n_win: int):
+    """A 2-record true-MS store of width C and n_win windows of chr1, run at
+    the longest length (so past the record's end)."""
+    store = _store(np.random.default_rng(seed), True, n_records=2, n_docs=C, rec_len=1800)
+    return store, [(0, 1800), (1234, 1800), (1799, 1800)][:n_win]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("C", [6, 16, 90, 129, 160, 257])
 @pytest.mark.parametrize("membership", [False, True])
 def test_cuda_kernel_matches_reference(cuda_device, C, membership):
-    rng = np.random.default_rng(C)
-    tile = kernel_constants(C)
-    for L, per_pos in ((1, 2), (777, 3), (5 * tile + 3, 20)):
-        l_pad = -(-L // tile) * tile
-        bounds = torch.arange(l_pad // tile + 1, dtype=torch.int32, device=cuda_device) * tile
-        parts = []
-        for _ in range(2):
-            pos = np.sort(rng.integers(0, L, L * per_pos)).astype(np.int32)
-            pos = np.concatenate([pos, np.full(5, l_pad, np.int32)])
-            val = rng.integers(0, C + 1, pos.size).astype(np.int32)
-            p = torch.from_numpy(pos).to(cuda_device)
-            parts += [p, torch.from_numpy(val).to(cuda_device),
-                      torch.searchsorted(p, bounds, side="left", out_int32=True)]
-        streams = Streams(*parts, L, tile)
-        prefix = torch.from_numpy(rng.integers(0, 3, C).astype(np.int32)).to(cuda_device)
-        before = fused_query.launches
-        got = fused_query(streams, prefix, n_docs=C, membership=membership)
-        torch.cuda.synchronize()
-        assert fused_query.launches == before + 1
-        want = fused_query_reference(streams, prefix, n_docs=C, membership=membership)
-        assert torch.equal(got, want), (C, L, membership)
+    """The row kernel against its plain version on the card, one window."""
+    _check_rows_kernel(cuda_device, C, membership, n_win=1)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("C", [6, 16, 90, 160, 257])
 @pytest.mark.parametrize("membership", [False, True])
 def test_cuda_kernel_batch_matches_reference(cuda_device, C, membership):
-    """Three windows in one launch of each pass."""
-    rng = np.random.default_rng(C + 7)
-    tile = kernel_constants(C)
-    for L, per_pos in ((1, 2), (777, 3), (5 * tile + 3, 20)):
-        streams, prefix = _random_streams(rng, 3, L, C, per_pos, tile, cuda_device)
-        before = fused_query.launches
-        got = fused_query(streams, prefix, n_docs=C, membership=membership)
+    """Three windows in one launch."""
+    _check_rows_kernel(cuda_device, C, membership, n_win=3)
+
+
+def _check_rows_kernel(device, C, membership, n_win):
+    store, wins = _store_windows(C, C + 7 * n_win, n_win)
+    eng = QueryEngine(store, device=device, stratify=False)
+    for k in (1, 3, 31, 101):
+        L = max(qe - qs for qs, qe in wins)
+        params = [eng._window_params("chr1", qs, qs + L, k) for qs, _ in wins]
+        ranges = np.array([p[:4] + (qs,) for p, (qs, _) in zip(params, wins)])
+        args = window_args(ranges, np.stack([p[4] for p in params]), device)
+        before = fused_query_rows.launches
+        got = fused_query_rows(eng._d, *args, k=k, L=L, C=C, n_docs=C, membership=membership)
         torch.cuda.synchronize()
-        assert fused_query.launches == before + 1
-        want = fused_query_reference(streams, prefix, n_docs=C, membership=membership)
-        assert torch.equal(got, want), (C, L, membership)
+        assert fused_query_rows.launches == before + 1
+        want = fused_query_rows_reference(eng._d, *args, k=k, L=L, C=C, n_docs=C,
+                                          membership=membership)
+        assert torch.equal(got, want), (C, k, membership)
