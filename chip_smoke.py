@@ -5,12 +5,14 @@
 Builds the CUDA kernels from ``memo_tpu_torch/csrc`` (v1 ``fused_query_rows``,
 which reads the placed store's rows, and v2 ``fused_query_v2``), holds each
 against its plain PyTorch version (v1 on random stores with edge cases, one
-and three windows per launch, both carries; v2 on random event streams), and
-drives the query paths: the single-window path through the CLI at the
-headline size (2 Mbp pivot, 16 genomes, k=31), with the device operations of
-one query counted by torch.profiler; the batched-windows path (16 staggered
-1 Mbp windows, one launch, v1 and v2) through the engine and through the
-CLI's ``--regions-file`` with every strategy; the HPRC-width store (90
+and three windows per launch, both arms of its apply pass; v2 on random
+event streams), and drives the query paths: the single-window path through
+the CLI at the headline size (2 Mbp pivot, 16 genomes, k=31), with the
+device operations of one query counted exactly by capturing it into a CUDA
+graph (the parameter copy and the three kernels) and timed by
+torch.profiler; the batched-windows path (16 staggered 1 Mbp windows, one
+launch, v1 and v2) through the engine and through the CLI's
+``--regions-file`` with every strategy; the HPRC-width store (90
 genomes, ~75M intervals) and a 160-genome store through the stratified
 engine with both kernels; and a membership store. Every output is checked
 exactly against the reference loop below (memo_query.py's per-interval slice
@@ -56,8 +58,13 @@ BATCH_WINDOWS, BATCH_LEN = 16, 1 << 20
 WIDE_DOCS, WIDE_LEN = 160, 1 << 19
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores, for int32 ALU work
-RUN_SWEEP = (1, 2, 4, 8, 16)  # tiles per block timed for the run variant
 EDGE_REC_LEN = 200_000  # records of the random stores that phase 2 checks v1 on
+ARMS = {"staged": True, "direct": False}  # the v1 apply pass's row loads: cp.async or plain
+# The device operations of one v1 query or batch, by name: the parameter
+# upload and the three kernels of csrc/fused_query.cu.
+V1_OPS = ("Memcpy HtoD", "rows_net_kernel", "tile_scan_kernel", "rows_apply_kernel")
+V1_GRAPH = {"memcpy": 1, "kernel": 3}  # the same, as CUDA graph nodes
+PROFILE_TRIES = 3
 
 
 def check(cond: bool, what: str) -> None:
@@ -289,9 +296,9 @@ def v1_inputs(engine, record: str, windows, k: int):
     return ranges, np.stack([p[4] for p in params]), L
 
 
-def v1_case(engine, record, windows, k, membership, variants=(("runs", None), ("tiles", None))):
-    """The v1 kernel with each (variant, run) against its plain version on the
-    same device tensors; returns the errors (each must be 0)."""
+def v1_case(engine, record, windows, k, membership):
+    """The v1 kernel with each arm against its plain version on the same
+    device tensors; returns the errors (each must be 0)."""
     from memo_tpu_torch.ops.fused_query import (
         fused_query_rows, fused_query_rows_reference, window_args,
     )
@@ -302,11 +309,11 @@ def v1_case(engine, record, windows, k, membership, variants=(("runs", None), ("
     want = fused_query_rows_reference(engine._d, *args, k=k, L=L, C=C, n_docs=C,
                                       membership=membership)
     errors = []
-    for variant, run in variants:
+    for arm, staged in ARMS.items():
         got = fused_query_rows(engine._d, *args, k=k, L=L, C=C, n_docs=C, membership=membership,
-                               variant=variant, run=run)
+                               staged=staged)
         torch.cuda.synchronize()
-        where = f"v1 {variant} run={run} C={C} k={k} {record} {windows} membership={membership}"
+        where = f"v1 {arm} C={C} k={k} {record} {windows} membership={membership}"
         check(got.dtype == want.dtype and got.shape == want.shape, f"{where} shape/dtype")
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         check(err == 0, f"kernel != plain: {where}")
@@ -316,12 +323,11 @@ def v1_case(engine, record, windows, k, membership, variants=(("runs", None), ("
 
 def phase_kernels(device) -> int:
     """The v1 row kernel against fused_query_rows_reference on random stores
-    at C = 16/90/160: k in {1, 2, 31}, one window at a record's start, at its
-    end (the rows after it are the next record's), of one position, of an
-    empty record and of a whole 200 Kbp record (many runs), and three windows
-    per launch at the longest length (one runs past the record's end); both
-    kinds; the run carry with the default and with 1 and 16 tiles per block,
-    and the tile carry."""
+    at C = 16/90/160 (256-position tiles) and 257 (128): k in {1, 2, 31}, one
+    window at a record's start, at its end (the rows after it are the next
+    record's), of one position, of an empty record and of a whole 200 Kbp
+    record, and three windows per launch at the longest length (one runs
+    past the record's end); both kinds; both arms of the apply pass."""
     from memo_tpu_torch.query.engine import QueryEngine
 
     rng = np.random.default_rng(SEED)
@@ -329,17 +335,17 @@ def phase_kernels(device) -> int:
     singles = (("chr0", [(0, 4096 + 17)]), ("chr0", [(rec_len - 777, rec_len)]),
                ("chr1", [(5555, 5556)]), ("chr2", [(0, 1000)]), ("chr1", [(0, rec_len)]))
     batch = ("chr0", [(0, 3000), (rec_len - 1000, rec_len), (77_777, 77_778)])
-    variants = (("runs", None), ("runs", 1), ("runs", 16), ("tiles", None))
+    widths = (16, 90, 160, 257)
     errors = []
-    for C in (16, 90, 160):
+    for C in widths:
         for kind in ("conservation", "membership"):
             eng = QueryEngine(random_store(rng, C, kind, rec_len), device=device, stratify=False)
             for k in (1, 2, 31):
                 for record, wins in (*singles, batch):
-                    errors += v1_case(eng, record, wins, k, kind == "membership", variants)
+                    errors += v1_case(eng, record, wins, k, kind == "membership")
             del eng
-    emit("phase2_kernels", cases=len(errors), max_abs_err=max(errors), widths=[16, 90, 160],
-         k=[1, 2, 31], windows_per_launch=[1, 3], variants=[list(v) for v in variants])
+    emit("phase2_kernels", cases=len(errors), max_abs_err=max(errors), widths=list(widths),
+         k=[1, 2, 31], windows_per_launch=[1, 3], arms=list(ARMS))
     return max(errors)
 
 
@@ -397,14 +403,12 @@ def phase_kernels_v2(device) -> int:
 
 def time_v1(engine, record: str, windows, k: int) -> dict:
     """The v1 function (fused_query_rows) on ``windows``: exact against its
-    plain version with both carries; device times of the run carry (default
-    run length and each of RUN_SWEEP) and the tile carry, taken in turns
-    (runs, tiles, tiles, runs), of the plain version and of the parameter
-    upload; ``ms`` is the default carry's. Its bound from this input's row
-    counts."""
+    plain version with both arms; device times of each arm of the apply pass,
+    taken in turns (direct, staged, staged, direct), of the plain version and
+    of the parameter upload; ``ms`` is the default arm's. Its bound from this
+    input's row counts."""
     from memo_tpu_torch.ops.fused_query import (
-        DEFAULT_VARIANT, fused_query_rows, fused_query_rows_reference, run_length, rows_tile,
-        window_args,
+        fused_query_rows, fused_query_rows_reference, rows_stage, rows_tile, window_args,
     )
 
     ranges, prefix, L = v1_inputs(engine, record, windows, k)
@@ -413,13 +417,12 @@ def time_v1(engine, record: str, windows, k: int) -> dict:
     n_win = len(windows)
     err = max(v1_case(engine, record, windows, k, False))
 
-    def run(variant="runs", r=None):
+    def run(staged=True):
         return fused_query_rows(engine._d, *args, k=k, L=L, C=C, n_docs=C, membership=False,
-                                variant=variant, run=r)
+                                staged=staged)
 
-    a = [kernel_ms(lambda: run("runs")), kernel_ms(lambda: run("tiles"))]
-    a += [kernel_ms(lambda: run("tiles")), kernel_ms(lambda: run("runs"))]
-    sweep = {r: kernel_ms(lambda: run("runs", r)) for r in RUN_SWEEP}
+    a = [kernel_ms(lambda: run(False)), kernel_ms(lambda: run(True))]
+    a += [kernel_ms(lambda: run(True)), kernel_ms(lambda: run(False))]
     plain = kernel_ms(lambda: fused_query_rows_reference(engine._d, *args, k=k, L=L, C=C,
                                                          n_docs=C, membership=False), reps=5)
     upload = kernel_ms(lambda: window_args(ranges, prefix, engine.device))
@@ -428,14 +431,13 @@ def time_v1(engine, record: str, windows, k: int) -> dict:
     n_ops = n_win * L * C + rows  # one scan add per (position, column), one atomic per row
     bound, bound_by = bound_ms(n_bytes, n_ops)
     tile = rows_tile(C)
-    nt = -(-L // tile)
-    ms = (a[1] + a[2]) / 2 if DEFAULT_VARIANT == "tiles" else (a[0] + a[3]) / 2
+    ms = (a[1] + a[2]) / 2
+    ops = device_ops(run, V1_OPS[1:])  # the kernels alone: the parameters are uploaded
     return {"C": C, "L": L, "windows": n_win, "candidate_rows": rows, "tile": tile,
-            "run_tiles": run_length(nt * n_win, engine.device), "max_abs_err": err,
-            "ms": ms, "runs_ms": [a[0], a[3]], "tiles_ms": [a[1], a[2]],
-            "run_sweep_ms": sweep, "plain_ms": plain, "upload_ms": upload,
-            "bytes": n_bytes, "ops": n_ops, "bound_ms": bound, "bound_by": bound_by,
-            "bound_share": bound / ms}
+            "stage_rows": rows_stage(tile, C), "max_abs_err": err, "ms": ms,
+            "staged_ms": [a[1], a[2]], "direct_ms": [a[0], a[3]], "plain_ms": plain,
+            "upload_ms": upload, "bytes": n_bytes, "ops": n_ops, "bound_ms": bound,
+            "bound_by": bound_by, "bound_share": bound / ms, "kernels_us": ops}
 
 
 def time_v2(engine, record: str, qs: int, qe: int, k: int) -> dict:
@@ -474,21 +476,71 @@ def time_v2(engine, record: str, qs: int, qe: int, k: int) -> dict:
             "bound_by": bound_by}
 
 
-def device_ops(fn) -> list[tuple[str, float]]:
+def device_ops(fn, expect: tuple[str, ...]) -> list[tuple[str, float]]:
     """The device operations (kernels, copies, memsets) of one call of
-    ``fn``, with their device microseconds, from torch.profiler."""
+    ``fn``, with their device microseconds, from torch.profiler, in the
+    order they ran. Every name must hold one of ``expect``; a trace that
+    lacks one of them is taken again (the profiler has been seen to drop a
+    kernel on that machine), up to PROFILE_TRIES times, and the last is
+    returned. The count that decides is :func:`graph_ops`'."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ops = []
-    for evt in prof.events():
-        if str(evt.device_type).endswith("CUDA"):
-            ops.append((evt.name, evt.time_range.end - evt.time_range.start))
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.01)  # keep the first operation clear of the trace's start
+            fn()
+            torch.cuda.synchronize()
+        ops = sorted(((evt.time_range.start, evt.name, evt.time_range.end - evt.time_range.start)
+                      for evt in prof.events() if str(evt.device_type).endswith("CUDA")))
+        ops = [(name, us) for _, name, us in ops]
+        check(all(any(e in name for e in expect) for name, _ in ops),
+              f"only {expect} on the device, got {ops}")
+        if len(ops) == len(expect):
+            break
     return ops
+
+
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
+                    6: "event_wait", 7: "event_record", 10: "mem_alloc", 11: "mem_free"}
+
+
+def graph_ops(fn) -> dict[str, int]:
+    """The device operations of one call of ``fn``, counted exactly: the call
+    is captured into a CUDA graph (relaxed mode, on a side stream, after a
+    warm-up call there) and the graph's nodes are counted by type. Nothing
+    is replayed."""
+    import ctypes
+
+    try:
+        rt = ctypes.CDLL("libcudart.so.12")
+    except OSError:
+        rt = ctypes.CDLL("/usr/local/cuda/lib64/libcudart.so")
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(rt.cudaGraphGetNodes(raw, None, ctypes.byref(n)) == 0, "cudaGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(rt.cudaGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0, "cudaGraphGetNodes")
+    counts: dict[str, int] = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(rt.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+              "cudaGraphNodeGetType")
+        name = GRAPH_NODE_TYPES.get(kind.value, str(kind.value))
+        counts[name] = counts.get(name, 0) + 1
+    graph.reset()
+    torch.cuda.synchronize()
+    return counts
 
 
 def phase_headline(device, tmp: str):
@@ -538,8 +590,10 @@ def phase_headline(device, tmp: str):
     # The device operations of one headline query (result left on the device).
     resident = QueryEngine(store, backend="fused", device=device, chunk_positions=L,
                            device_output=True)
-    ops = device_ops(lambda: resident.conservation("chr1", 0, L, K))
-    check(0 < len(ops) <= 4, f"one headline query issues at most 4 device operations: {ops}")
+    query = lambda: resident.conservation("chr1", 0, L, K)  # noqa: E731
+    graph = graph_ops(query)
+    check(graph == V1_GRAPH, f"one headline query is one copy and three kernels: {graph}")
+    ops = device_ops(query, V1_OPS)
 
     # Layer breakdown of one query: host range search and prefix, parameter
     # upload and the v1 function (device time), result copy and formatting.
@@ -555,7 +609,7 @@ def phase_headline(device, tmp: str):
     emit("phase3_headline", intervals=store.num_intervals, n_docs=store.n_docs, L=L, k=K,
          store_build_s=build_s, cli_query_s=cli_s, launches=launches, exact_cli_bytes=True,
          reference_loop_s=ref_s, mbp_s=mbp_s, k_sweep_exact=[21, 51, 101],
-         device_ops=len(ops), device_op_list=ops,
+         device_ops=sum(graph.values()), graph_nodes=graph, device_op_list=ops,
          layers_ms={"host_ranges_prefix": host_ms, "upload": kern["upload_ms"],
                     "v1_function": kern["ms"], "format_output": format_ms},
          kernel=kern, kernel_v2=kern_v2)
@@ -604,9 +658,13 @@ def phase_batched(device, store):
                            "batch_mbp_s": len(wins) * BATCH_LEN / batch_s / 1e6}
         if version == "v1":
             singles = [o.cpu().numpy() for o in single]
-            ops = device_ops(lambda: eng.conservation_batch("chr1", wins, K))
+            batch = lambda: eng.conservation_batch("chr1", wins, K)  # noqa: E731
+            graph = graph_ops(batch)
+            check(graph == V1_GRAPH, f"one v1 batch is one copy and three kernels: {graph}")
+            ops = device_ops(batch, V1_OPS)
             kern = time_v1(eng, "chr1", wins, K)
-            fields["v1"].update(device_ops=len(ops), device_op_list=ops, kernel=kern)
+            fields["v1"].update(device_ops=sum(graph.values()), graph_nodes=graph,
+                                device_op_list=ops, kernel=kern)
     emit("phase7_batched", windows=len(wins), window_len=BATCH_LEN, k=K,
          exact_vs_single=True, exact_window3_vs_reference=True, **fields)
     return singles, kern
@@ -795,8 +853,8 @@ def main() -> int:
     v1_cells = {"headline": head, "batch": batch, "n90": wide["n90"]["kernel_v1"],
                 "n160": wide["n160"]["kernel_v1"]}
     emit("v1_function", card=card, **{name: {key: cell[key] for key in (
-        "C", "L", "windows", "candidate_rows", "ms", "runs_ms", "tiles_ms", "run_sweep_ms",
-        "plain_ms", "bytes", "bound_ms", "bound_share")} for name, cell in v1_cells.items()})
+        "C", "L", "windows", "candidate_rows", "ms", "staged_ms", "direct_ms", "plain_ms",
+        "bytes", "bound_ms", "bound_share", "kernels_us")} for name, cell in v1_cells.items()})
     print(json.dumps({"kernels": [{
         "name": "fused_query_rows",
         "route": "cuda",

@@ -27,14 +27,24 @@
 // written once (4 bytes per position, or C bytes for membership). At the
 // headline (2 Mbp, C=16) that is 4,433,764 x 12 + 2,097,152 x 4 bytes.
 //
+// Three kernels carry the coverage across tiles of T positions, and no block
+// waits on another:
+//  - rows_net_kernel: per (tile, window), the tile's row bounds in both
+//    streams (four warp-wide searches) and its net events per column;
+//  - tile_scan_kernel: the carry into each tile, the prefix plus the scan of
+//    the nets over the earlier tiles;
+//  - rows_apply_kernel: per (tile, window), the tile's events scattered into
+//    a shared diff tile, scanned from the carry and reduced to the output.
+// Every row is read twice (net pass and apply pass), 24 bytes per event.
+//
 // What the design does about the faults of the three-pass stream kernel it
 // replaces (kernel plus a stream set-up of some 25 torch operations):
 //  1. Set-up over padded rows: there is none. The kernel reads the rows of
 //     [mlo, mhi) and [plo, phi) where the store keeps them; no pos/val
 //     streams, no pow2-padded M rows, no batch gather, no searchsorted.
-//  2. Events read twice: the run variant reads each row once from device
-//     memory (its second touch, microseconds later, hits L2); the tile
-//     variant reads each row twice.
+//  2. Events read twice: still, once per pass. A single-pass carry (runs of
+//     tiles per block with a decoupled look-back across runs) was measured
+//     slower at every width and removed (PERF.md, section 6).
 //  3. Bank conflicts in the conservation reduction: the tile is
 //     cov[C][T + 1]. T is a multiple of 32, so column c's row starts at
 //     bank (c * (T + 1)) % 32 = c % 32, and word (c, p) sits in bank
@@ -45,24 +55,7 @@
 //     columns in registers and keeps each position's first marked column
 //     there, and one atomicMin per position and warp merges them.
 //  4. Launches: one host-to-device copy of the parameters and prefix (the
-//     wrapper's), then three kernels (tiles) or one memset and one kernel
-//     (runs); about 30 before.
-//
-// The carry across tiles, two variants (the wrapper picks one):
-//  - tiles (variant 1): rows_net_kernel sums each tile's net events per
-//    column, tile_scan_kernel scans them over tiles from the prefix, and
-//    rows_apply_kernel applies each tile from its carry. No block waits on
-//    another; every row is read twice.
-//  - runs (variant 2): one block walks a run of R consecutive tiles and
-//    carries the coverage through them itself. It first reads the run's rows
-//    once for the run's net per column (and the first row of each tile),
-//    publishes that aggregate, gets the coverage entering the run by a
-//    decoupled look-back over the earlier runs of its window, then applies
-//    the run tile by tile. The run index comes from an atomic ticket per
-//    window, so a block only waits on runs whose blocks already started, and
-//    the look-back cannot deadlock; sums are published with a fence, a
-//    barrier and a release store of the status, read after an acquire load
-//    through L2 (__ldcg). The look-back takes up to blockDim.x runs a step.
+//     wrapper's), then the three kernels; about 30 before.
 //
 // The launcher runs on the caller's stream, does not synchronise and does not
 // allocate: the wrapper passes the scratch and the output.
@@ -77,16 +70,12 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGridY = 65535;  // blockIdx.y carries the window
-constexpr int kMaxRun = 16;       // tiles one block walks in the run variant
-constexpr int kMaxChunks = 8;    // 32-position chunks of the widest tile (256)
+constexpr int kMaxChunks = 8;     // 32-position chunks of the widest tile (256)
 constexpr int kNetThreads = 128;  // rows_net_kernel: four warps, one search each
 constexpr int kScanThreads = 1024;
 constexpr int kScanWarps = kScanThreads / 32;
-constexpr int kNotReady = 0;   // run status words: nothing published yet,
-constexpr int kAggregate = 1;  // the run's net per column published,
-constexpr int kInclusive = 2;  // the coverage after the run published
 static_assert(kScanWarps == 32, "the tile scan's second level is one warp wide");
-static_assert(kWarps >= 4 && kNetThreads >= 128, "four warps search the row bounds");
+static_assert(kNetThreads >= 128, "four warps search the row bounds");
 
 // The placed store (memo_tpu_torch/query/engine.py::PlacedStore): n_rows
 // int32 rows in start order and, permuted, in end order.
@@ -129,15 +118,10 @@ __device__ Window load_window(const Store& s, const int32_t* params, int q, int 
            qs + k - 1}};
 }
 
-// Row i's event: its column, or -1 when the row is not live; *pos gets its
-// window position. end - start is key - partner in end order and
-// partner - key in start order.
+// A row's event column, or -1 when the row is not live. end - start is
+// key - partner in end order and partner - key in start order.
 template <bool kPlus>
-__device__ __forceinline__ int event_column(const Stream& st, int i, int k, int C, int* pos) {
-  const int key = st.key[i];
-  const int partner = st.partner[i];
-  const int o = st.order[i];
-  *pos = key - st.shift;
+__device__ __forceinline__ int live_column(int key, int partner, int o, int k, int C) {
   const int span = kPlus ? key - partner : partner - key;
   return span < k - 1 && o >= 0 && o < C ? o : -1;
 }
@@ -173,41 +157,75 @@ __device__ void find_bounds(const Window& w, int p0, int p1, int* found) {
 
 // Add the live events of rows [lo, hi) at positions [base, base + T) into
 // dst[c * S + (p - base) * P]: a diff tile with P = 1, per-column sums with
-// S = 1 and P = 0.
+// S = 1 and P = 0. Reads the rows from device memory.
 template <bool kPlus>
 __device__ void scatter(const Stream& st, int lo, int hi, int base, int T, int k, int C, int* dst,
                         int S, int P) {
   for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-    int pos;
-    const int c = event_column<kPlus>(st, i, k, C, &pos);
-    const int p = pos - base;
+    const int key = st.key[i];
+    const int c = live_column<kPlus>(key, st.partner[i], st.order[i], k, C);
+    const int p = key - st.shift - base;
     if (c >= 0 && p >= 0 && p < T) atomicAdd(&dst[c * S + p * P], kPlus ? 1 : -1);
   }
 }
 
-// Pass A of a run of nr tiles from position base: the net live events per
-// column into net[C], and bound[j] = the first row at or past tile j (the
-// caller sets bound[0..nr] to hi first). The tile of row i - 1 comes from its
-// key, so every tile boundary between two rows is written by exactly one
-// thread.
+// ---------------------------------------------------- staged rows (cp.async)
+// A block's rows are a contiguous range of each of three arrays, so they can
+// be copied into shared memory without passing through registers: the copy
+// of the next round is in flight while this round is scattered, and the
+// first round's while the block zeroes its tile.
+__device__ __forceinline__ void cp_async4(int* smem, const int32_t* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" : : "r"(dst), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" : : : "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" : : "n"(kPending) : "memory");
+}
+
+// Copy rows [lo, lo + n) of a stream's key, partner and order into
+// buf[0..n), buf[stage..stage + n) and buf[2 * stage..2 * stage + n).
+__device__ void stage_rows(const Stream& st, int lo, int n, int stage, int* buf) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    cp_async4(buf + i, st.key + lo + i);
+    cp_async4(buf + stage + i, st.partner + lo + i);
+    cp_async4(buf + 2 * stage + i, st.order + lo + i);
+  }
+}
+
+// Issue round r of a tile's rows, minus [m0, m1) and plus [p0, p1), into
+// buffer r % 2 of bufs (two buffers of [minus, plus][key, partner, order]
+// [stage] words) as one cp.async group.
+__device__ void stage_round(const Window& w, int m0, int m1, int p0, int p1, int r, int stage,
+                            int* bufs) {
+  int* buf = bufs + (r & 1) * 6 * stage;
+  const int off = r * stage;
+  stage_rows(w.minus, m0 + off, max(0, min(stage, m1 - m0 - off)), stage, buf);
+  stage_rows(w.plus, p0 + off, max(0, min(stage, p1 - p0 - off)), stage, buf + 3 * stage);
+  cp_async_commit();
+}
+
+// scatter() of n staged rows into the diff tile cov[C][T + 1].
 template <bool kPlus>
-__device__ void run_net(const Stream& st, int lo, int hi, int base, int T, int nr, int k, int C,
-                        int* net, int* bound) {
-  for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-    int pos;
-    const int c = event_column<kPlus>(st, i, k, C, &pos);
-    const int j = min(max((pos - base) / T, 0), nr - 1);
-    const int prev = i == lo ? -1 : min(max((st.key[i - 1] - st.shift - base) / T, 0), nr - 1);
-    for (int b = prev + 1; b <= j; ++b) bound[b] = i;
-    if (c >= 0 && pos >= base && pos - base < nr * T) atomicAdd(&net[c], kPlus ? 1 : -1);
+__device__ void scatter_staged(const int* buf, int n, int stage, int shift, int base, int T, int k,
+                               int C, int* cov) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int key = buf[i];
+    const int c = live_column<kPlus>(key, buf[stage + i], buf[2 * stage + i], k, C);
+    const int p = key - shift - base;
+    if (c >= 0 && p >= 0 && p < T) atomicAdd(&cov[c * (T + 1) + p], kPlus ? 1 : -1);
   }
 }
 
 // Coverage along each column of the tile from carry[c]: one warp per column.
 // The column's T / 32 chunks of 32 positions are scanned with shuffles side
-// by side (independent chains), then chained by their totals; carry[c]
-// becomes the coverage at the tile's last position.
-__device__ void scan_tile(int* cov, int* carry, int T, int S, int C) {
+// by side (independent chains), then chained by their totals.
+__device__ void scan_tile(int* cov, const int* carry, int T, int S, int C) {
   const int lane = threadIdx.x & 31;
   const int n_chunks = T / 32;
   for (int c = threadIdx.x >> 5; c < C; c += kWarps) {
@@ -230,7 +248,6 @@ __device__ void scan_tile(int* cov, int* carry, int T, int S, int C) {
       if (j < n_chunks) row[j * 32 + lane] = x[j] + run;
       run += total;
     }
-    if (lane == 0) carry[c] = run;
   }
 }
 
@@ -238,23 +255,19 @@ __device__ void scan_tile(int* cov, int* carry, int T, int S, int C) {
 // Each lane keeps, for its positions, the first of its warp's columns with
 // coverage > 0 (a warp takes its columns in increasing order), and one shared
 // atomicMin per position and warp merges the warps into first[T] (which
-// holds n_docs on entry). With rezero the diff is zeroed as it is read, for
-// the block's next tile; carry[c] becomes the coverage after the tile.
-__device__ void scan_conservation(int* cov, int* carry, int* first, int T, int S, int C,
-                                  int n_docs, bool rezero) {
+// holds n_docs on entry).
+__device__ void scan_conservation(const int* cov, const int* carry, int* first, int T, int S,
+                                  int C, int n_docs) {
   const int lane = threadIdx.x & 31;
   const int n_chunks = T / 32;
   int best[kMaxChunks];
 #pragma unroll
   for (int j = 0; j < kMaxChunks; ++j) best[j] = n_docs;
   for (int c = threadIdx.x >> 5; c < C; c += kWarps) {
-    int* row = cov + c * S;
+    const int* row = cov + c * S;
     int x[kMaxChunks];
 #pragma unroll
-    for (int j = 0; j < kMaxChunks; ++j) {
-      x[j] = j < n_chunks ? row[j * 32 + lane] : 0;
-      if (rezero && j < n_chunks) row[j * 32 + lane] = 0;
-    }
+    for (int j = 0; j < kMaxChunks; ++j) x[j] = j < n_chunks ? row[j * 32 + lane] : 0;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
 #pragma unroll
@@ -270,7 +283,6 @@ __device__ void scan_conservation(int* cov, int* carry, int* first, int T, int S
       if (x[j] + run > 0) best[j] = min(best[j], c);
       run += total;
     }
-    if (lane == 0) carry[c] = run;
   }
 #pragma unroll
   for (int j = 0; j < kMaxChunks; ++j) {
@@ -280,171 +292,33 @@ __device__ void scan_conservation(int* cov, int* carry, int* first, int T, int S
 
 // Membership of the tile from its scanned coverage (scan_tile): one warp per
 // position, lanes over columns, coalesced int8 stores of the first `rows`
-// positions from out; zeroes the tile for the block's next one.
-__device__ void reduce_membership(int* cov, int T, int S, int C, int rows, int8_t* out) {
+// positions from out.
+__device__ void reduce_membership(const int* cov, int T, int S, int C, int rows, int8_t* out) {
   const int lane = threadIdx.x & 31;
-  for (int p = threadIdx.x >> 5; p < T; p += kWarps) {
-    for (int c = lane; c < C; c += 32) {
-      const int v = cov[c * S + p];
-      cov[c * S + p] = 0;
-      if (p < rows) out[static_cast<size_t>(p) * C + c] = v > 0 ? 0 : 1;
-    }
+  for (int p = threadIdx.x >> 5; p < rows; p += kWarps) {
+    for (int c = lane; c < C; c += 32) out[static_cast<size_t>(p) * C + c] = cov[c * S + p] > 0 ? 0 : 1;
   }
 }
 
-// Apply one tile of window positions [base, base + T) from the zeroed tile
-// cov[C][T + 1], carry[C] and first[T] (all n_docs): scatter its minus rows
-// [m0, m1) and plus rows [p0, p1), scan, and write the output of its first
-// `rows` positions from out_row (an index into out's Q * L positions).
-// Leaves carry[c] at the coverage after the tile, first[] at n_docs and, with
-// rezero (membership always), the tile zeroed for the block's next tile.
+// Reduce the scattered diff tile cov[C][T + 1] from carry[C] (first[T] all
+// n_docs) and write the output of its first `rows` positions from out_row
+// (an index into out's Q * L positions). The caller has synchronised.
 template <bool kMembership>
-__device__ void apply_tile(const Window& w, int* cov, int* carry, int* first, int m0, int m1,
-                           int p0, int p1, int base, int T, int k, int C, int rows, int n_docs,
-                           bool rezero, void* out, size_t out_row) {
+__device__ void finish_tile(int* cov, const int* carry, int* first, int T, int C, int rows,
+                            int n_docs, void* out, size_t out_row) {
   const int S = T + 1;
-  scatter<false>(w.minus, m0, m1, base, T, k, C, cov, S, 1);
-  scatter<true>(w.plus, p0, p1, base, T, k, C, cov, S, 1);
-  __syncthreads();
   if constexpr (kMembership) {
     scan_tile(cov, carry, T, S, C);
     __syncthreads();
     reduce_membership(cov, T, S, C, rows, static_cast<int8_t*>(out) + out_row * C);
   } else {
-    scan_conservation(cov, carry, first, T, S, C, n_docs, rezero);
+    scan_conservation(cov, carry, first, T, S, C, n_docs);
     __syncthreads();
     int32_t* o = static_cast<int32_t*>(out) + out_row;
-    for (int p = threadIdx.x; p < T; p += blockDim.x) {
-      if (p < rows) o[p] = first[p];
-      first[p] = n_docs;
-    }
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ int load_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;" : : "l"(p), "r"(v) : "memory");
-}
-
-// Make this block's writes to the sums visible, then set the run's status.
-__device__ __forceinline__ void publish(int* status, int flag) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) store_release(status, flag);
-}
-
-// The coverage entering run r of a window into carry[C]: a decoupled
-// look-back over runs [0, r) of the window, whose status words and sums
-// (aggregate[C], inclusive[C]) start at status and sums. Each step takes up
-// to blockDim.x runs: every thread acquires one run's status, the block finds
-// the nearest run with its inclusive sums published (*stop, shared), and
-// thread c adds column c of the runs after it. Run 0 always publishes its
-// inclusive sums, so the walk ends.
-__device__ void look_back(const int* status, const int32_t* sums, int r, int C, int* carry,
-                          int* stop) {
-  for (int c = threadIdx.x; c < C; c += blockDim.x) carry[c] = 0;
-  for (int end = r;;) {
-    const int lo = max(0, end - static_cast<int>(blockDim.x));
-    if (threadIdx.x == 0) *stop = -1;
-    __syncthreads();
-    const int pred = end - 1 - static_cast<int>(threadIdx.x);
-    if (pred >= lo) {
-      int flag;
-      while ((flag = load_acquire(&status[pred])) == kNotReady) __nanosleep(32);
-      if (flag == kInclusive) atomicMax(stop, pred);
-    }
-    __syncthreads();
-    const int found = *stop;
-    const int from = found >= 0 ? found : lo;
-    for (int c = threadIdx.x; c < C; c += blockDim.x) {
-      int acc = carry[c];
-      for (int p = end - 1; p >= from; --p) {
-        acc += __ldcg(sums + static_cast<size_t>(p) * 2 * C + (p == found ? C : 0) + c);
-      }
-      carry[c] = acc;
-    }
-    if (found >= 0 || lo == 0) break;
-    end = lo;
-    __syncthreads();  // *stop is reset for the next step
-  }
-  __syncthreads();
-}
-
-// ------------------------------------------------------------ runs (variant 2)
-template <bool kMembership>
-__global__ void __launch_bounds__(kThreads)
-rows_run_kernel(Store store, const int32_t* __restrict__ params,
-                const int32_t* __restrict__ prefix, int* __restrict__ status,
-                int* __restrict__ ticket, int32_t* __restrict__ sums, int L, int C, int T, int R,
-                int k, int n_docs, void* __restrict__ out) {
-  extern __shared__ int smem[];
-  int* cov = smem;                       // [C][T + 1]: diff, then coverage
-  int* carry = cov + C * (T + 1);        // [C]: coverage entering the tile
-  int* first = carry + C;                // [T]: first marked column per position
-  int* net = first + T;                  // [C]: the run's net events
-  int* bound_m = net + C;                // [kMaxRun + 1]: first row of each tile
-  int* bound_p = bound_m + kMaxRun + 1;  // [kMaxRun + 1]
-  int* found = bound_p + kMaxRun + 1;    // [4]: the run's rows
-  int* misc = found + 4;                 // [2]: ticket, look-back stop
-  const int q = blockIdx.y;
-  const int nt = (L + T - 1) / T;
-  const int n_runs = gridDim.x;
-  const Window w = load_window(store, params, q, k);
-
-  if (threadIdx.x == 0) misc[0] = atomicAdd(&ticket[q], 1);
-  for (int i = threadIdx.x; i < C * (T + 1); i += blockDim.x) cov[i] = 0;
-  for (int p = threadIdx.x; p < T; p += blockDim.x) first[p] = n_docs;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) net[c] = 0;
-  __syncthreads();
-  const int r = misc[0];
-  const int nr = min(R, nt - r * R);
-  const int base = r * R * T;
-  find_bounds(w, base, base + nr * T, found);
-  __syncthreads();
-  for (int j = threadIdx.x; j <= nr; j += blockDim.x) {
-    bound_m[j] = found[1];
-    bound_p[j] = found[3];
-  }
-  __syncthreads();
-
-  // Pass A: the run's net per column and its tile bounds.
-  run_net<false>(w.minus, found[0], found[1], base, T, nr, k, C, net, bound_m);
-  run_net<true>(w.plus, found[2], found[3], base, T, nr, k, C, net, bound_p);
-  __syncthreads();
-
-  // The carry into the run.
-  const size_t window_run = static_cast<size_t>(q) * n_runs;
-  int32_t* aggregate = sums + (window_run + r) * 2 * C;
-  int32_t* inclusive = aggregate + C;
-  if (r == 0) {
-    for (int c = threadIdx.x; c < C; c += blockDim.x) {
-      carry[c] = prefix[static_cast<size_t>(q) * C + c];
-      inclusive[c] = carry[c] + net[c];
-    }
-  } else {
-    for (int c = threadIdx.x; c < C; c += blockDim.x) aggregate[c] = net[c];
-    publish(&status[window_run + r], kAggregate);
-    look_back(status + window_run, sums + window_run * 2 * C, r, C, carry, misc + 1);
-    for (int c = threadIdx.x; c < C; c += blockDim.x) inclusive[c] = carry[c] + net[c];
-  }
-  publish(&status[window_run + r], kInclusive);
-
-  // Pass B: apply the run tile by tile.
-  for (int j = 0; j < nr; ++j) {
-    const int tile_base = base + j * T;
-    apply_tile<kMembership>(w, cov, carry, first, bound_m[j], bound_m[j + 1], bound_p[j],
-                            bound_p[j + 1], tile_base, T, k, C, min(T, L - tile_base), n_docs,
-                            true, out, static_cast<size_t>(q) * L + tile_base);
+    for (int p = threadIdx.x; p < rows; p += blockDim.x) o[p] = first[p];
   }
 }
 
-// ----------------------------------------------------------- tiles (variant 1)
 // One block per (tile, window): the tile's rows (minus lo, hi, plus lo, hi)
 // into bounds[q, t, 4] and its net events per column into delta[q, c, t].
 __global__ void __launch_bounds__(kNetThreads)
@@ -511,84 +385,74 @@ tile_scan_kernel(const int32_t* __restrict__ delta, const int32_t* __restrict__ 
   }
 }
 
-// One block per (tile, window): the tile applied from its carry.
-template <bool kMembership>
+// One block per (tile, window): the tile applied from its carry. With
+// kStaged the rows come through shared memory in rounds of `stage` rows per
+// stream, double-buffered with cp.async; else each thread loads its rows.
+template <bool kMembership, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 rows_apply_kernel(Store store, const int32_t* __restrict__ params,
                   const int32_t* __restrict__ bounds, const int32_t* __restrict__ tile_carry,
-                  int L, int C, int T, int k, int n_docs, void* __restrict__ out) {
+                  int L, int C, int T, int k, int n_docs, int stage, void* __restrict__ out) {
   extern __shared__ int smem[];
   int* cov = smem;                 // [C][T + 1]
   int* carry = cov + C * (T + 1);  // [C]
   int* first = carry + C;          // [T]
+  int* bufs = first + T;           // kStaged: [2][minus, plus][key, partner, order][stage]
   const int t = blockIdx.x;
   const int q = blockIdx.y;
   const int nt = gridDim.x;
   const Window w = load_window(store, params, q, k);
   const int32_t* b = bounds + (static_cast<size_t>(q) * nt + t) * 4;
   const int base = t * T;
+  int rounds = 0;
+  if constexpr (kStaged) {  // the first round flies while the tile is zeroed
+    rounds = (max(b[1] - b[0], b[3] - b[2]) + stage - 1) / stage;
+    if (rounds > 0) stage_round(w, b[0], b[1], b[2], b[3], 0, stage, bufs);
+  }
   for (int i = threadIdx.x; i < C * (T + 1); i += blockDim.x) cov[i] = 0;
   for (int p = threadIdx.x; p < T; p += blockDim.x) first[p] = n_docs;
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     carry[c] = tile_carry[(static_cast<size_t>(q) * C + c) * nt + t];
   }
   __syncthreads();
-  apply_tile<kMembership>(w, cov, carry, first, b[0], b[1], b[2], b[3], base, T, k, C,
-                          min(T, L - base), n_docs, false, out,
-                          static_cast<size_t>(q) * L + base);
+  const int m0 = b[0], m1 = b[1], p0 = b[2], p1 = b[3];
+  if constexpr (kStaged) {
+    for (int r = 0; r < rounds; ++r) {
+      if (r + 1 < rounds) {
+        // Its buffer was last read before the previous barrier.
+        stage_round(w, m0, m1, p0, p1, r + 1, stage, bufs);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const int* buf = bufs + (r & 1) * 6 * stage;
+      const int off = r * stage;
+      scatter_staged<false>(buf, max(0, min(stage, m1 - m0 - off)), stage, w.minus.shift, base, T,
+                            k, C, cov);
+      scatter_staged<true>(buf + 3 * stage, max(0, min(stage, p1 - p0 - off)), stage,
+                           w.plus.shift, base, T, k, C, cov);
+      __syncthreads();
+    }
+  } else {
+    scatter<false>(w.minus, m0, m1, base, T, k, C, cov, T + 1, 1);
+    scatter<true>(w.plus, p0, p1, base, T, k, C, cov, T + 1, 1);
+    __syncthreads();
+  }
+  finish_tile<kMembership>(cov, carry, first, T, C, min(T, L - base), n_docs, out,
+                           static_cast<size_t>(q) * L + base);
 }
 
-size_t tile_smem_bytes(int C, int T) {
-  return (static_cast<size_t>(C) * (T + 1) + 2 * C + T + 2 * (kMaxRun + 1) + 8) * sizeof(int);
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-template <bool kMembership>
-cudaError_t launch_runs(const Store& store, const int32_t* params, const int32_t* prefix,
-                        int32_t* scratch, void* out, int Q, int L, int C, int T, int R, int k,
-                        int n_docs, cudaStream_t stream) {
-  const int nt = (L + T - 1) / T;
-  const int n_runs = (nt + R - 1) / R;
-  const size_t words = static_cast<size_t>(Q) * n_runs + Q;  // statuses, then tickets
-  int* status = scratch;
-  int* ticket = scratch + static_cast<size_t>(Q) * n_runs;
-  int32_t* sums = scratch + words;
-  cudaError_t err = cudaMemsetAsync(scratch, 0, words * sizeof(int), stream);
+template <bool kMembership, bool kStaged>
+cudaError_t launch_apply(dim3 grid, size_t smem, cudaStream_t stream, const Store& store,
+                         const int32_t* params, const int32_t* bounds, const int32_t* carry,
+                         int L, int C, int T, int k, int n_docs, int stage, void* out) {
+  const cudaError_t err = cudaFuncSetAttribute(rows_apply_kernel<kMembership, kStaged>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const size_t smem = tile_smem_bytes(C, T);
-  err = allow_smem(rows_run_kernel<kMembership>, smem);
-  if (err != cudaSuccess) return err;
-  rows_run_kernel<kMembership><<<dim3(n_runs, Q), kThreads, smem, stream>>>(
-      store, params, prefix, status, ticket, sums, L, C, T, R, k, n_docs, out);
-  return cudaGetLastError();
-}
-
-template <bool kMembership>
-cudaError_t launch_tiles(const Store& store, const int32_t* params, const int32_t* prefix,
-                         int32_t* scratch, void* out, int Q, int L, int C, int T, int k,
-                         int n_docs, cudaStream_t stream) {
-  const int nt = (L + T - 1) / T;
-  const size_t tiles = static_cast<size_t>(Q) * nt;
-  int32_t* bounds = scratch;               // [Q, nt, 4]
-  int32_t* delta = bounds + tiles * 4;     // [Q, C, nt]
-  int32_t* carry = delta + tiles * C;      // [Q, C, nt]
-  rows_net_kernel<<<dim3(nt, Q), kNetThreads, (C + 4) * sizeof(int), stream>>>(
-      store, params, C, T, k, bounds, delta);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  tile_scan_kernel<<<dim3(C, Q), kScanThreads, 0, stream>>>(delta, prefix, nt, C, carry);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t smem = tile_smem_bytes(C, T);
-  err = allow_smem(rows_apply_kernel<kMembership>, smem);
-  if (err != cudaSuccess) return err;
-  rows_apply_kernel<kMembership><<<dim3(nt, Q), kThreads, smem, stream>>>(
-      store, params, bounds, carry, L, C, T, k, n_docs, out);
+  rows_apply_kernel<kMembership, kStaged><<<grid, kThreads, smem, stream>>>(
+      store, params, bounds, carry, L, C, T, k, n_docs, stage, out);
   return cudaGetLastError();
 }
 
@@ -597,37 +461,49 @@ cudaError_t launch_tiles(const Store& store, const int32_t* params, const int32_
 // Query Q windows of L positions on `stream` from the placed store's six
 // row arrays (n_rows rows each). params is int32[Q, 5] (mlo, mhi, plo, phi,
 // qs per window), prefix int32[Q, C], out int32[Q, L] (conservation) or
-// int8[Q, L, C] (membership). variant 1 (tiles) needs scratch of
-// Q * nt * (4 + 2 * C) int32 words with nt = ceil(L / tile); variant 2 (runs
-// of `run` tiles) needs Q * n_runs + Q + Q * n_runs * 2 * C with n_runs =
-// ceil(nt / run), of which it zeroes the first Q * n_runs + Q. Returns the
-// CUDA error code of the first call that failed, 0 when all were accepted.
+// int8[Q, L, C] (membership); scratch holds Q * nt * (4 + 2 * C) int32 words
+// with nt = ceil(L / tile). stage > 0 stages the apply pass's rows through
+// shared memory, `stage` rows per stream and round. Returns the CUDA error
+// code of the first call that failed, 0 when all were accepted.
 extern "C" int memo_fused_query_rows(const int32_t* start, const int32_t* end,
                                      const int32_t* order, const int32_t* end_s,
                                      const int32_t* start_by_end, const int32_t* order_by_end,
                                      const int32_t* params, const int32_t* prefix,
                                      int32_t* scratch, void* out, int n_rows, int Q, int L, int C,
-                                     int k, int tile, int run, int n_docs, int membership,
-                                     int variant, void* stream) {
+                                     int k, int tile, int stage, int n_docs, int membership,
+                                     void* stream) {
   if (n_rows < 0 || Q < 1 || Q > kMaxGridY || L < 1 || C < 1 || k < 1 || tile < 32 ||
-      tile % 32 != 0 || tile > 32 * kMaxChunks || run < 1 || run > kMaxRun ||
-      (variant != 1 && variant != 2)) {
+      tile % 32 != 0 || tile > 32 * kMaxChunks || stage < 0) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Store store{start, end, order, end_s, start_by_end, order_by_end, n_rows};
-  if (variant == 2) {
-    if (membership) {
-      return launch_runs<true>(store, params, prefix, scratch, out, Q, L, C, tile, run, k,
-                               n_docs, s);
-    }
-    return launch_runs<false>(store, params, prefix, scratch, out, Q, L, C, tile, run, k, n_docs,
-                              s);
-  }
+  const int T = tile;
+  const int nt = (L + T - 1) / T;
+  const size_t tiles = static_cast<size_t>(Q) * nt;
+  int32_t* bounds = scratch;            // [Q, nt, 4]
+  int32_t* delta = bounds + tiles * 4;  // [Q, C, nt]
+  int32_t* carry = delta + tiles * C;   // [Q, C, nt]
+  const dim3 grid(nt, Q);
+  rows_net_kernel<<<grid, kNetThreads, (C + 4) * sizeof(int), s>>>(store, params, C, T, k, bounds,
+                                                                   delta);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  tile_scan_kernel<<<dim3(C, Q), kScanThreads, 0, s>>>(delta, prefix, nt, C, carry);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = (static_cast<size_t>(C) * (T + 1) + C + T + 12 * static_cast<size_t>(stage)) *
+                      sizeof(int);
   if (membership) {
-    return launch_tiles<true>(store, params, prefix, scratch, out, Q, L, C, tile, k, n_docs, s);
+    return stage ? launch_apply<true, true>(grid, smem, s, store, params, bounds, carry, L, C, T,
+                                            k, n_docs, stage, out)
+                 : launch_apply<true, false>(grid, smem, s, store, params, bounds, carry, L, C, T,
+                                             k, n_docs, stage, out);
   }
-  return launch_tiles<false>(store, params, prefix, scratch, out, Q, L, C, tile, k, n_docs, s);
+  return stage ? launch_apply<false, true>(grid, smem, s, store, params, bounds, carry, L, C, T, k,
+                                           n_docs, stage, out)
+               : launch_apply<false, false>(grid, smem, s, store, params, bounds, carry, L, C, T,
+                                            k, n_docs, stage, out);
 }
 
 extern "C" const char* memo_cuda_error_string(int err) {

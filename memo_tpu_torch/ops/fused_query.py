@@ -35,9 +35,7 @@ SEG = 16  # segment sums in kernel_constants' tile budget, which sets v1's wides
 TILES = (256, 128, 64)  # position tiles the kernels are built for, widest first
 MAX_SMEM_BYTES = 232_448  # dynamic shared memory one Hopper block may use
 MAX_WINDOWS = 65_535  # the kernels put the window on grid axis y
-MAX_RUN = 16  # tiles one block walks in the run variant (kMaxRun)
-VARIANTS = {"tiles": 1, "runs": 2}  # the two carries of csrc/fused_query.cu
-DEFAULT_VARIANT = "tiles"  # the faster on every measured shape (PERF.md)
+STAGE_ROWS = (32, 256)  # rows per stream and round the apply pass stages: least, most
 CPU = torch.device("cpu")
 
 
@@ -52,27 +50,29 @@ def kernel_constants(C: int) -> int:
     raise ValueError(f"fused query supports at most {widest} columns, got C={C}")
 
 
-def _rows_smem_bytes(tile: int, C: int) -> int:
-    """Shared memory of one block of the row kernel (tile_smem_bytes in
-    csrc/fused_query.cu): the tile int32[C][tile + 1], carry and net [C],
-    the first marked column of each position [tile], the run's tile bounds
-    and a few words."""
-    return (C * (tile + 1) + 2 * C + tile + 2 * (MAX_RUN + 1) + 8) * 4
+def _rows_smem_bytes(tile: int, C: int, stage: int) -> int:
+    """Shared memory of one block of the apply pass (csrc/fused_query.cu):
+    the tile int32[C][tile + 1], the carry [C], the first marked column of
+    each position [tile] and two buffers of ``stage`` staged rows of each
+    stream's three arrays."""
+    return (C * (tile + 1) + C + tile + 12 * stage) * 4
 
 
 def rows_tile(C: int) -> int:
     """Position tile of the row kernel for ``C`` columns: the widest of
-    256/128/64 whose shared memory fits one block. Takes every C that v1
-    took before it (:func:`kernel_constants` raises past that)."""
+    256/128/64 whose shared memory, with the fewest staged rows, fits one
+    block. Takes every C that v1 took before it (:func:`kernel_constants`
+    raises past that)."""
     kernel_constants(C)
-    return next(tile for tile in TILES if _rows_smem_bytes(tile, C) <= MAX_SMEM_BYTES)
+    return next(tile for tile in TILES if _rows_smem_bytes(tile, C, STAGE_ROWS[0]) <= MAX_SMEM_BYTES)
 
 
-def run_length(n_tiles: int, device: torch.device) -> int:
-    """Tiles per block of the run variant for ``n_tiles`` tiles in all:
-    about four runs per SM, from 1 to MAX_RUN tiles each."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(MAX_RUN, n_tiles // (4 * sms)))
+def rows_stage(tile: int, C: int) -> int:
+    """Rows per stream and round that the apply pass stages in shared
+    memory: the most, up to 256 and a multiple of 32, that fit beside its
+    tile."""
+    room = (MAX_SMEM_BYTES - _rows_smem_bytes(tile, C, 0)) // 48
+    return min(STAGE_ROWS[1], room // 32 * 32)
 
 
 class Streams(NamedTuple):
@@ -260,18 +260,17 @@ def fused_query_rows_reference(placed, params, prefix, *, k: int, L: int, C: int
 
 
 def fused_query_rows(placed, params: torch.Tensor, prefix: torch.Tensor, *, k: int, L: int, C: int,
-                     n_docs: int, membership: bool, variant: str = DEFAULT_VARIANT,
-                     run: int | None = None):
+                     n_docs: int, membership: bool, staged: bool = True):
     """Conservation int32[Q, L] or membership int8[Q, L, C] of Q windows of
     L positions at k, from the placed store (``engine.PlacedStore``, six
     int32 row tensors), the parameter block ``params`` int32[Q, 5] and the
     prefix int32[Q, C] (:func:`window_args` puts both on the device).
 
-    On CUDA tensors this launches the kernel of ``csrc/fused_query.cu`` on
-    the current stream, once for the whole batch, with the carry of
-    ``variant`` ("tiles" or "runs", see the source note; for "runs", ``run``
-    tiles per block, else :func:`run_length`), and counts the launch in
-    ``fused_query_rows.launches``; a tensor the kernel does not take raises.
+    On CUDA tensors this launches the kernels of ``csrc/fused_query.cu`` on
+    the current stream, once for the whole batch (with ``staged``, the apply
+    pass stages its rows in shared memory with cp.async), and counts the
+    launch in ``fused_query_rows.launches``; a tensor the kernels do not take
+    raises.
     On CPU tensors it runs :func:`fused_query_rows_reference`.
     """
     tensors = (*placed, params, prefix)
@@ -281,8 +280,6 @@ def fused_query_rows(placed, params: torch.Tensor, prefix: torch.Tensor, *, k: i
                                           membership=membership)
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"fused_query_rows needs all tensors on one CUDA device, got {devices}")
-    if variant not in VARIANTS:
-        raise ValueError(f"unknown variant {variant!r}, expected one of {sorted(VARIANTS)}")
     tile = rows_tile(C)
     n_win = params.shape[0] if params.dim() == 2 else 0
     if L < 1 or k < 1:
@@ -305,22 +302,13 @@ def fused_query_rows(placed, params: torch.Tensor, prefix: torch.Tensor, *, k: i
     lib = load_library()
     device = params.device
     nt = -(-L // tile)
-    if variant == "runs":
-        run = run or run_length(nt * n_win, device)
-        if not 1 <= run <= MAX_RUN:
-            raise ValueError(f"run must be 1 to {MAX_RUN} tiles, got {run}")
-        n_runs = -(-nt // run)
-        words = n_win * n_runs + n_win + n_win * n_runs * 2 * C
-    else:
-        run = 1
-        words = n_win * nt * (4 + 2 * C)
-    scratch = torch.empty(words, dtype=torch.int32, device=device)
+    scratch = torch.empty(n_win * nt * (4 + 2 * C), dtype=torch.int32, device=device)
     out = output_tensor((n_win,), L, C, membership, device)
     with torch.cuda.device(device):  # the launch goes to the current device
         err = lib.memo_fused_query_rows(
             *(t.data_ptr() for t in tensors), scratch.data_ptr(), out.data_ptr(),
-            n_rows, n_win, L, C, k, tile, run, n_docs, int(membership), VARIANTS[variant],
-            torch.cuda.current_stream(device).cuda_stream,
+            n_rows, n_win, L, C, k, tile, rows_stage(tile, C) if staged else 0, n_docs,
+            int(membership), torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise launch_error("fused_query_rows", lib, err)

@@ -30,14 +30,12 @@ import torch
 
 from memo_tpu_torch.index.store import IntervalStore
 from memo_tpu_torch.ops import query_ops as Q
-from memo_tpu_torch.ops.fused_query import fused_query_rows, prepare_streams, rows_tile, window_args
+from memo_tpu_torch.ops.fused_query import fused_query_rows, prepare_streams, window_args
 from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2, kernel_constants_v2
 from memo_tpu_torch.utils.device import resolve_device
 
 BACKENDS = ("fused", "torch", "numpy")
-# Fused kernel generation -> (wrapper, position tile for C columns). v1 reads
-# the placed store's rows; v2 reads the event streams of prepare_streams.
-KERNELS = {"v1": (fused_query_rows, rows_tile), "v2": (fused_query_v2, kernel_constants_v2)}
+KERNEL_VERSIONS = ("v1", "v2")  # fused kernel generations, as memo_tpu names them
 
 
 def _next_pow2(n: int) -> int:
@@ -135,7 +133,7 @@ class QueryEngine:
         self.backend = backend
         self.device = resolve_device(device)
         self.kernel_version = kernel_version or os.environ.get("MEMO_TPU_PALLAS_KERNEL") or "v1"
-        if self.kernel_version not in KERNELS:
+        if self.kernel_version not in KERNEL_VERSIONS:
             raise ValueError(f"unknown kernel_version {self.kernel_version!r}")
         # Large position chunks and interval buckets amortise per-step
         # overhead on the GPU; the CPU keeps small shapes for the tests.
@@ -448,14 +446,14 @@ class QueryEngine:
         the placed rows from one parameter upload; v2 runs on the event
         streams of M rows. Output [Q, L] or [Q, L, C]."""
         n = self.n_docs
-        run, constants = KERNELS[self.kernel_version]
         params, prefix_t = window_args(ranges, prefix, self.device)
         if self.kernel_version == "v1":
-            return run(self._d, params, prefix_t, k=k, L=L, C=n, n_docs=n, membership=membership)
+            return fused_query_rows(self._d, params, prefix_t, k=k, L=L, C=n, n_docs=n,
+                                    membership=membership)
         mlo, mhi, plo, phi, qs = ranges.T
         streams = prepare_streams(*self._d, mlo, mhi, plo, phi, qs, k, M=M, L=L, C=n,
-                                  tile=constants(n))
-        return run(streams, prefix_t, n_docs=n, membership=membership)
+                                  tile=kernel_constants_v2(n))
+        return fused_query_v2(streams, prefix_t, n_docs=n, membership=membership)
 
 
 def _device_query(d: PlacedStore, lo, rec_end, qs, k, M, L, n, membership):
