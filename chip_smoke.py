@@ -5,10 +5,9 @@
 Builds the CUDA kernels from ``memo_tpu_torch/csrc`` (v1 ``fused_query_rows``,
 which reads the placed store's rows, and v2 ``fused_query_v2``), holds each
 against its plain PyTorch version (v1 on random stores with edge cases, one
-and three windows per launch, both arms of its apply pass; v2 on random
-event streams), and drives the query paths: the single-window path through
-the CLI at the headline size (2 Mbp pivot, 16 genomes, k=31), with the
-device operations of one query counted exactly by capturing it into a CUDA
+and three windows per launch; v2 on random event streams), and drives the
+query paths: the single-window path through the CLI at the headline size
+(2 Mbp pivot, 16 genomes, k=31), with the device operations of one query counted exactly by capturing it into a CUDA
 graph (the parameter copy and the three kernels) and timed by
 torch.profiler; the batched-windows path (16 staggered 1 Mbp windows, one
 launch, v1 and v2) through the engine and through the CLI's
@@ -59,7 +58,6 @@ WIDE_DOCS, WIDE_LEN = 160, 1 << 19
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores, for int32 ALU work
 EDGE_REC_LEN = 200_000  # records of the random stores that phase 2 checks v1 on
-ARMS = {"staged": True, "direct": False}  # the v1 apply pass's row loads: cp.async or plain
 # The device operations of one v1 query or batch, by name: the parameter
 # upload and the three kernels of csrc/fused_query.cu.
 V1_OPS = ("Memcpy HtoD", "rows_net_kernel", "tile_scan_kernel", "rows_apply_kernel")
@@ -296,9 +294,9 @@ def v1_inputs(engine, record: str, windows, k: int):
     return ranges, np.stack([p[4] for p in params]), L
 
 
-def v1_case(engine, record, windows, k, membership):
-    """The v1 kernel with each arm against its plain version on the same
-    device tensors; returns the errors (each must be 0)."""
+def v1_case(engine, record, windows, k, membership) -> int:
+    """The v1 kernel against its plain version on the same device tensors;
+    returns the error (it must be 0)."""
     from memo_tpu_torch.ops.fused_query import (
         fused_query_rows, fused_query_rows_reference, window_args,
     )
@@ -308,17 +306,13 @@ def v1_case(engine, record, windows, k, membership):
     C = engine.n_docs
     want = fused_query_rows_reference(engine._d, *args, k=k, L=L, C=C, n_docs=C,
                                       membership=membership)
-    errors = []
-    for arm, staged in ARMS.items():
-        got = fused_query_rows(engine._d, *args, k=k, L=L, C=C, n_docs=C, membership=membership,
-                               staged=staged)
-        torch.cuda.synchronize()
-        where = f"v1 {arm} C={C} k={k} {record} {windows} membership={membership}"
-        check(got.dtype == want.dtype and got.shape == want.shape, f"{where} shape/dtype")
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        check(err == 0, f"kernel != plain: {where}")
-        errors.append(err)
-    return errors
+    got = fused_query_rows(engine._d, *args, k=k, L=L, C=C, n_docs=C, membership=membership)
+    torch.cuda.synchronize()
+    where = f"v1 C={C} k={k} {record} {windows} membership={membership}"
+    check(got.dtype == want.dtype and got.shape == want.shape, f"{where} shape/dtype")
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    check(err == 0, f"kernel != plain: {where}")
+    return err
 
 
 def phase_kernels(device) -> int:
@@ -327,7 +321,7 @@ def phase_kernels(device) -> int:
     window at a record's start, at its end (the rows after it are the next
     record's), of one position, of an empty record and of a whole 200 Kbp
     record, and three windows per launch at the longest length (one runs
-    past the record's end); both kinds; both arms of the apply pass."""
+    past the record's end); both kinds."""
     from memo_tpu_torch.query.engine import QueryEngine
 
     rng = np.random.default_rng(SEED)
@@ -342,10 +336,10 @@ def phase_kernels(device) -> int:
             eng = QueryEngine(random_store(rng, C, kind, rec_len), device=device, stratify=False)
             for k in (1, 2, 31):
                 for record, wins in (*singles, batch):
-                    errors += v1_case(eng, record, wins, k, kind == "membership")
+                    errors.append(v1_case(eng, record, wins, k, kind == "membership"))
             del eng
     emit("phase2_kernels", cases=len(errors), max_abs_err=max(errors), widths=list(widths),
-         k=[1, 2, 31], windows_per_launch=[1, 3], arms=list(ARMS))
+         k=[1, 2, 31], windows_per_launch=[1, 3])
     return max(errors)
 
 
@@ -403,26 +397,23 @@ def phase_kernels_v2(device) -> int:
 
 def time_v1(engine, record: str, windows, k: int) -> dict:
     """The v1 function (fused_query_rows) on ``windows``: exact against its
-    plain version with both arms; device times of each arm of the apply pass,
-    taken in turns (direct, staged, staged, direct), of the plain version and
-    of the parameter upload; ``ms`` is the default arm's. Its bound from this
+    plain version; device times of it, of its plain version and of the
+    parameter upload, and of its kernels (profiler). Its bound from this
     input's row counts."""
     from memo_tpu_torch.ops.fused_query import (
-        fused_query_rows, fused_query_rows_reference, rows_stage, rows_tile, window_args,
+        fused_query_rows, fused_query_rows_reference, rows_tile, window_args,
     )
 
     ranges, prefix, L = v1_inputs(engine, record, windows, k)
     args = window_args(ranges, prefix, engine.device)
     C = engine.n_docs
     n_win = len(windows)
-    err = max(v1_case(engine, record, windows, k, False))
+    err = v1_case(engine, record, windows, k, False)
 
-    def run(staged=True):
-        return fused_query_rows(engine._d, *args, k=k, L=L, C=C, n_docs=C, membership=False,
-                                staged=staged)
+    def run():
+        return fused_query_rows(engine._d, *args, k=k, L=L, C=C, n_docs=C, membership=False)
 
-    a = [kernel_ms(lambda: run(False)), kernel_ms(lambda: run(True))]
-    a += [kernel_ms(lambda: run(True)), kernel_ms(lambda: run(False))]
+    ms = kernel_ms(run)
     plain = kernel_ms(lambda: fused_query_rows_reference(engine._d, *args, k=k, L=L, C=C,
                                                          n_docs=C, membership=False), reps=5)
     upload = kernel_ms(lambda: window_args(ranges, prefix, engine.device))
@@ -430,14 +421,11 @@ def time_v1(engine, record: str, windows, k: int) -> dict:
     n_bytes = rows * 12 + n_win * L * 4 + ranges.size * 4 + prefix.size * 4
     n_ops = n_win * L * C + rows  # one scan add per (position, column), one atomic per row
     bound, bound_by = bound_ms(n_bytes, n_ops)
-    tile = rows_tile(C)
-    ms = (a[1] + a[2]) / 2
     ops = device_ops(run, V1_OPS[1:])  # the kernels alone: the parameters are uploaded
-    return {"C": C, "L": L, "windows": n_win, "candidate_rows": rows, "tile": tile,
-            "stage_rows": rows_stage(tile, C), "max_abs_err": err, "ms": ms,
-            "staged_ms": [a[1], a[2]], "direct_ms": [a[0], a[3]], "plain_ms": plain,
-            "upload_ms": upload, "bytes": n_bytes, "ops": n_ops, "bound_ms": bound,
-            "bound_by": bound_by, "bound_share": bound / ms, "kernels_us": ops}
+    return {"C": C, "L": L, "windows": n_win, "candidate_rows": rows, "tile": rows_tile(C),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain, "upload_ms": upload,
+            "bytes": n_bytes, "ops": n_ops, "bound_ms": bound, "bound_by": bound_by,
+            "bound_share": bound / ms, "kernels_us": ops}
 
 
 def time_v2(engine, record: str, qs: int, qe: int, k: int) -> dict:
@@ -853,8 +841,8 @@ def main() -> int:
     v1_cells = {"headline": head, "batch": batch, "n90": wide["n90"]["kernel_v1"],
                 "n160": wide["n160"]["kernel_v1"]}
     emit("v1_function", card=card, **{name: {key: cell[key] for key in (
-        "C", "L", "windows", "candidate_rows", "ms", "staged_ms", "direct_ms", "plain_ms",
-        "bytes", "bound_ms", "bound_share", "kernels_us")} for name, cell in v1_cells.items()})
+        "C", "L", "windows", "candidate_rows", "ms", "plain_ms", "bytes", "bound_ms",
+        "bound_share", "kernels_us")} for name, cell in v1_cells.items()})
     print(json.dumps({"kernels": [{
         "name": "fused_query_rows",
         "route": "cuda",

@@ -44,7 +44,11 @@
 //     streams, no pow2-padded M rows, no batch gather, no searchsorted.
 //  2. Events read twice: still, once per pass. A single-pass carry (runs of
 //     tiles per block with a decoupled look-back across runs) was measured
-//     slower at every width and removed (PERF.md, section 6).
+//     slower at every width and removed, and so was staging the apply pass's
+//     rows in shared memory with cp.async (double-buffered rounds; each
+//     round's block-wide barriers cost more than the overlap won). Each
+//     thread loads its rows directly; the warps of a block wait on their
+//     own loads only (PERF.md, section 6).
 //  3. Bank conflicts in the conservation reduction: the tile is
 //     cov[C][T + 1]. T is a multiple of 32, so column c's row starts at
 //     bank (c * (T + 1)) % 32 = c % 32, and word (c, p) sits in bank
@@ -169,59 +173,6 @@ __device__ void scatter(const Stream& st, int lo, int hi, int base, int T, int k
   }
 }
 
-// ---------------------------------------------------- staged rows (cp.async)
-// A block's rows are a contiguous range of each of three arrays, so they can
-// be copied into shared memory without passing through registers: the copy
-// of the next round is in flight while this round is scattered, and the
-// first round's while the block zeroes its tile.
-__device__ __forceinline__ void cp_async4(int* smem, const int32_t* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" : : "r"(dst), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" : : : "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" : : "n"(kPending) : "memory");
-}
-
-// Copy rows [lo, lo + n) of a stream's key, partner and order into
-// buf[0..n), buf[stage..stage + n) and buf[2 * stage..2 * stage + n).
-__device__ void stage_rows(const Stream& st, int lo, int n, int stage, int* buf) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    cp_async4(buf + i, st.key + lo + i);
-    cp_async4(buf + stage + i, st.partner + lo + i);
-    cp_async4(buf + 2 * stage + i, st.order + lo + i);
-  }
-}
-
-// Issue round r of a tile's rows, minus [m0, m1) and plus [p0, p1), into
-// buffer r % 2 of bufs (two buffers of [minus, plus][key, partner, order]
-// [stage] words) as one cp.async group.
-__device__ void stage_round(const Window& w, int m0, int m1, int p0, int p1, int r, int stage,
-                            int* bufs) {
-  int* buf = bufs + (r & 1) * 6 * stage;
-  const int off = r * stage;
-  stage_rows(w.minus, m0 + off, max(0, min(stage, m1 - m0 - off)), stage, buf);
-  stage_rows(w.plus, p0 + off, max(0, min(stage, p1 - p0 - off)), stage, buf + 3 * stage);
-  cp_async_commit();
-}
-
-// scatter() of n staged rows into the diff tile cov[C][T + 1].
-template <bool kPlus>
-__device__ void scatter_staged(const int* buf, int n, int stage, int shift, int base, int T, int k,
-                               int C, int* cov) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int key = buf[i];
-    const int c = live_column<kPlus>(key, buf[stage + i], buf[2 * stage + i], k, C);
-    const int p = key - shift - base;
-    if (c >= 0 && p >= 0 && p < T) atomicAdd(&cov[c * (T + 1) + p], kPlus ? 1 : -1);
-  }
-}
-
 // Coverage along each column of the tile from carry[c]: one warp per column.
 // The column's T / 32 chunks of 32 positions are scanned with shuffles side
 // by side (independent chains), then chained by their totals.
@@ -293,10 +244,12 @@ __device__ void scan_conservation(const int* cov, const int* carry, int* first, 
 // Membership of the tile from its scanned coverage (scan_tile): one warp per
 // position, lanes over columns, coalesced int8 stores of the first `rows`
 // positions from out.
-__device__ void reduce_membership(const int* cov, int T, int S, int C, int rows, int8_t* out) {
+__device__ void reduce_membership(const int* cov, int S, int C, int rows, int8_t* out) {
   const int lane = threadIdx.x & 31;
   for (int p = threadIdx.x >> 5; p < rows; p += kWarps) {
-    for (int c = lane; c < C; c += 32) out[static_cast<size_t>(p) * C + c] = cov[c * S + p] > 0 ? 0 : 1;
+    for (int c = lane; c < C; c += 32) {
+      out[static_cast<size_t>(p) * C + c] = cov[c * S + p] > 0 ? 0 : 1;
+    }
   }
 }
 
@@ -310,7 +263,7 @@ __device__ void finish_tile(int* cov, const int* carry, int* first, int T, int C
   if constexpr (kMembership) {
     scan_tile(cov, carry, T, S, C);
     __syncthreads();
-    reduce_membership(cov, T, S, C, rows, static_cast<int8_t*>(out) + out_row * C);
+    reduce_membership(cov, S, C, rows, static_cast<int8_t*>(out) + out_row * C);
   } else {
     scan_conservation(cov, carry, first, T, S, C, n_docs);
     __syncthreads();
@@ -385,74 +338,45 @@ tile_scan_kernel(const int32_t* __restrict__ delta, const int32_t* __restrict__ 
   }
 }
 
-// One block per (tile, window): the tile applied from its carry. With
-// kStaged the rows come through shared memory in rounds of `stage` rows per
-// stream, double-buffered with cp.async; else each thread loads its rows.
-template <bool kMembership, bool kStaged>
+// One block per (tile, window): the tile applied from its carry.
+template <bool kMembership>
 __global__ void __launch_bounds__(kThreads)
 rows_apply_kernel(Store store, const int32_t* __restrict__ params,
                   const int32_t* __restrict__ bounds, const int32_t* __restrict__ tile_carry,
-                  int L, int C, int T, int k, int n_docs, int stage, void* __restrict__ out) {
+                  int L, int C, int T, int k, int n_docs, void* __restrict__ out) {
   extern __shared__ int smem[];
   int* cov = smem;                 // [C][T + 1]
   int* carry = cov + C * (T + 1);  // [C]
   int* first = carry + C;          // [T]
-  int* bufs = first + T;           // kStaged: [2][minus, plus][key, partner, order][stage]
   const int t = blockIdx.x;
   const int q = blockIdx.y;
   const int nt = gridDim.x;
   const Window w = load_window(store, params, q, k);
   const int32_t* b = bounds + (static_cast<size_t>(q) * nt + t) * 4;
   const int base = t * T;
-  int rounds = 0;
-  if constexpr (kStaged) {  // the first round flies while the tile is zeroed
-    rounds = (max(b[1] - b[0], b[3] - b[2]) + stage - 1) / stage;
-    if (rounds > 0) stage_round(w, b[0], b[1], b[2], b[3], 0, stage, bufs);
-  }
   for (int i = threadIdx.x; i < C * (T + 1); i += blockDim.x) cov[i] = 0;
   for (int p = threadIdx.x; p < T; p += blockDim.x) first[p] = n_docs;
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     carry[c] = tile_carry[(static_cast<size_t>(q) * C + c) * nt + t];
   }
   __syncthreads();
-  const int m0 = b[0], m1 = b[1], p0 = b[2], p1 = b[3];
-  if constexpr (kStaged) {
-    for (int r = 0; r < rounds; ++r) {
-      if (r + 1 < rounds) {
-        // Its buffer was last read before the previous barrier.
-        stage_round(w, m0, m1, p0, p1, r + 1, stage, bufs);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const int* buf = bufs + (r & 1) * 6 * stage;
-      const int off = r * stage;
-      scatter_staged<false>(buf, max(0, min(stage, m1 - m0 - off)), stage, w.minus.shift, base, T,
-                            k, C, cov);
-      scatter_staged<true>(buf + 3 * stage, max(0, min(stage, p1 - p0 - off)), stage,
-                           w.plus.shift, base, T, k, C, cov);
-      __syncthreads();
-    }
-  } else {
-    scatter<false>(w.minus, m0, m1, base, T, k, C, cov, T + 1, 1);
-    scatter<true>(w.plus, p0, p1, base, T, k, C, cov, T + 1, 1);
-    __syncthreads();
-  }
+  scatter<false>(w.minus, b[0], b[1], base, T, k, C, cov, T + 1, 1);
+  scatter<true>(w.plus, b[2], b[3], base, T, k, C, cov, T + 1, 1);
+  __syncthreads();
   finish_tile<kMembership>(cov, carry, first, T, C, min(T, L - base), n_docs, out,
                            static_cast<size_t>(q) * L + base);
 }
 
-template <bool kMembership, bool kStaged>
+template <bool kMembership>
 cudaError_t launch_apply(dim3 grid, size_t smem, cudaStream_t stream, const Store& store,
                          const int32_t* params, const int32_t* bounds, const int32_t* carry,
-                         int L, int C, int T, int k, int n_docs, int stage, void* out) {
-  const cudaError_t err = cudaFuncSetAttribute(rows_apply_kernel<kMembership, kStaged>,
+                         int L, int C, int T, int k, int n_docs, void* out) {
+  const cudaError_t err = cudaFuncSetAttribute(rows_apply_kernel<kMembership>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  rows_apply_kernel<kMembership, kStaged><<<grid, kThreads, smem, stream>>>(
-      store, params, bounds, carry, L, C, T, k, n_docs, stage, out);
+  rows_apply_kernel<kMembership><<<grid, kThreads, smem, stream>>>(store, params, bounds, carry, L,
+                                                                   C, T, k, n_docs, out);
   return cudaGetLastError();
 }
 
@@ -462,18 +386,16 @@ cudaError_t launch_apply(dim3 grid, size_t smem, cudaStream_t stream, const Stor
 // row arrays (n_rows rows each). params is int32[Q, 5] (mlo, mhi, plo, phi,
 // qs per window), prefix int32[Q, C], out int32[Q, L] (conservation) or
 // int8[Q, L, C] (membership); scratch holds Q * nt * (4 + 2 * C) int32 words
-// with nt = ceil(L / tile). stage > 0 stages the apply pass's rows through
-// shared memory, `stage` rows per stream and round. Returns the CUDA error
-// code of the first call that failed, 0 when all were accepted.
+// with nt = ceil(L / tile). Returns the CUDA error code of the first call
+// that failed, 0 when all were accepted.
 extern "C" int memo_fused_query_rows(const int32_t* start, const int32_t* end,
                                      const int32_t* order, const int32_t* end_s,
                                      const int32_t* start_by_end, const int32_t* order_by_end,
                                      const int32_t* params, const int32_t* prefix,
                                      int32_t* scratch, void* out, int n_rows, int Q, int L, int C,
-                                     int k, int tile, int stage, int n_docs, int membership,
-                                     void* stream) {
+                                     int k, int tile, int n_docs, int membership, void* stream) {
   if (n_rows < 0 || Q < 1 || Q > kMaxGridY || L < 1 || C < 1 || k < 1 || tile < 32 ||
-      tile % 32 != 0 || tile > 32 * kMaxChunks || stage < 0) {
+      tile % 32 != 0 || tile > 32 * kMaxChunks) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -492,18 +414,11 @@ extern "C" int memo_fused_query_rows(const int32_t* start, const int32_t* end,
   tile_scan_kernel<<<dim3(C, Q), kScanThreads, 0, s>>>(delta, prefix, nt, C, carry);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem = (static_cast<size_t>(C) * (T + 1) + C + T + 12 * static_cast<size_t>(stage)) *
-                      sizeof(int);
+  const size_t smem = (static_cast<size_t>(C) * (T + 1) + C + T) * sizeof(int);
   if (membership) {
-    return stage ? launch_apply<true, true>(grid, smem, s, store, params, bounds, carry, L, C, T,
-                                            k, n_docs, stage, out)
-                 : launch_apply<true, false>(grid, smem, s, store, params, bounds, carry, L, C, T,
-                                             k, n_docs, stage, out);
+    return launch_apply<true>(grid, smem, s, store, params, bounds, carry, L, C, T, k, n_docs, out);
   }
-  return stage ? launch_apply<false, true>(grid, smem, s, store, params, bounds, carry, L, C, T, k,
-                                           n_docs, stage, out)
-               : launch_apply<false, false>(grid, smem, s, store, params, bounds, carry, L, C, T,
-                                            k, n_docs, stage, out);
+  return launch_apply<false>(grid, smem, s, store, params, bounds, carry, L, C, T, k, n_docs, out);
 }
 
 extern "C" const char* memo_cuda_error_string(int err) {

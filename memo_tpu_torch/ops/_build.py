@@ -88,8 +88,8 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     # v1: 6 store row pointers, params, prefix, scratch, out; n_rows, Q, L,
-    # C, k, tile, stage, n_docs, membership; the stream.
-    lib.memo_fused_query_rows.argtypes = [ptr] * 10 + [i32] * 9 + [ptr]
+    # C, k, tile, n_docs, membership; the stream.
+    lib.memo_fused_query_rows.argtypes = [ptr] * 10 + [i32] * 8 + [ptr]
     lib.memo_fused_query_rows.restype = i32
     # v2: 6 stream pointers, prefix, two scratch pointers, out; Q, m_stride,
     # p_stride, L, C, tile, n_docs, membership; the stream.

@@ -35,7 +35,6 @@ SEG = 16  # segment sums in kernel_constants' tile budget, which sets v1's wides
 TILES = (256, 128, 64)  # position tiles the kernels are built for, widest first
 MAX_SMEM_BYTES = 232_448  # dynamic shared memory one Hopper block may use
 MAX_WINDOWS = 65_535  # the kernels put the window on grid axis y
-STAGE_ROWS = (32, 256)  # rows per stream and round the apply pass stages: least, most
 CPU = torch.device("cpu")
 
 
@@ -50,29 +49,19 @@ def kernel_constants(C: int) -> int:
     raise ValueError(f"fused query supports at most {widest} columns, got C={C}")
 
 
-def _rows_smem_bytes(tile: int, C: int, stage: int) -> int:
+def _rows_smem_bytes(tile: int, C: int) -> int:
     """Shared memory of one block of the apply pass (csrc/fused_query.cu):
-    the tile int32[C][tile + 1], the carry [C], the first marked column of
-    each position [tile] and two buffers of ``stage`` staged rows of each
-    stream's three arrays."""
-    return (C * (tile + 1) + C + tile + 12 * stage) * 4
+    the tile int32[C][tile + 1], the carry [C] and the first marked column
+    of each position [tile]."""
+    return (C * (tile + 1) + C + tile) * 4
 
 
 def rows_tile(C: int) -> int:
     """Position tile of the row kernel for ``C`` columns: the widest of
-    256/128/64 whose shared memory, with the fewest staged rows, fits one
-    block. Takes every C that v1 took before it (:func:`kernel_constants`
-    raises past that)."""
+    256/128/64 whose shared memory fits one block. Takes every C that v1
+    took before it (:func:`kernel_constants` raises past that)."""
     kernel_constants(C)
-    return next(tile for tile in TILES if _rows_smem_bytes(tile, C, STAGE_ROWS[0]) <= MAX_SMEM_BYTES)
-
-
-def rows_stage(tile: int, C: int) -> int:
-    """Rows per stream and round that the apply pass stages in shared
-    memory: the most, up to 256 and a multiple of 32, that fit beside its
-    tile."""
-    room = (MAX_SMEM_BYTES - _rows_smem_bytes(tile, C, 0)) // 48
-    return min(STAGE_ROWS[1], room // 32 * 32)
+    return next(tile for tile in TILES if _rows_smem_bytes(tile, C) <= MAX_SMEM_BYTES)
 
 
 class Streams(NamedTuple):
@@ -260,17 +249,15 @@ def fused_query_rows_reference(placed, params, prefix, *, k: int, L: int, C: int
 
 
 def fused_query_rows(placed, params: torch.Tensor, prefix: torch.Tensor, *, k: int, L: int, C: int,
-                     n_docs: int, membership: bool, staged: bool = True):
+                     n_docs: int, membership: bool):
     """Conservation int32[Q, L] or membership int8[Q, L, C] of Q windows of
     L positions at k, from the placed store (``engine.PlacedStore``, six
     int32 row tensors), the parameter block ``params`` int32[Q, 5] and the
     prefix int32[Q, C] (:func:`window_args` puts both on the device).
 
     On CUDA tensors this launches the kernels of ``csrc/fused_query.cu`` on
-    the current stream, once for the whole batch (with ``staged``, the apply
-    pass stages its rows in shared memory with cp.async), and counts the
-    launch in ``fused_query_rows.launches``; a tensor the kernels do not take
-    raises.
+    the current stream, once for the whole batch, and counts the launch in
+    ``fused_query_rows.launches``; a tensor the kernels do not take raises.
     On CPU tensors it runs :func:`fused_query_rows_reference`.
     """
     tensors = (*placed, params, prefix)
@@ -307,8 +294,8 @@ def fused_query_rows(placed, params: torch.Tensor, prefix: torch.Tensor, *, k: i
     with torch.cuda.device(device):  # the launch goes to the current device
         err = lib.memo_fused_query_rows(
             *(t.data_ptr() for t in tensors), scratch.data_ptr(), out.data_ptr(),
-            n_rows, n_win, L, C, k, tile, rows_stage(tile, C) if staged else 0, n_docs,
-            int(membership), torch.cuda.current_stream(device).cuda_stream,
+            n_rows, n_win, L, C, k, tile, n_docs, int(membership),
+            torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise launch_error("fused_query_rows", lib, err)

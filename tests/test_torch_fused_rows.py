@@ -23,7 +23,6 @@ from memo_tpu_torch.ops.fused_query import (
     fused_query_rows_reference,
     kernel_constants,
     prepare_streams,
-    rows_stage,
     rows_tile,
     window_args,
 )
@@ -195,12 +194,6 @@ def test_rows_tile_rejects_what_v1_rejects():
         rows_tile(855)
 
 
-@pytest.mark.parametrize("C,stage", [(16, 256), (160, 256), (220, 64), (222, 32), (224, 256), (854, 128)])
-def test_rows_stage_fits_beside_the_tile(C, stage):
-    """The apply pass stages as many rows as fit its block, 32 to 256."""
-    assert rows_stage(rows_tile(C), C) == stage
-
-
 def test_rows_refuse_tensors_off_cpu_and_cuda():
     z = torch.zeros(8, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
@@ -216,9 +209,8 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("staged", [True, False])
 @pytest.mark.parametrize("C", WIDTHS)
-def test_cuda_rows_match_plain(cuda_device, stores, C, staged):
+def test_cuda_rows_match_plain(cuda_device, stores, C):
     """The kernel against its plain version on the same device tensors, for
     every window and the batch, each k and kind; one launch per call."""
     for kind in ("conservation", "membership"):
@@ -227,20 +219,19 @@ def test_cuda_rows_match_plain(cuda_device, stores, C, staged):
             cases = [(record, [(qs, qe)]) for record, qs, qe in WINDOWS] + [("chr0", BATCH)]
             for record, wins in cases:
                 before = fused_query_rows.launches
-                got, args, L = _rows(eng, record, wins, k, kind == "membership", cuda_device,
-                                     staged=staged)
+                got, args, L = _rows(eng, record, wins, k, kind == "membership", cuda_device)
                 torch.cuda.synchronize()
                 assert fused_query_rows.launches == before + 1
                 want = fused_query_rows_reference(eng._d, *args, k=k, L=L, C=C, n_docs=C,
                                                   membership=kind == "membership")
-                assert torch.equal(got, want), (C, kind, k, record, wins, staged)
+                assert torch.equal(got, want), (C, kind, k, record, wins)
 
 
 @pytest.mark.cuda
 def test_cuda_rows_long_window_and_many_windows(cuda_device):
     """A window of 1172 tiles (more than the tile scan's 1024 threads) at
-    C=16, a batch of 40 windows, and a dense store whose tiles stage several
-    rounds of rows, against the plain version."""
+    C=16, a batch of 40 windows, and a dense store with thousands of rows a
+    tile, against the plain version."""
     cases = ((random_store(np.random.default_rng(43), 16, rec_len=300_000, per_pos=2),
               ([(0, 300_000)], [(i * 7000, i * 7000 + 9000) for i in range(40)])),
              (random_store(np.random.default_rng(44), 16, rec_len=20_000, per_pos=12),
@@ -248,24 +239,21 @@ def test_cuda_rows_long_window_and_many_windows(cuda_device):
     for store, windows in cases:
         eng = QueryEngine(store, device=cuda_device, stratify=False)
         for wins in windows:
-            for staged in (True, False):
-                got, args, L = _rows(eng, "chr0", wins, 31, False, cuda_device, staged=staged)
-                want = fused_query_rows_reference(eng._d, *args, k=31, L=L, C=16, n_docs=16,
-                                                  membership=False)
-                assert torch.equal(got, want), (staged, wins[0])
+            got, args, L = _rows(eng, "chr0", wins, 31, False, cuda_device)
+            want = fused_query_rows_reference(eng._d, *args, k=31, L=L, C=16, n_docs=16,
+                                              membership=False)
+            assert torch.equal(got, want), wins[0]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("C", [257, 854])
 def test_cuda_rows_narrow_tiles(cuda_device, C):
-    """Widths whose tile is 128 and 64 positions, both kinds and arms."""
+    """Widths whose tile is 128 and 64 positions, both kinds."""
     for kind in ("conservation", "membership"):
         store = random_store(np.random.default_rng(C), C, kind, rec_len=2000, per_pos=2)
         eng = QueryEngine(store, device=cuda_device, stratify=False)
-        for staged in (True, False):
-            for record, wins in (("chr0", [(0, 2000)]), ("chr0", BATCH)):
-                got, args, L = _rows(eng, record, wins, 31, kind == "membership", cuda_device,
-                                     staged=staged)
-                want = fused_query_rows_reference(eng._d, *args, k=31, L=L, C=C, n_docs=C,
-                                                  membership=kind == "membership")
-                assert torch.equal(got, want), (C, kind, staged, wins)
+        for record, wins in (("chr0", [(0, 2000)]), ("chr0", BATCH)):
+            got, args, L = _rows(eng, record, wins, 31, kind == "membership", cuda_device)
+            want = fused_query_rows_reference(eng._d, *args, k=31, L=L, C=C, n_docs=C,
+                                              membership=kind == "membership")
+            assert torch.equal(got, want), (C, kind, wins)
