@@ -62,6 +62,10 @@ EDGE_REC_LEN = 200_000  # records of the random stores that phase 2 checks v1 on
 # upload and the three kernels of csrc/fused_query.cu.
 V1_OPS = ("Memcpy HtoD", "rows_net_kernel", "tile_scan_kernel", "rows_apply_kernel")
 V1_GRAPH = {"memcpy": 1, "kernel": 3}  # the same, as CUDA graph nodes
+V2_ARM = "runs"  # the arm of csrc/fused_query_v2.cu that the engine runs
+V2_OPS = ("Memcpy HtoD", f"v2_{V2_ARM}_kernel")  # a v2 query: the upload and one kernel
+V2_GRAPH = {"memcpy": 1, "kernel": 1}
+DENSE_LEN, DENSE_DOCS = 1 << 18, 90  # dense_small: tools/kernel_lab.py's 256 Kbp, C=90 store
 PROFILE_TRIES = 3
 
 
@@ -294,34 +298,47 @@ def v1_inputs(engine, record: str, windows, k: int):
     return ranges, np.stack([p[4] for p in params]), L
 
 
-def v1_case(engine, record, windows, k, membership) -> int:
-    """The v1 kernel against its plain version on the same device tensors;
-    returns the error (it must be 0)."""
-    from memo_tpu_torch.ops.fused_query import (
-        fused_query_rows, fused_query_rows_reference, window_args,
-    )
+def kernel_case(engine, record, windows, k, membership, kernels) -> dict[str, int]:
+    """Each of ``kernels`` (name -> a function with fused_query_rows'
+    signature) against the plain version on the same device tensors; returns
+    each one's error (it must be 0)."""
+    from memo_tpu_torch.ops.fused_query import fused_query_rows_reference, window_args
 
     ranges, prefix, L = v1_inputs(engine, record, windows, k)
     args = window_args(ranges, prefix, engine.device)
     C = engine.n_docs
     want = fused_query_rows_reference(engine._d, *args, k=k, L=L, C=C, n_docs=C,
                                       membership=membership)
-    got = fused_query_rows(engine._d, *args, k=k, L=L, C=C, n_docs=C, membership=membership)
-    torch.cuda.synchronize()
-    where = f"v1 C={C} k={k} {record} {windows} membership={membership}"
-    check(got.dtype == want.dtype and got.shape == want.shape, f"{where} shape/dtype")
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-    check(err == 0, f"kernel != plain: {where}")
-    return err
+    errors = {}
+    for name, fn in kernels.items():
+        got = fn(engine._d, *args, k=k, L=L, C=C, n_docs=C, membership=membership)
+        torch.cuda.synchronize()
+        where = f"{name} C={C} k={k} {record} {windows} membership={membership}"
+        check(got.dtype == want.dtype and got.shape == want.shape, f"{where} shape/dtype")
+        errors[name] = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        check(errors[name] == 0, f"kernel != plain: {where}")
+    return errors
 
 
-def phase_kernels(device) -> int:
-    """The v1 row kernel against fused_query_rows_reference on random stores
-    at C = 16/90/160 (256-position tiles) and 257 (128): k in {1, 2, 31}, one
-    window at a record's start, at its end (the rows after it are the next
-    record's), of one position, of an empty record and of a whole 200 Kbp
-    record, and three windows per launch at the longest length (one runs
-    past the record's end); both kinds."""
+def kernel_functions() -> dict:
+    """The kernel wrappers that phase 2 checks: v1 and each arm of v2."""
+    import functools
+
+    from memo_tpu_torch.ops.fused_query import fused_query_rows
+    from memo_tpu_torch.ops.fused_query_v2 import ARMS, fused_query_v2_rows
+
+    return {"v1": fused_query_rows,
+            **{f"v2_{arm}": functools.partial(fused_query_v2_rows, arm=arm) for arm in ARMS}}
+
+
+def phase_kernels(device) -> dict[str, int]:
+    """Both kernels (v1 fused_query_rows, v2 fused_query_v2_rows) against
+    fused_query_rows_reference on random stores at C = 16/90/160 (256-position
+    tiles) and 257 (128): k in {1, 2, 31}, one window at a record's start, at
+    its end (the rows after it are the next record's), of one position, of
+    an empty record and of a whole 200 Kbp record, and three windows per
+    launch at the longest length (one runs past the record's end); both
+    kinds. Prints one line for v1 (phase 2) and one for v2 (phase 6)."""
     from memo_tpu_torch.query.engine import QueryEngine
 
     rng = np.random.default_rng(SEED)
@@ -330,88 +347,44 @@ def phase_kernels(device) -> int:
                ("chr1", [(5555, 5556)]), ("chr2", [(0, 1000)]), ("chr1", [(0, rec_len)]))
     batch = ("chr0", [(0, 3000), (rec_len - 1000, rec_len), (77_777, 77_778)])
     widths = (16, 90, 160, 257)
-    errors = []
+    kernels = kernel_functions()
+    errors = {name: [] for name in kernels}
     for C in widths:
         for kind in ("conservation", "membership"):
             eng = QueryEngine(random_store(rng, C, kind, rec_len), device=device, stratify=False)
             for k in (1, 2, 31):
                 for record, wins in (*singles, batch):
-                    errors.append(v1_case(eng, record, wins, k, kind == "membership"))
+                    for name, err in kernel_case(eng, record, wins, k, kind == "membership",
+                                                 kernels).items():
+                        errors[name].append(err)
             del eng
-    emit("phase2_kernels", cases=len(errors), max_abs_err=max(errors), widths=list(widths),
+    worst = {name: max(errs) for name, errs in errors.items()}
+    emit("phase2_kernels", cases=len(errors["v1"]), max_abs_err=worst["v1"], widths=list(widths),
          k=[1, 2, 31], windows_per_launch=[1, 3])
-    return max(errors)
+    v2 = {name: err for name, err in worst.items() if name != "v1"}
+    emit("phase6_kernels_v2", cases=len(errors["v1"]), max_abs_err=max(v2.values()), arms=v2,
+         widths=list(widths), k=[1, 2, 31], windows_per_launch=[1, 3])
+    return {"v1": worst["v1"], "v2": max(v2.values())}
 
 
-def random_streams(rng, L: int, C: int, n_events: int, device, tile, n_win: int = 1):
-    """Two sorted event streams over a window of L positions: events at
-    random positions in [0, L) with random columns (val 0 = inert), then a
-    dead tail parked at L_pad, as ``prepare_streams`` lays them out; 1-D for
-    one window, one row per window (each its own events) for n_win > 1."""
-    from memo_tpu_torch.ops.fused_query import Streams
+def time_function(engine, record: str, windows, k: int, version: str = "v1") -> dict:
+    """The v1 (fused_query_rows) or v2 (fused_query_v2_rows) function on
+    ``windows``, from the uploaded parameters: exact against its plain
+    version; device times of it, of its plain version and of the parameter
+    upload, and of its kernels (profiler). Its bound from this input's row
+    counts: 12 bytes a candidate row, read once, plus the output."""
+    from memo_tpu_torch.ops.fused_query import fused_query_rows_reference, rows_tile, window_args
+    from memo_tpu_torch.ops.fused_query_v2 import v2_constants
 
-    l_pad = -(-L // tile) * tile
-    bounds = np.arange(0, l_pad + 1, tile)
-    rows = [[] for _ in range(6)]
-    for _ in range(n_win):
-        for j in (0, 3):
-            pos = np.sort(rng.integers(0, L, n_events)).astype(np.int32)
-            pos = np.concatenate([pos, np.full(n_events // 8, l_pad, np.int32)])
-            rows[j].append(pos)
-            rows[j + 1].append(rng.integers(0, C + 1, pos.shape[0]).astype(np.int32))
-            rows[j + 2].append(np.searchsorted(pos, bounds, side="left").astype(np.int32))
-    prefix = rng.integers(0, 3, (n_win, C)).astype(np.int32)
-    pick = (lambda a: a[0]) if n_win == 1 else np.stack
-    parts = [torch.from_numpy(pick(r)).to(device) for r in rows]
-    return Streams(*parts, L, tile), torch.from_numpy(pick(prefix)).to(device)
-
-
-def phase_kernels_v2(device) -> int:
-    """The v2 kernel against its plain version on random streams at
-    C = 16/90/160/257, with 1 and 3 windows per launch."""
-    from memo_tpu_torch.ops.fused_query_v2 import (
-        fused_query_v2, fused_query_v2_reference, kernel_constants_v2,
-    )
-
-    rng = np.random.default_rng(SEED)
-    errors = []
-    for C in (16, 90, 160, 257):
-        for L, per_pos in ((1, 3), (1000, 3), (4096 + 17, 30), (300_001, 2), (2048, 0)):
-            for n_win in (1, 3):
-                for membership in (False, True):
-                    streams, prefix = random_streams(rng, L, C, L * per_pos, device,
-                                                     kernel_constants_v2(C), n_win)
-                    got = fused_query_v2(streams, prefix, n_docs=C, membership=membership)
-                    want = fused_query_v2_reference(streams, prefix, n_docs=C, membership=membership)
-                    sync(device)
-                    where = f"v2 C={C} L={L} Q={n_win} membership={membership}"
-                    check(got.dtype == want.dtype and got.shape == want.shape, f"{where} shape/dtype")
-                    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-                    check(err == 0, f"kernel != plain: {where}")
-                    errors.append(err)
-    emit("phase6_kernels_v2", cases=len(errors), max_abs_err=max(errors),
-         windows_per_launch=[1, 3], widths=[16, 90, 160, 257],
-         lengths=[1, 1000, 4113, 300001, 2048])
-    return max(errors)
-
-
-def time_v1(engine, record: str, windows, k: int) -> dict:
-    """The v1 function (fused_query_rows) on ``windows``: exact against its
-    plain version; device times of it, of its plain version and of the
-    parameter upload, and of its kernels (profiler). Its bound from this
-    input's row counts."""
-    from memo_tpu_torch.ops.fused_query import (
-        fused_query_rows, fused_query_rows_reference, rows_tile, window_args,
-    )
-
+    fn = kernel_functions()[version if version == "v1" else f"v2_{V2_ARM}"]
     ranges, prefix, L = v1_inputs(engine, record, windows, k)
     args = window_args(ranges, prefix, engine.device)
     C = engine.n_docs
     n_win = len(windows)
-    err = v1_case(engine, record, windows, k, False)
+    err = kernel_case(engine, record, windows, k, False, {version: fn})[version]
 
     def run():
-        return fused_query_rows(engine._d, *args, k=k, L=L, C=C, n_docs=C, membership=False)
+        return fn(engine._d, *args, k=k, L=L, C=C, n_docs=C, membership=False)
 
     ms = kernel_ms(run)
     plain = kernel_ms(lambda: fused_query_rows_reference(engine._d, *args, k=k, L=L, C=C,
@@ -421,47 +394,28 @@ def time_v1(engine, record: str, windows, k: int) -> dict:
     n_bytes = rows * 12 + n_win * L * 4 + ranges.size * 4 + prefix.size * 4
     n_ops = n_win * L * C + rows  # one scan add per (position, column), one atomic per row
     bound, bound_by = bound_ms(n_bytes, n_ops)
-    ops = device_ops(run, V1_OPS[1:])  # the kernels alone: the parameters are uploaded
-    return {"C": C, "L": L, "windows": n_win, "candidate_rows": rows, "tile": rows_tile(C),
+    ops = device_ops(run, V1_OPS[1:] if version == "v1" else V2_OPS[1:])  # the kernels alone
+    return {"version": version, "C": C, "L": L, "windows": n_win, "candidate_rows": rows,
+            "tile": rows_tile(C) if version == "v1" else v2_constants(C)[0],
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "upload_ms": upload,
             "bytes": n_bytes, "ops": n_ops, "bound_ms": bound, "bound_by": bound_by,
             "bound_share": bound / ms, "kernels_us": ops}
 
 
-def time_v2(engine, record: str, qs: int, qe: int, k: int) -> dict:
-    """The v2 kernel and its plain version on the streams that
-    prepare_streams builds for one window, after checking they agree; the
-    set-up's time; the kernel's bound (8 bytes per in-window event read
-    once, plus the output)."""
-    from memo_tpu_torch.ops.fused_query import fused_query_reference, prepare_streams
-    from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2, kernel_constants_v2
-    from memo_tpu_torch.query.engine import _next_pow2
+def ab_v2(engine, record: str, windows, k: int) -> dict:
+    """v2's two arms on the same uploaded parameters, timed in turns (tiles,
+    runs, runs, tiles) by CUDA events, beside v1 in the same turns."""
+    from memo_tpu_torch.ops.fused_query import window_args
 
-    n = engine.n_docs
-    mlo, mhi, plo, phi, prefix = engine._window_params(record, qs, qe, k)
-    M = min(_next_pow2(max(mhi - mlo, phi - plo, 1)), engine.max_intervals)
-
-    def setup():
-        return prepare_streams(*engine._d, mlo, mhi, plo, phi, qs, k, M=M, L=qe - qs, C=n,
-                               tile=kernel_constants_v2(n))
-
-    streams = setup()
-    prefix_t = torch.from_numpy(prefix.astype(np.int32)).to(engine.device)
-    got = fused_query_v2(streams, prefix_t, n_docs=n, membership=False)
-    want = fused_query_reference(streams, prefix_t, n_docs=n, membership=False)
-    torch.cuda.synchronize()
-    err = int((got - want).abs().max())
-    check(err == 0, f"v2 kernel != plain on the engine's streams (C={n})")
-    ms = kernel_ms(lambda: fused_query_v2(streams, prefix_t, n_docs=n, membership=False))
-    plain_ms = kernel_ms(lambda: fused_query_reference(streams, prefix_t, n_docs=n,
-                                                       membership=False))
-    events = int(streams.off_m[-1]) + int(streams.off_p[-1])
-    n_bytes = events * 8 + (qe - qs) * 4 + 2 * streams.off_m.numel() * 4 + n * 4
-    bound, bound_by = bound_ms(n_bytes, (qe - qs) * n + events)
-    return {"version": "v2", "C": n, "L": qe - qs, "M": M, "events": events,
-            "tile": streams.tile, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "stream_setup_ms": kernel_ms(setup), "bytes": n_bytes, "bound_ms": bound,
-            "bound_by": bound_by}
+    kernels = kernel_functions()
+    ranges, prefix, L = v1_inputs(engine, record, windows, k)
+    args = window_args(ranges, prefix, engine.device)
+    C = engine.n_docs
+    times = {name: [] for name in kernels}
+    for name in ("v2_tiles", "v2_runs", "v1", "v2_runs", "v2_tiles", "v1"):
+        times[name].append(kernel_ms(lambda: kernels[name](engine._d, *args, k=k, L=L, C=C,
+                                                          n_docs=C, membership=False)))
+    return times
 
 
 def device_ops(fn, expect: tuple[str, ...]) -> list[tuple[str, float]]:
@@ -582,14 +536,20 @@ def phase_headline(device, tmp: str):
     graph = graph_ops(query)
     check(graph == V1_GRAPH, f"one headline query is one copy and three kernels: {graph}")
     ops = device_ops(query, V1_OPS)
+    resident_v2 = QueryEngine(store, backend="fused", device=device, chunk_positions=L,
+                              device_output=True, kernel_version="v2")
+    graph_v2 = graph_ops(lambda: resident_v2.conservation("chr1", 0, L, K))
+    check(graph_v2 == V2_GRAPH, f"one headline v2 query is one copy and one kernel: {graph_v2}")
+    del resident_v2
 
     # Layer breakdown of one query: host range search and prefix, parameter
     # upload and the v1 function (device time), result copy and formatting.
     t0 = time.perf_counter()
     fused._window_params("chr1", 0, L, K)
     host_ms = (time.perf_counter() - t0) * 1e3
-    kern = time_v1(fused, "chr1", [(0, L)], K)
-    kern_v2 = time_v2(fused, "chr1", 0, L, K)
+    kern = time_function(fused, "chr1", [(0, L)], K)
+    kern_v2 = time_function(fused, "chr1", [(0, L)], K, "v2")
+    kern_v2["ab_ms"] = ab_v2(fused, "chr1", [(0, L)], K)
     res = fused.conservation("chr1", 0, L, K)
     t0 = time.perf_counter()
     format_conservation(res)
@@ -598,6 +558,7 @@ def phase_headline(device, tmp: str):
          store_build_s=build_s, cli_query_s=cli_s, launches=launches, exact_cli_bytes=True,
          reference_loop_s=ref_s, mbp_s=mbp_s, k_sweep_exact=[21, 51, 101],
          device_ops=sum(graph.values()), graph_nodes=graph, device_op_list=ops,
+         graph_nodes_v2=graph_v2,
          layers_ms={"host_ranges_prefix": host_ms, "upload": kern["upload_ms"],
                     "v1_function": kern["ms"], "format_output": format_ms},
          kernel=kern, kernel_v2=kern_v2)
@@ -613,49 +574,55 @@ def batch_windows(pivot_len: int) -> list[tuple[int, int]]:
 
 def phase_batched(device, store):
     """conservation_batch at the headline with v1 and v2: one launch for the
-    whole batch, every window == the single-window output, window 3's first
-    16 Kbp == the reference loop; the v1 function's device time on the batch
-    and the device operations of one v1 batch. Returns the single-window
-    outputs and the v1 timing."""
+    whole batch, every window == the single-window output (and v2's == v1's),
+    window 3's first 16 Kbp == the reference loop; each function's device
+    time on the batch and the device operations of one batch of each.
+    Returns the single-window outputs and the timings {v1, v2}."""
     from memo_tpu_torch.ops.fused_query import fused_query_rows
-    from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2
+    from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2_rows
     from memo_tpu_torch.query.engine import QueryEngine
 
     wins = batch_windows(PIVOT_LEN)
     sub = min(1 << 14, BATCH_LEN)
     ref = reference_query_np(store, wins[3][0], wins[3][0] + sub, K)
-    fields, singles, kern = {}, None, None
-    for version in ("v1", "v2"):
+    fields, singles, kerns = {}, None, {}
+    for version, ops_names, want_graph in (("v1", V1_OPS, V1_GRAPH), ("v2", V2_OPS, V2_GRAPH)):
         eng = QueryEngine(store, backend="fused", device=device, chunk_positions=PIVOT_LEN,
                           device_output=True, stratify=False, kernel_version=version)
-        fused_query_rows.launches = fused_query_v2.launches = 0
+        fused_query_rows.launches = fused_query_v2_rows.launches = 0
         outs = eng.conservation_batch("chr1", wins, K)
         sync(device)
-        launches = {"v1": fused_query_rows.launches, "v2": fused_query_v2.launches}
+        launches = {"v1": fused_query_rows.launches, "v2": fused_query_v2_rows.launches}
         check(launches == {"v1": int(version == "v1"), "v2": int(version == "v2")},
               f"{version} batch of {len(wins)} windows ran as one launch: {launches}")
         single = [eng.conservation("chr1", qs, qe, K) for qs, qe in wins]
         for (qs, qe), got, one in zip(wins, outs, single):
             check(torch.equal(got, one), f"{version} batch window {qs}-{qe} == single window")
+        if singles is not None:
+            for (qs, qe), got, one in zip(wins, outs, singles):
+                check(np.array_equal(got.cpu().numpy(), one), f"v2 batch window {qs}-{qe} == v1")
         check(np.array_equal(outs[3][:sub].cpu().numpy(), ref), f"{version} window 3 == reference loop")
         batch_s = wall_median_s(lambda: eng.conservation_batch("chr1", wins, K), device)
         single_s = wall_median_s(lambda: eng.conservation("chr1", *wins[0], K), device)
+        batch = lambda: eng.conservation_batch("chr1", wins, K)  # noqa: E731
+        graph = graph_ops(batch)
+        check(graph == want_graph, f"one {version} batch is {want_graph}: {graph}")
+        kerns[version] = time_function(eng, "chr1", wins, K, version)
+        if version == "v2":
+            kerns[version]["ab_ms"] = ab_v2(eng, "chr1", wins, K)
         fields[version] = {"launches": launches[version], "batch_wall_ms": batch_s * 1e3,
                            "per_window_ms": batch_s * 1e3 / len(wins),
                            "single_window_ms": single_s * 1e3,
-                           "batch_mbp_s": len(wins) * BATCH_LEN / batch_s / 1e6}
+                           "batch_mbp_s": len(wins) * BATCH_LEN / batch_s / 1e6,
+                           "device_ops": sum(graph.values()), "graph_nodes": graph,
+                           "device_op_list": device_ops(batch, ops_names),
+                           "kernel": kerns[version]}
         if version == "v1":
             singles = [o.cpu().numpy() for o in single]
-            batch = lambda: eng.conservation_batch("chr1", wins, K)  # noqa: E731
-            graph = graph_ops(batch)
-            check(graph == V1_GRAPH, f"one v1 batch is one copy and three kernels: {graph}")
-            ops = device_ops(batch, V1_OPS)
-            kern = time_v1(eng, "chr1", wins, K)
-            fields["v1"].update(device_ops=sum(graph.values()), graph_nodes=graph,
-                                device_op_list=ops, kernel=kern)
+        del eng
     emit("phase7_batched", windows=len(wins), window_len=BATCH_LEN, k=K,
-         exact_vs_single=True, exact_window3_vs_reference=True, **fields)
-    return singles, kern
+         exact_vs_single=True, exact_v2_vs_v1=True, exact_window3_vs_reference=True, **fields)
+    return singles, kerns
 
 
 def phase_hprc(device):
@@ -701,46 +668,56 @@ def kernel_env(version: str | None):
 
 
 def phase_full_width(device, large_store) -> dict:
-    """The stratified engine with each kernel at the n=90 store (bucket 0
-    runs at k=31) and at a 160-genome store: spot windows exact against the
-    reference loop; v2's and v1's device times on bucket 0's window, the
-    plain versions' times and the bounds."""
+    """The stratified engine with v2 at the n=90 store (bucket 0 runs at
+    k=31), at a 160-genome store and at dense_small (tools/kernel_lab.py's
+    256 Kbp pivot at n=90 density, built here): spot windows exact against
+    the reference loop; on bucket 0's whole window, v1 and both v2 arms
+    exact against the plain version, their device times (the arms in turns)
+    and the bounds."""
     from memo_tpu_torch.index.builder import store_from_ms
-    from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2
+    from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2_rows
     from memo_tpu_torch.query.engine import QueryEngine
 
     t0 = time.perf_counter()
     ms = synth_ms(np.random.default_rng(SEED), WIDE_LEN, WIDE_DOCS - 1, K, gap=30)
     wide = store_from_ms([ms], ["chr1"], [WIDE_LEN], WIDE_DOCS, "conservation")
-    del ms
     wide_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ms = synth_ms(np.random.default_rng(SEED), DENSE_LEN, DENSE_DOCS - 1, K, gap=25)
+    dense = store_from_ms([ms], ["chr1"], [DENSE_LEN], DENSE_DOCS, "conservation")
+    del ms
+    dense_build_s = time.perf_counter() - t0
     cells = (
         ("n90", large_store, LARGE_PIVOT_LEN,
          ((WINDOW, 1 << 15), (LARGE_PIVOT_LEN - (1 << 15) - 7, 1 << 15))),
         ("n160", wide, WIDE_LEN, ((1 << 16, 1 << 14),)),
+        ("dense_small", dense, DENSE_LEN, ((1 << 16, 1 << 14),)),
     )
     fields = {}
     for name, store, L, spots in cells:
         eng = QueryEngine(store, backend="fused", device=device, chunk_positions=L,
                           max_intervals_per_chunk=1 << 25, device_output=True, kernel_version="v2")
-        fused_query_v2.launches = 0
+        fused_query_v2_rows.launches = 0
         out = eng.conservation("chr1", 0, L, K).cpu().numpy()
-        launches = fused_query_v2.launches
+        launches = fused_query_v2_rows.launches
         check(launches > 0, f"{name}: the v2 engine launched the v2 kernel")
         for qs, n in spots:
             check(np.array_equal(out[qs:qs + n], reference_query_np(store, qs, qs + n, K)),
                   f"{name} v2 spot window {qs}-{qs + n}")
         dt = wall_median_s(lambda: eng.conservation("chr1", 0, L, K), device, reps=HPRC_REPS)
         child = eng._children[0][1] if eng._children else eng
-        v2 = time_v2(child, "chr1", 0, L, K)
-        v1 = time_v1(child, "chr1", [(0, L)], K)
+        exact = kernel_case(child, "chr1", [(0, L)], K, False, kernel_functions())
+        v2 = time_function(child, "chr1", [(0, L)], K, "v2")
+        v2["ab_ms"] = ab_v2(child, "chr1", [(0, L)], K)
+        v1 = time_function(child, "chr1", [(0, L)], K)
         fields[name] = {"intervals": store.num_intervals, "n_docs": store.n_docs, "L": L,
                         "stratified": eng._children is not None, "v2_launches": launches,
-                        "spot_windows_exact": len(spots), "v2_mbp_s": L / dt / 1e6,
-                        "kernel_v2": v2, "kernel_v1": v1}
+                        "spot_windows_exact": len(spots), "bucket0_exact": exact,
+                        "v2_mbp_s": L / dt / 1e6, "kernel_v2": v2, "kernel_v1": v1}
         del eng, child
         torch.cuda.empty_cache()
-    emit("phase8_full_width", k=K, wide_store_build_s=wide_build_s, **fields)
+    emit("phase8_full_width", k=K, wide_store_build_s=wide_build_s,
+         dense_store_build_s=dense_build_s, **fields)
     return fields
 
 
@@ -752,7 +729,7 @@ def phase_cli_regions(device, tmp: str, singles: list[np.ndarray], torch_mbp_s: 
     launches."""
     from memo_tpu_torch import cli
     from memo_tpu_torch.ops.fused_query import fused_query_rows
-    from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2
+    from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2_rows
     from memo_tpu_torch.query.output import format_conservation
 
     wins = batch_windows(PIVOT_LEN)
@@ -774,13 +751,13 @@ def phase_cli_regions(device, tmp: str, singles: list[np.ndarray], torch_mbp_s: 
             ("position", "position", None, (0, 0)),
         ):
             out = os.path.join(tmp, f"regions_{name}")
-            fused_query_rows.launches = fused_query_v2.launches = 0
+            fused_query_rows.launches = fused_query_v2_rows.launches = 0
             t0 = time.perf_counter()
             with kernel_env(version):
                 rc = cli.main(["query", "-b", npz, "-k", str(K), "--regions-file", regions,
                                "-o", out, "--strategy", strategy, "--device", device.type])
             wall = time.perf_counter() - t0
-            launches = (fused_query_rows.launches, fused_query_v2.launches)
+            launches = (fused_query_rows.launches, fused_query_v2_rows.launches)
             check(rc == 0, f"CLI --regions-file --strategy {name} exit code")
             check(launches == expect, f"CLI {name}: launches (v1, v2) {launches} != {expect}")
             for (qs, qe), w in zip(wins, want):
@@ -819,6 +796,10 @@ def phase_membership(device) -> None:
          exact=True)
 
 
+FUNCTION_KEYS = ("C", "L", "windows", "candidate_rows", "tile", "ms", "plain_ms", "bytes",
+                 "bound_ms", "bound_share", "kernels_us")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke needs a CUDA device",
@@ -827,8 +808,7 @@ def main() -> int:
     device = torch.device("cuda")
     card = phase_env()
     phase_build()
-    v1_err = phase_kernels(device)
-    v2_err = phase_kernels_v2(device)
+    kernel_err = phase_kernels(device)
     with tempfile.TemporaryDirectory() as tmp:
         launches, head, head_v2, store, mbp_s = phase_headline(device, tmp)
         singles, batch = phase_batched(device, store)
@@ -838,31 +818,35 @@ def main() -> int:
     wide = phase_full_width(device, large)
     del large
     phase_membership(device)
-    v1_cells = {"headline": head, "batch": batch, "n90": wide["n90"]["kernel_v1"],
-                "n160": wide["n160"]["kernel_v1"]}
-    emit("v1_function", card=card, **{name: {key: cell[key] for key in (
-        "C", "L", "windows", "candidate_rows", "ms", "plain_ms", "bytes", "bound_ms",
-        "bound_share", "kernels_us")} for name, cell in v1_cells.items()})
+    cells = {"v1": {"headline": head, "batch": batch["v1"]},
+             "v2": {"headline": head_v2, "batch": batch["v2"]}}
+    for name in ("n90", "n160", "dense_small"):
+        cells["v1"][name] = wide[name]["kernel_v1"]
+        cells["v2"][name] = wide[name]["kernel_v2"]
+    for version in ("v1", "v2"):
+        emit(f"{version}_function", card=card, **{name: {key: cell[key] for key in FUNCTION_KEYS}
+                                                  for name, cell in cells[version].items()})
+    emit("v2_arms_ms", card=card, order="tiles, runs, v1, runs, tiles, v1",
+         **{name: cell["ab_ms"] for name, cell in cells["v2"].items()})
     print(json.dumps({"kernels": [{
         "name": "fused_query_rows",
         "route": "cuda",
         "source": "memo_tpu_torch/csrc/fused_query.cu",
         "replaces": "memo_tpu/ops/pallas_query.py:236",
         "launches": launches,
-        "max_abs_err": max(v1_err, *(cell["max_abs_err"] for cell in v1_cells.values())),
+        "max_abs_err": max(kernel_err["v1"], *(c["max_abs_err"] for c in cells["v1"].values())),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": None,
     }, {
-        "name": "fused_query_v2",
+        "name": "fused_query_v2_rows",
         "route": "cuda",
         "source": "memo_tpu_torch/csrc/fused_query_v2.cu",
         "replaces": "memo_tpu/ops/pallas_query_v2.py:301",
         "launches": v2_launches,
-        "max_abs_err": max(v2_err, head_v2["max_abs_err"], wide["n90"]["kernel_v2"]["max_abs_err"],
-                           wide["n160"]["kernel_v2"]["max_abs_err"]),
+        "max_abs_err": max(kernel_err["v2"], *(c["max_abs_err"] for c in cells["v2"].values())),
         "ms": head_v2["ms"],
         "plain_ms": head_v2["plain_ms"],
         "bound_ms": head_v2["bound_ms"],

@@ -69,95 +69,18 @@
 
 #include <cuda_runtime.h>
 
+#include "tile.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGridY = 65535;  // blockIdx.y carries the window
-constexpr int kMaxChunks = 8;     // 32-position chunks of the widest tile (256)
 constexpr int kNetThreads = 128;  // rows_net_kernel: four warps, one search each
 constexpr int kScanThreads = 1024;
 constexpr int kScanWarps = kScanThreads / 32;
 static_assert(kScanWarps == 32, "the tile scan's second level is one warp wide");
 static_assert(kNetThreads >= 128, "four warps search the row bounds");
-
-// The placed store (memo_tpu_torch/query/engine.py::PlacedStore): n_rows
-// int32 rows in start order and, permuted, in end order.
-struct Store {
-  const int32_t* start;
-  const int32_t* end;
-  const int32_t* order;
-  const int32_t* end_s;
-  const int32_t* start_by_end;
-  const int32_t* order_by_end;
-  int n_rows;
-};
-
-// One event stream of one window: rows [lo, hi) of the sorted coordinate
-// `key` (start for the minus stream, end for the plus one), with the partner
-// coordinate and the column; row i's event sits at key[i] - shift.
-struct Stream {
-  const int32_t* key;
-  const int32_t* partner;
-  const int32_t* order;
-  int lo;
-  int hi;
-  int shift;
-};
-
-struct Window {
-  Stream minus;
-  Stream plus;
-};
-
-// Window q's streams from its parameter row (mlo, mhi, plo, phi, qs); the
-// row ranges are clamped to the store, so no parameter reads outside it.
-__device__ Window load_window(const Store& s, const int32_t* params, int q, int k) {
-  const int32_t* w = params + static_cast<size_t>(q) * 5;
-  const int mlo = min(max(w[0], 0), s.n_rows);
-  const int plo = min(max(w[2], 0), s.n_rows);
-  const int qs = w[4];
-  return {{s.start, s.end, s.order, mlo, min(max(w[1], mlo), s.n_rows), qs},
-          {s.end_s, s.start_by_end, s.order_by_end, plo, min(max(w[3], plo), s.n_rows),
-           qs + k - 1}};
-}
-
-// A row's event column, or -1 when the row is not live. end - start is
-// key - partner in end order and partner - key in start order.
-template <bool kPlus>
-__device__ __forceinline__ int live_column(int key, int partner, int o, int k, int C) {
-  const int span = kPlus ? key - partner : partner - key;
-  return span < k - 1 && o >= 0 && o < C ? o : -1;
-}
-
-// First row of [lo, hi) whose key is >= v, or hi (the keys are sorted on
-// [lo, hi)). One warp: 32 probes cut the range into 33 parts a step, so a
-// range of 4M rows takes 5 steps. Every lane returns the answer.
-__device__ int warp_lower_bound(const int32_t* __restrict__ key, int lo, int hi, int v) {
-  const int lane = threadIdx.x & 31;
-  // Invariant: the answer lies in [lo, hi].
-  while (lo < hi) {
-    const long long n = hi - lo;
-    const int probe = lo + static_cast<int>(n * (lane + 1) / 33);  // in [lo, hi)
-    const int below = __popc(__ballot_sync(0xffffffffu, key[probe] < v));
-    const int new_lo = below == 0 ? lo : lo + static_cast<int>(n * below / 33) + 1;
-    hi = below == 32 ? hi : lo + static_cast<int>(n * (below + 1) / 33);
-    lo = new_lo;
-  }
-  return lo;
-}
-
-// The rows of window positions [p0, p1): found[0..1] in the minus stream,
-// found[2..3] in the plus stream. Warps 0-3 search one bound each; the caller
-// synchronises before reading found.
-__device__ void find_bounds(const Window& w, int p0, int p1, int* found) {
-  const int warp = threadIdx.x >> 5;
-  if (warp < 4) {
-    const Stream& st = warp < 2 ? w.minus : w.plus;
-    const int row = warp_lower_bound(st.key, st.lo, st.hi, st.shift + ((warp & 1) ? p1 : p0));
-    if ((threadIdx.x & 31) == 0) found[warp] = row;
-  }
-}
 
 // Add the live events of rows [lo, hi) at positions [base, base + T) into
 // dst[c * S + (p - base) * P]: a diff tile with P = 1, per-column sums with
@@ -170,105 +93,6 @@ __device__ void scatter(const Stream& st, int lo, int hi, int base, int T, int k
     const int c = live_column<kPlus>(key, st.partner[i], st.order[i], k, C);
     const int p = key - st.shift - base;
     if (c >= 0 && p >= 0 && p < T) atomicAdd(&dst[c * S + p * P], kPlus ? 1 : -1);
-  }
-}
-
-// Coverage along each column of the tile from carry[c]: one warp per column.
-// The column's T / 32 chunks of 32 positions are scanned with shuffles side
-// by side (independent chains), then chained by their totals.
-__device__ void scan_tile(int* cov, const int* carry, int T, int S, int C) {
-  const int lane = threadIdx.x & 31;
-  const int n_chunks = T / 32;
-  for (int c = threadIdx.x >> 5; c < C; c += kWarps) {
-    int* row = cov + c * S;
-    int x[kMaxChunks];
-#pragma unroll
-    for (int j = 0; j < kMaxChunks; ++j) x[j] = j < n_chunks ? row[j * 32 + lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-#pragma unroll
-      for (int j = 0; j < kMaxChunks; ++j) {
-        const int y = __shfl_up_sync(0xffffffffu, x[j], o);
-        if (lane >= o) x[j] += y;
-      }
-    }
-    int run = carry[c];
-#pragma unroll
-    for (int j = 0; j < kMaxChunks; ++j) {
-      const int total = __shfl_sync(0xffffffffu, x[j], 31);
-      if (j < n_chunks) row[j * 32 + lane] = x[j] + run;
-      run += total;
-    }
-  }
-}
-
-// Conservation of the tile: the scan of scan_tile, reduced in registers.
-// Each lane keeps, for its positions, the first of its warp's columns with
-// coverage > 0 (a warp takes its columns in increasing order), and one shared
-// atomicMin per position and warp merges the warps into first[T] (which
-// holds n_docs on entry).
-__device__ void scan_conservation(const int* cov, const int* carry, int* first, int T, int S,
-                                  int C, int n_docs) {
-  const int lane = threadIdx.x & 31;
-  const int n_chunks = T / 32;
-  int best[kMaxChunks];
-#pragma unroll
-  for (int j = 0; j < kMaxChunks; ++j) best[j] = n_docs;
-  for (int c = threadIdx.x >> 5; c < C; c += kWarps) {
-    const int* row = cov + c * S;
-    int x[kMaxChunks];
-#pragma unroll
-    for (int j = 0; j < kMaxChunks; ++j) x[j] = j < n_chunks ? row[j * 32 + lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-#pragma unroll
-      for (int j = 0; j < kMaxChunks; ++j) {
-        const int y = __shfl_up_sync(0xffffffffu, x[j], o);
-        if (lane >= o) x[j] += y;
-      }
-    }
-    int run = carry[c];
-#pragma unroll
-    for (int j = 0; j < kMaxChunks; ++j) {
-      const int total = __shfl_sync(0xffffffffu, x[j], 31);
-      if (x[j] + run > 0) best[j] = min(best[j], c);
-      run += total;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kMaxChunks; ++j) {
-    if (j < n_chunks && best[j] < n_docs) atomicMin(&first[j * 32 + lane], best[j]);
-  }
-}
-
-// Membership of the tile from its scanned coverage (scan_tile): one warp per
-// position, lanes over columns, coalesced int8 stores of the first `rows`
-// positions from out.
-__device__ void reduce_membership(const int* cov, int S, int C, int rows, int8_t* out) {
-  const int lane = threadIdx.x & 31;
-  for (int p = threadIdx.x >> 5; p < rows; p += kWarps) {
-    for (int c = lane; c < C; c += 32) {
-      out[static_cast<size_t>(p) * C + c] = cov[c * S + p] > 0 ? 0 : 1;
-    }
-  }
-}
-
-// Reduce the scattered diff tile cov[C][T + 1] from carry[C] (first[T] all
-// n_docs) and write the output of its first `rows` positions from out_row
-// (an index into out's Q * L positions). The caller has synchronised.
-template <bool kMembership>
-__device__ void finish_tile(int* cov, const int* carry, int* first, int T, int C, int rows,
-                            int n_docs, void* out, size_t out_row) {
-  const int S = T + 1;
-  if constexpr (kMembership) {
-    scan_tile(cov, carry, T, S, C);
-    __syncthreads();
-    reduce_membership(cov, S, C, rows, static_cast<int8_t*>(out) + out_row * C);
-  } else {
-    scan_conservation(cov, carry, first, T, S, C, n_docs);
-    __syncthreads();
-    int32_t* o = static_cast<int32_t*>(out) + out_row;
-    for (int p = threadIdx.x; p < rows; p += blockDim.x) o[p] = first[p];
   }
 }
 
@@ -363,8 +187,8 @@ rows_apply_kernel(Store store, const int32_t* __restrict__ params,
   scatter<false>(w.minus, b[0], b[1], base, T, k, C, cov, T + 1, 1);
   scatter<true>(w.plus, b[2], b[3], base, T, k, C, cov, T + 1, 1);
   __syncthreads();
-  finish_tile<kMembership>(cov, carry, first, T, C, min(T, L - base), n_docs, out,
-                           static_cast<size_t>(q) * L + base);
+  finish_tile<kWarps, kMembership>(cov, carry, first, T, C, min(T, L - base), n_docs, out,
+                                   static_cast<size_t>(q) * L + base);
 }
 
 template <bool kMembership>

@@ -1,52 +1,61 @@
-// Fused MEMO query, v2: one pass over the events, for NVIDIA Hopper (sm_90a).
+// Fused MEMO query, v2: one pass over the placed store's rows, for NVIDIA
+// Hopper (sm_90a).
 //
-// Replaces the TPU kernel memo_tpu/ops/pallas_query_v2.py::_make_kernel_v2
-// (the body that memo_query_pallas_v2 hands to pl.pallas_call), the variant
-// for dense windows with tens of events per position. Same contract as v1
-// (csrc/fused_query.cu) and the same event streams (event_streams.cuh): the
-// coverage cov[p, c] = prefix[c] + sum of the events at positions <= p in
-// column c, reduced to conservation (int32[Q, L]) or membership
-// (int8[Q, L, C]).
+// Replaces the TPU kernel memo_tpu/ops/pallas_query_v2.py::memo_query_pallas_v2
+// (its set-up and the body _make_kernel_v2 that it hands to pl.pallas_call),
+// the variant for dense windows. Same contract as v1 (csrc/fused_query.cu,
+// fused_query_rows): window q is [qs, qs + L) at k, with candidate rows
+// [mlo, mhi) in start order and [plo, phi) in end order; a live row adds -1
+// in its column at start - qs and +1 at end - qs - (k - 1); the coverage
+// cov[p][c] = prefix[q][c] + the events at positions <= p is reduced to
+// conservation (int32[Q, L]) or membership (int8[Q, L, C]). No stream
+// set-up: the kernel reads the rows where engine.place_store put them.
 //
-// One pass: v1 reads every event twice (its delta pass and its apply pass).
-// Here one block per (tile of T positions, window) reads its events once:
-//   1. it scatters them with shared-memory atomics into a diff tile;
-//   2. it scans the tile along positions, which gives its per-column net in
-//      the last position, and publishes that net (the tile's aggregate);
-//   3. it gets the coverage entering the tile (its carry) by a decoupled
-//      look-back over the earlier tiles of its window: each tile publishes a
-//      status word and, in a scratch the wrapper zeroes, aggregate[C] and
-//      inclusive[C] (= carry + aggregate). Walking back, a block adds the
-//      aggregates of tiles that have only those and stops at the first
-//      inclusive; tile 0 starts from prefix[q] and publishes its inclusive
-//      at once. This is the Hopper counterpart of v2's in-order carry scratch
-//      on the TPU (pallas_query_v2.py:118-127, :269);
-//   4. it reduces coverage + carry to the output.
-// The tile index comes from an atomic ticket per window, not from blockIdx.x:
-// a block that waits on tile t - 1 waits on a block that drew its ticket
-// before, so is already running, and the look-back cannot deadlock whatever
-// order the hardware starts blocks in. Statuses are published with a fence
-// and a release store after the sums, and read with acquire loads.
+// What bounds it on this card: bytes, as v1 (12 bytes per candidate row read
+// once, plus the output).
 //
-// Layout: the tile is transposed as on the TPU (pallas_query_v2.py:14-18),
-// int32 cov[C][T + 1], columns on the slow axis. A warp's events sit at
-// nearly one position in random columns; with a row stride of T + 1 (T is a
-// multiple of 32) their addresses fall in distinct banks, where a stride of T
-// would put them all in one. Each column is scanned along its contiguous
-// positions by one warp with shuffles, and the conservation reduction reads
-// cov[c][p] with threads over p, free of bank conflicts.
+// One pass: v1 reads every row twice from device memory (its net pass and
+// its apply pass) and carries the coverage by a scan over tiles in between.
+// Here every row is read from device memory once, and the carry into a run
+// of tiles comes from a decoupled look-back over the earlier runs of its
+// window: a run publishes its aggregate (net events per column) and, once it
+// has its carry, its inclusive sum; a run walks back over the aggregates and
+// stops at the first inclusive. Runs are drawn by one atomic ticket in
+// window-major order, so a run waits only on runs drawn before it, whose
+// blocks are running: the look-back cannot deadlock. Statuses carry the
+// launch's epoch, and the last block to leave resets the ticket and moves
+// the epoch on, so the state is zeroed once when the wrapper allocates it
+// and never again (a launch is one kernel node, no memset).
+//
+// Two arms, timed against each other by chip_smoke.py:
+//  A ("tiles"): one block per tile; it finds its rows with v1's warp
+//    searches, scatters them from device memory into the [C][T + 1] diff
+//    tile and into its aggregate at once, looks back per tile, and finishes
+//    with v1's scan and reduce (tile.cuh).
+//  B ("runs"): a persistent grid (every block resident), each block walking
+//    runs of R tiles. Its producer warp finds the run's row bounds (v1's
+//    searches for the run's ends, one binary search per lane for the tile
+//    bounds inside it) and streams the rows with bulk copies (cp.async.bulk,
+//    the 1-D TMA) into an S-stage shared-memory ring, each stage a chunk of
+//    one stream's rows of [floor4(lo), ceil4(hi)) with full and empty
+//    mbarriers. The run's rows pass twice through the ring: first for its
+//    aggregate, then, after the look-back, tile by tile for the diff tile
+//    (the second read comes from L2). The eight consumer warps wait only on
+//    their stage's barrier; the producer is a run ahead, so the next run's
+//    rows land while a tile is scanned. The finish is v1's, with the carry
+//    handed from tile to tile in shared memory and the tile zeroed as the
+//    scan reads it.
+//
+// Bank conflicts as in v1: the tile is cov[C][T + 1], word (c, p) in bank
+// (c + p) % 32.
 //
 // What it does not copy: the TPU kernel's band/full fold split
 // (pallas_query_v2.py:26-43, :175-263) exists because a step fold on the TPU
-// costs T x E operand work per event row. In the diff form every event costs
-// one shared-memory add whatever its span, so there is nothing to split.
-// What bounds it: the event bytes (pos + val read once: 8 bytes per event,
-// half of v1's 16) plus the output, then the shared-memory atomics of dense
-// windows. T is the widest of 256/128/64 whose tile fits the 227 KB a block
-// may use (fused_query_v2.py::kernel_constants_v2 picks it).
+// costs T x E operand work per event row; in the diff form every event costs
+// one shared-memory add whatever its span.
 //
-// The launcher runs on the caller's stream, does not synchronise and does not
-// allocate: the wrapper passes the zeroed status/ticket words, the sums
+// The launcher runs on the caller's stream, does not synchronise and does
+// not allocate: the wrapper passes the state words (zeroed once), the sums
 // scratch and the output.
 
 #include <cstddef>
@@ -54,16 +63,36 @@
 
 #include <cuda_runtime.h>
 
-#include "event_streams.cuh"
+#include "tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxGridY = 65535;  // blockIdx.y carries the window
-constexpr int kNotReady = 0;      // status words: nothing published yet,
-constexpr int kAggregate = 1;     // aggregate[C] published,
-constexpr int kInclusive = 2;     // inclusive[C] published
+constexpr int kConsumers = 256;  // threads that scatter, scan and reduce
+constexpr int kConsumerWarps = kConsumers / 32;
+constexpr int kRunThreads = kConsumers + 32;  // arm B: the consumers and one producer warp
+constexpr int kStageRows = 512;               // rows of one stream in one ring stage
+constexpr int kMaxStages = 8;
+constexpr int kMaxRun = 16;  // tiles of a run: the producer's lanes 0-14 and 16-30 search
+constexpr int kMetaInts = 8;
+constexpr int kRingHeader = kMaxStages * (2 * 8 + kMetaInts * 4);  // barriers and metadata
+constexpr int kSpinLimit = 1 << 24;  // waits that never end trap instead of hanging
+constexpr int kEpochMask = (1 << 29) - 1;
+static_assert(kMaxRun <= 16, "lanes 0-15 and 16-31 search the tile bounds of one stream each");
+static_assert(kRingHeader % 128 == 0, "the ring's rows start 128-byte aligned");
+
+// The state words: ticket, blocks that left, epoch, then one status per run
+// (or tile) of every window, (epoch << 2) | flag.
+constexpr int kTicket = 0;
+constexpr int kExited = 1;
+constexpr int kEpoch = 2;
+constexpr int kStatus = 4;
+constexpr int kAggregate = 1;  // aggregate[C] published
+constexpr int kInclusive = 2;  // inclusive[C] published
+
+// Ring stage kinds.
+constexpr int kAggStage = 0;
+constexpr int kApplyStage = 1;
+constexpr int kEndStage = 2;
 
 __device__ __forceinline__ int load_acquire(const int* p) {
   int v;
@@ -75,166 +104,509 @@ __device__ __forceinline__ void store_release(int* p, int v) {
   asm volatile("st.release.gpu.global.b32 [%0], %1;" : : "l"(p), "r"(v) : "memory");
 }
 
-// Make this block's writes to `sums` visible, then set the tile's status.
-__device__ __forceinline__ void publish(int* status, int flag) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) store_release(status, flag);
+// Barrier 1 over the 256 consumer threads (warps 0-7); the producer warp of
+// arm B never takes it.
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" : : "n"(kConsumers) : "memory");
 }
 
-template <bool kMembership>
-__global__ void __launch_bounds__(kThreads)
-fused_query_v2_kernel(EventStreams streams, const int32_t* __restrict__ prefix,
-                      int* __restrict__ status, int* __restrict__ ticket,
-                      int32_t* __restrict__ sums, int L, int C, int T, int n_docs,
-                      void* __restrict__ out) {
-  extern __shared__ int smem[];
-  const int stride = T + 1;
-  int* cov = smem;                // [C][T + 1]: event diff, then in-tile coverage
-  int* carry = smem + C * stride;  // [C]: coverage entering the tile
-  int* drawn = carry + C;          // [1]: this block's ticket
-  const int q = blockIdx.y;
-  const EventStreams s = streams.window(q);
-  const int nt = s.nt;
+// Make this block's writes visible, then set a status.
+__device__ __forceinline__ void publish(int* status, int value) {
+  __threadfence();
+  consumer_sync();
+  if (threadIdx.x == 0) store_release(status, value);
+}
 
-  if (threadIdx.x == 0) *drawn = atomicAdd(&ticket[q], 1);
-  for (int i = threadIdx.x; i < C * stride; i += blockDim.x) cov[i] = 0;
-  __syncthreads();
-  const int t = *drawn;
-  const int base = t * T;
-
-  // 1. Scatter the tile's events.
-  for (int i = s.off_m[t] + threadIdx.x; i < s.off_m[t + 1]; i += blockDim.x) {
-    const int v = s.val_m[i];
-    const int p = s.pos_m[i] - base;
-    if (live_event(v, p, T, C)) atomicSub(&cov[(v - 1) * stride + p], 1);
-  }
-  for (int i = s.off_p[t] + threadIdx.x; i < s.off_p[t + 1]; i += blockDim.x) {
-    const int v = s.val_p[i];
-    const int p = s.pos_p[i] - base;
-    if (live_event(v, p, T, C)) atomicAdd(&cov[(v - 1) * stride + p], 1);
-  }
-  __syncthreads();
-
-  // 2. Inclusive scan of each column along its T positions: one warp per
-  // column, 32 positions per step.
-  const int lane = threadIdx.x & 31;
-  for (int c = threadIdx.x >> 5; c < C; c += kWarps) {
-    int* row = cov + c * stride;
-    int run = 0;
-    for (int p0 = 0; p0 < T; p0 += 32) {
-      int x = row[p0 + lane];
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, x, o);
-        if (lane >= o) x += y;
-      }
-      x += run;
-      row[p0 + lane] = x;
-      run = __shfl_sync(0xffffffffu, x, 31);
-    }
-  }
-  __syncthreads();
-
-  // 3. Publish, look back, publish the inclusive sums.
-  const size_t tile_id = static_cast<size_t>(q) * nt + t;
-  int32_t* aggregate = sums + tile_id * 2 * C;
+// Unit j of a window (a run or a tile; its units are first .. first + n - 1
+// of the status words and of sums[.., 2, C]) publishes its aggregate net[C]
+// and gets its carry[C] from the prefix (j == 0) or by walking back over
+// the window's earlier units. Called by the 256 consumer threads.
+__device__ void look_back(int* status, int32_t* sums, const int32_t* prefix, size_t first, int j,
+                          const int* net, int* carry, int C, int epoch) {
+  const int tid = threadIdx.x;
+  const size_t unit = first + j;
+  int32_t* aggregate = sums + unit * 2 * C;
   int32_t* inclusive = aggregate + C;
-  const int32_t* window_prefix = prefix + static_cast<size_t>(q) * C;
-  if (t == 0) {
-    for (int c = threadIdx.x; c < C; c += blockDim.x) {
-      carry[c] = window_prefix[c];
-      inclusive[c] = window_prefix[c] + cov[c * stride + T - 1];
+  if (j == 0) {
+    for (int c = tid; c < C; c += kConsumers) {
+      carry[c] = prefix[c];
+      inclusive[c] = prefix[c] + net[c];
     }
-    publish(&status[tile_id], kInclusive);
   } else {
-    for (int c = threadIdx.x; c < C; c += blockDim.x) aggregate[c] = cov[c * stride + T - 1];
-    publish(&status[tile_id], kAggregate);
+    for (int c = tid; c < C; c += kConsumers) aggregate[c] = net[c];
+    publish(&status[unit], (epoch << 2) | kAggregate);
     // Each thread walks back for its own columns and acquires each status
     // itself before it reads the sums that the status covers.
-    for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    for (int c = tid; c < C; c += kConsumers) {
       int acc = 0;
-      for (int pred = t - 1;; --pred) {
-        const size_t pred_id = static_cast<size_t>(q) * nt + pred;
-        int flag;
-        while ((flag = load_acquire(&status[pred_id])) == kNotReady) __nanosleep(32);
-        const int32_t* pred_sums = sums + pred_id * 2 * C;
-        if (flag == kInclusive) {
+      for (int pred = j - 1;; --pred) {
+        const size_t pred_unit = first + pred;
+        int v, spins = 0;
+        while (((v = load_acquire(&status[pred_unit])) >> 2) != epoch || (v & 3) == 0) {
+          __nanosleep(32);
+          if (++spins > kSpinLimit) __trap();
+        }
+        const int32_t* pred_sums = sums + pred_unit * 2 * C;
+        if ((v & 3) == kInclusive) {
           acc += __ldcg(pred_sums + C + c);
           break;
         }
         acc += __ldcg(pred_sums + c);
       }
       carry[c] = acc;
-      inclusive[c] = acc + cov[c * stride + T - 1];
+      inclusive[c] = acc + net[c];
     }
-    publish(&status[tile_id], kInclusive);
   }
-  __syncthreads();
+  publish(&status[unit], (epoch << 2) | kInclusive);
+}
 
-  // 4. Reduce coverage + carry to the output.
-  const int rows = min(T, L - base);
-  const size_t first_row = static_cast<size_t>(q) * L + base;
-  if constexpr (kMembership) {
-    int8_t* o = static_cast<int8_t*>(out) + first_row * C;
-    for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
-      const int p = i / C;
-      const int c = i - p * C;
-      o[i] = cov[c * stride + p] + carry[c] > 0 ? 0 : 1;
+// After every thread of the block is done: the last block to leave resets
+// the ticket and the exit count and moves the epoch on.
+__device__ void leave(int* state, int epoch) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    const int blocks = gridDim.x * gridDim.y;
+    if (atomicAdd(&state[kExited], 1) == blocks - 1) {
+      state[kTicket] = 0;
+      state[kExited] = 0;
+      state[kEpoch] = (epoch + 1) & kEpochMask;
+      __threadfence();
     }
-  } else {
-    int32_t* o = static_cast<int32_t*>(out) + first_row;
-    for (int p = threadIdx.x; p < rows; p += blockDim.x) {
-      int first = n_docs;
-      for (int c = 0; c < C; ++c) {
-        if (cov[c * stride + p] + carry[c] > 0) {
-          first = c;
-          break;
-        }
-      }
-      o[p] = first < n_docs ? first : n_docs;
+  }
+}
+
+// ------------------------------------------------------------------ arm A
+
+// Add the live events of rows [lo, hi) at positions [base, base + T) into the
+// diff tile cov[C][T + 1] and the tile's net[C], reading the rows from device
+// memory.
+template <bool kPlus>
+__device__ void scatter_tile(const Stream& st, int lo, int hi, int base, int T, int k, int C,
+                             int* cov, int* net) {
+  for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+    const int key = st.key[i];
+    const int c = live_column<kPlus>(key, st.partner[i], st.order[i], k, C);
+    const int p = key - st.shift - base;
+    if (c >= 0 && p >= 0 && p < T) {
+      atomicAdd(&cov[c * (T + 1) + p], kPlus ? 1 : -1);
+      atomicAdd(&net[c], kPlus ? 1 : -1);
     }
   }
 }
 
 template <bool kMembership>
-cudaError_t launch(const EventStreams& streams, const int32_t* prefix, int* status, int* ticket,
-                   int32_t* sums, void* out, int Q, int L, int C, int T, int n_docs,
-                   cudaStream_t stream) {
-  const size_t smem = (static_cast<size_t>(C) * (T + 2) + 1) * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(fused_query_v2_kernel<kMembership>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+__global__ void __launch_bounds__(kConsumers)
+v2_tiles_kernel(Store store, const int32_t* __restrict__ params, const int32_t* __restrict__ prefix,
+                int* __restrict__ state, int32_t* __restrict__ sums, int L, int C, int T, int k,
+                int n_docs, void* __restrict__ out) {
+  extern __shared__ int smem[];
+  int* cov = smem;                 // [C][T + 1]
+  int* carry = cov + C * (T + 1);  // [C]
+  int* net = carry + C;            // [C]
+  int* first = net + C;            // [T]
+  int* found = first + T;          // [4]
+  int* drawn = found + 4;          // [2]: ticket, epoch
+  const int nt = (L + T - 1) / T;
+  if (threadIdx.x == 0) {
+    drawn[0] = atomicAdd(&state[kTicket], 1);
+    drawn[1] = *static_cast<volatile int*>(&state[kEpoch]);
+  }
+  for (int i = threadIdx.x; i < C * (T + 1); i += blockDim.x) cov[i] = 0;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) net[c] = 0;
+  for (int p = threadIdx.x; p < T; p += blockDim.x) first[p] = n_docs;
+  __syncthreads();
+  const int q = drawn[0] / nt;
+  const int t = drawn[0] - q * nt;
+  const int epoch = drawn[1];
+  const Window w = load_window(store, params, q, k);
+  const int base = t * T;
+  find_bounds(w, base, base + T, found);
+  __syncthreads();
+  scatter_tile<false>(w.minus, found[0], found[1], base, T, k, C, cov, net);
+  scatter_tile<true>(w.plus, found[2], found[3], base, T, k, C, cov, net);
+  __syncthreads();
+  look_back(state + kStatus, sums, prefix + static_cast<size_t>(q) * C,
+            static_cast<size_t>(q) * nt, t, net, carry, C, epoch);
+  __syncthreads();
+  finish_tile<kConsumerWarps, kMembership>(cov, carry, first, T, C, min(T, L - base), n_docs, out,
+                                           static_cast<size_t>(q) * L + base);
+  leave(state, epoch);
+}
+
+// ------------------------------------------------------------------ arm B
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void wait_parity(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done;
+  int spins = 0;
+  for (;;) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (++spins > kSpinLimit) __trap();
+  }
+}
+
+__device__ __forceinline__ void arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" : : "r"(smem_addr(bar)) : "memory");
+}
+
+// The ring as one side sees it: S stages of kStageRows rows of three arrays
+// (key, partner, order), a full and an empty barrier and kMetaInts words of
+// metadata per stage, and this side's stage and phase.
+struct Ring {
+  uint64_t* full;
+  uint64_t* empty;
+  int* meta;
+  int* rows;
+  int S;
+  int stage;
+  uint32_t phase;
+
+  __device__ int* stage_rows() const { return rows + stage * 3 * kStageRows; }
+  __device__ int* stage_meta() const { return meta + stage * kMetaInts; }
+  __device__ void advance() {
+    if (++stage == S) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// Producer (one warp): fill the next stage with rows [a, a + n_copy) of
+// `st` (valid rows [lo, hi) of it) and its metadata. Lane 0 waits for the
+// stage to be free, writes the metadata, sets the bytes the full barrier
+// expects and issues one bulk copy per array.
+__device__ void push(Ring& r, int kind, bool plus, bool last, const Stream* st, int lo, int hi,
+                     int a, int n_copy, int q, int j, int t, int off) {
+  if ((threadIdx.x & 31) == 0) {
+    wait_parity(&r.empty[r.stage], r.phase ^ 1);
+    int* m = r.stage_meta();
+    m[0] = kind | (plus ? 4 : 0) | (last ? 8 : 0);
+    m[1] = lo;
+    m[2] = hi;
+    m[3] = a;
+    m[4] = q;
+    m[5] = j;
+    m[6] = t;
+    m[7] = off;
+    uint64_t* full = &r.full[r.stage];
+    const uint32_t bytes = static_cast<uint32_t>(n_copy) * 4;
+    if (bytes == 0) {
+      arrive(full);
+    } else {
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   : : "r"(smem_addr(full)), "r"(3 * bytes) : "memory");
+      const int32_t* src[3] = {st->key + a, st->partner + a, st->order + a};
+      int* dst = r.stage_rows();
+#pragma unroll
+      for (int x = 0; x < 3; ++x) {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+            : : "r"(smem_addr(dst + x * kStageRows)), "l"(src[x]), "r"(bytes), "r"(smem_addr(full))
+            : "memory");
+      }
+    }
+  }
+  __syncwarp();
+  r.advance();
+}
+
+// Producer: the rows [lo, hi) of one stream in chunks of kStageRows rows,
+// each copied from a multiple of 4 rows to ceil4(hi) (16-byte aligned
+// copies; the wrapper leaves 3 rows after the last one a window may name).
+// `last` marks the final chunk; with no rows, a `last` emits an empty stage.
+__device__ void push_rows(Ring& r, int kind, bool plus, bool last, const Stream& st, int lo, int hi,
+                          int q, int j, int t, int off) {
+  if (lo >= hi) {
+    if (last) push(r, kind, plus, true, &st, 0, 0, 0, 0, q, j, t, off);
+    return;
+  }
+  const int copy_end = (hi + 3) & ~3;
+  for (int a = lo & ~3; a < hi; a += kStageRows) {
+    push(r, kind, plus, last && a + kStageRows >= hi, &st, max(lo, a), min(hi, a + kStageRows), a,
+         min(kStageRows, copy_end - a), q, j, t, off);
+  }
+}
+
+// First row of [lo, hi) whose key is >= v (one thread).
+__device__ __forceinline__ int lower_bound(const int32_t* __restrict__ key, int lo, int hi, int v) {
+  while (lo < hi) {
+    const int mid = lo + (hi - lo) / 2;
+    if (key[mid] < v) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// The producer warp: draw runs until none is left; for each, find its tile
+// bounds and stream its rows twice (aggregate pass, then tile by tile).
+__device__ void produce(Ring r, const Store& store, const int32_t* params, int* ticket, int Q,
+                        int nt, int runs, int R, int T, int k) {
+  const int lane = threadIdx.x & 31;
+  const Stream none{};
+  for (;;) {
+    int g = 0;
+    if (lane == 0) g = atomicAdd(ticket, 1);
+    g = __shfl_sync(0xffffffffu, g, 0);
+    if (g >= Q * runs) {
+      push(r, kEndStage, false, true, &none, 0, 0, 0, 0, 0, 0, 0, 0);
+      return;
+    }
+    const int q = g / runs;
+    const int j = g - q * runs;
+    const int t0 = j * R;
+    const int n = min(R, nt - t0);
+    const Window w = load_window(store, params, q, k);
+    const Stream* streams[2] = {&w.minus, &w.plus};
+    int lo[2], hi[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const Stream& st = *streams[s];
+      lo[s] = warp_lower_bound(st.key, st.lo, st.hi, st.shift + t0 * T);
+      hi[s] = warp_lower_bound(st.key, lo[s], st.hi, st.shift + (t0 + n) * T);
+    }
+    // Lane l < 15 holds the minus stream's bound of tile t0 + l + 1, lane
+    // 16 + l the plus stream's.
+    const int s = lane >> 4;
+    const int i = (lane & 15) + 1;
+    const int inner = i < n ? lower_bound(streams[s]->key, lo[s], hi[s],
+                                          streams[s]->shift + (t0 + i) * T)
+                            : 0;
+    push_rows(r, kAggStage, false, false, w.minus, lo[0], hi[0], q, j, t0, 0);
+    push_rows(r, kAggStage, true, true, w.plus, lo[1], hi[1], q, j, t0, 0);
+    int from[2] = {lo[0], lo[1]};
+    for (int x = 0; x < n; ++x) {
+      const int t = t0 + x;
+      int to[2];
+#pragma unroll
+      for (int y = 0; y < 2; ++y) {
+        const int held = __shfl_sync(0xffffffffu, inner, y * 16 + x);
+        to[y] = x + 1 == n ? hi[y] : held;
+      }
+      push_rows(r, kApplyStage, false, false, w.minus, from[0], to[0], q, j, t,
+                w.minus.shift + t * T);
+      push_rows(r, kApplyStage, true, true, w.plus, from[1], to[1], q, j, t, w.plus.shift + t * T);
+      from[0] = to[0];
+      from[1] = to[1];
+    }
+  }
+}
+
+// A stage's live rows into net[C] (aggregate) or into the diff tile at
+// position key - off.
+template <bool kPlus, bool kApply>
+__device__ void consume_rows(const int* rows, int lo, int hi, int a, int off, int T, int k, int C,
+                             int* cov, int* net) {
+  for (int i = lo + threadIdx.x; i < hi; i += kConsumers) {
+    const int x = i - a;
+    const int key = rows[x];
+    const int c = live_column<kPlus>(key, rows[kStageRows + x], rows[2 * kStageRows + x], k, C);
+    if (c < 0) continue;
+    if (kApply) {
+      const int p = key - off;
+      if (p >= 0 && p < T) atomicAdd(&cov[c * (T + 1) + p], kPlus ? 1 : -1);
+    } else {
+      atomicAdd(&net[c], kPlus ? 1 : -1);
+    }
+  }
+}
+
+// The consumer warps: take stages until the end stage; after a run's last
+// aggregate stage, look back; after a tile's last stage, finish the tile.
+template <bool kMembership>
+__device__ void consume(Ring r, int* status, int32_t* sums, const int32_t* prefix, int L, int C,
+                        int T, int k, int n_docs, int runs, int epoch, int* cov, int* carry,
+                        int* net, int* first, void* out) {
+  const int warp = threadIdx.x >> 5;
+  const int S = T + 1;
+  for (;;) {
+    wait_parity(&r.full[r.stage], r.phase);
+    const int* m = r.stage_meta();
+    const int head = m[0], lo = m[1], hi = m[2], a = m[3], q = m[4], j = m[5], t = m[6];
+    const int off = m[7];
+    const int kind = head & 3;
+    const bool plus = head & 4;
+    const int* rows = r.stage_rows();
+    if (kind == kAggStage) {
+      if (plus) consume_rows<true, false>(rows, lo, hi, a, off, T, k, C, cov, net);
+      else consume_rows<false, false>(rows, lo, hi, a, off, T, k, C, cov, net);
+    } else if (kind == kApplyStage) {
+      if (plus) consume_rows<true, true>(rows, lo, hi, a, off, T, k, C, cov, net);
+      else consume_rows<false, true>(rows, lo, hi, a, off, T, k, C, cov, net);
+    }
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) arrive(&r.empty[r.stage]);
+    r.advance();
+    if (kind == kEndStage) return;
+    if (!(head & 8)) continue;
+    consumer_sync();
+    if (kind == kAggStage) {
+      look_back(status, sums, prefix + static_cast<size_t>(q) * C, static_cast<size_t>(q) * runs,
+                j, net, carry, C, epoch);
+      for (int c = threadIdx.x; c < C; c += kConsumers) net[c] = 0;
+      continue;  // the tile's scatter ends in a consumer_sync before carry is read
+    }
+    const int base = t * T;
+    const int rows_out = min(T, L - base);
+    const size_t out_row = static_cast<size_t>(q) * L + base;
+    if constexpr (kMembership) {
+      scan_tile<kConsumerWarps, true>(cov, carry, T, S, C, warp);
+      consumer_sync();
+      reduce_membership<kConsumerWarps>(cov, S, C, rows_out,
+                                        static_cast<int8_t*>(out) + out_row * C, warp);
+      consumer_sync();
+      for (int i = threadIdx.x; i < C * S; i += kConsumers) cov[i] = 0;
+      consumer_sync();
+    } else {
+      scan_conservation<kConsumerWarps, true, true>(cov, carry, first, T, S, C, n_docs, warp);
+      consumer_sync();
+      int32_t* o = static_cast<int32_t*>(out) + out_row;
+      for (int p = threadIdx.x; p < T; p += kConsumers) {
+        if (p < rows_out) o[p] = first[p];
+        first[p] = n_docs;
+      }
+    }
+  }
+}
+
+template <bool kMembership>
+__global__ void __launch_bounds__(kRunThreads)
+v2_runs_kernel(Store store, const int32_t* __restrict__ params, const int32_t* __restrict__ prefix,
+               int* __restrict__ state, int32_t* __restrict__ sums, int Q, int L, int C, int T,
+               int k, int n_docs, int R, int S, void* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* empty = full + kMaxStages;
+  int* meta = reinterpret_cast<int*>(empty + kMaxStages);
+  int* ring = reinterpret_cast<int*>(smem_raw + kRingHeader);
+  int* cov = ring + S * 3 * kStageRows;  // [C][T + 1]
+  int* carry = cov + C * (T + 1);        // [C]
+  int* net = carry + C;                  // [C]
+  int* first = net + C;                  // [T]
+  int* epoch_word = first + T;           // [1]
+  const int nt = (L + T - 1) / T;
+  const int runs = (nt + R - 1) / R;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                   : : "r"(smem_addr(&full[s])), "r"(1) : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                   : : "r"(smem_addr(&empty[s])), "r"(kConsumerWarps) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" : : : "memory");
+    *epoch_word = *static_cast<volatile int*>(&state[kEpoch]);
+  }
+  for (int i = threadIdx.x; i < C * (T + 1); i += blockDim.x) cov[i] = 0;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) net[c] = 0;
+  for (int p = threadIdx.x; p < T; p += blockDim.x) first[p] = n_docs;
+  __syncthreads();
+  const int epoch = *epoch_word;
+  const Ring r{full, empty, meta, ring, S, 0, 0};
+  if (threadIdx.x >= kConsumers) {
+    produce(r, store, params, &state[kTicket], Q, nt, runs, R, T, k);
+  } else {
+    consume<kMembership>(r, state + kStatus, sums, prefix, L, C, T, k, n_docs, runs, epoch, cov,
+                         carry, net, first, out);
+  }
+  leave(state, epoch);
+}
+
+size_t tiles_smem(int C, int T) {
+  return (static_cast<size_t>(C) * (T + 1) + 2 * C + T + 6) * sizeof(int);
+}
+
+size_t runs_smem(int C, int T, int S) {
+  return kRingHeader + static_cast<size_t>(S) * 3 * kStageRows * sizeof(int) +
+         (static_cast<size_t>(C) * (T + 1) + 2 * C + T + 1) * sizeof(int);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <bool kMembership>
+cudaError_t launch_tiles(cudaStream_t stream, const Store& store, const int32_t* params,
+                         const int32_t* prefix, int* state, int32_t* sums, int Q, int L, int C,
+                         int T, int k, int n_docs, void* out) {
+  const size_t smem = tiles_smem(C, T);
+  const cudaError_t err = allow_smem(v2_tiles_kernel<kMembership>, smem);
   if (err != cudaSuccess) return err;
-  fused_query_v2_kernel<kMembership><<<dim3(streams.nt, Q), kThreads, smem, stream>>>(
-      streams, prefix, status, ticket, sums, L, C, T, n_docs, out);
+  const long long blocks = static_cast<long long>(Q) * ((L + T - 1) / T);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  v2_tiles_kernel<kMembership><<<static_cast<unsigned>(blocks), kConsumers, smem, stream>>>(
+      store, params, prefix, state, sums, L, C, T, k, n_docs, out);
+  return cudaGetLastError();
+}
+
+template <bool kMembership>
+cudaError_t launch_runs(cudaStream_t stream, const Store& store, const int32_t* params,
+                        const int32_t* prefix, int* state, int32_t* sums, int Q, int L, int C,
+                        int T, int S, int k, int n_docs, void* out) {
+  const size_t smem = runs_smem(C, T, S);
+  cudaError_t err = allow_smem(v2_runs_kernel<kMembership>, smem);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) {
+    return err;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, v2_runs_kernel<kMembership>,
+                                                      kRunThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int grid = per_sm * sms;  // every block resident: the look-back needs it
+  // Runs of R tiles, about four per block, so that blocks finish together.
+  const long long tiles = static_cast<long long>(Q) * ((L + T - 1) / T);
+  long long R = tiles / (4LL * grid);
+  R = R < 1 ? 1 : (R > kMaxRun ? kMaxRun : R);
+  v2_runs_kernel<kMembership><<<grid, kRunThreads, smem, stream>>>(
+      store, params, prefix, state, sums, Q, L, C, T, k, n_docs, static_cast<int>(R), S, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch the one-pass kernel for Q windows on `stream`. The streams are laid
-// out as event_streams.cuh says; `state` is int32[Q * nt + Q], zeroed by the
-// caller on this stream (the tiles' status words, then one ticket per
-// window); `sums` is int32[Q, nt, 2, C] scratch (aggregate, inclusive); out is
-// int32[Q, L] or int8[Q, L, C]. Returns the CUDA error code of the launch, 0
-// when it was accepted.
-extern "C" int memo_fused_query_v2(const int32_t* pos_m, const int32_t* val_m,
-                                   const int32_t* off_m, const int32_t* pos_p,
-                                   const int32_t* val_p, const int32_t* off_p,
-                                   const int32_t* prefix, int32_t* state, int32_t* sums,
-                                   void* out, int Q, int m_stride, int p_stride, int L, int C,
-                                   int tile, int n_docs, int membership, void* stream) {
-  if (Q < 1 || Q > kMaxGridY || L < 1 || C < 1 || tile < 32 || tile % 32 != 0) {
+// Query Q windows of L positions on `stream` from the placed store's six
+// row arrays, each holding n_rows + 3 rows (the bulk copies of arm B read up
+// to 3 rows past a window's last). params is int32[Q, 5] (mlo, mhi, plo,
+// phi, qs per window), prefix int32[Q, C]; state is int32[4 + Q * nt]
+// (nt = ceil(L / tile)), zeroed once when it was allocated and left for the
+// next launch on this stream; sums is int32[Q * nt * 2 * C] scratch; out is
+// int32[Q, L] or int8[Q, L, C]. arm 0 is A (tiles), 1 is B (runs, `stages`
+// ring stages). Returns the CUDA error code of the first call that failed,
+// 0 when all were accepted.
+extern "C" int memo_fused_query_v2_rows(const int32_t* start, const int32_t* end,
+                                        const int32_t* order, const int32_t* end_s,
+                                        const int32_t* start_by_end,
+                                        const int32_t* order_by_end, const int32_t* params,
+                                        const int32_t* prefix, int32_t* state, int32_t* sums,
+                                        void* out, int n_rows, int Q, int L, int C, int k,
+                                        int tile, int stages, int n_docs, int membership, int arm,
+                                        void* stream) {
+  if (n_rows < 0 || Q < 1 || L < 1 || C < 1 || k < 1 || tile < 32 || tile % 32 != 0 ||
+      tile > 32 * kMaxChunks || stages < 2 || stages > kMaxStages) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nt = (L + tile - 1) / tile;
-  const EventStreams streams{pos_m, val_m, off_m, pos_p, val_p, off_p, m_stride, p_stride, nt};
-  int* status = state;
-  int* ticket = state + static_cast<size_t>(Q) * nt;
-  if (membership) {
-    return launch<true>(streams, prefix, status, ticket, sums, out, Q, L, C, tile, n_docs, s);
+  const Store store{start, end, order, end_s, start_by_end, order_by_end, n_rows};
+  if (arm == 0) {
+    return membership ? launch_tiles<true>(s, store, params, prefix, state, sums, Q, L, C, tile, k,
+                                           n_docs, out)
+                      : launch_tiles<false>(s, store, params, prefix, state, sums, Q, L, C, tile,
+                                            k, n_docs, out);
   }
-  return launch<false>(streams, prefix, status, ticket, sums, out, Q, L, C, tile, n_docs, s);
+  return membership ? launch_runs<true>(s, store, params, prefix, state, sums, Q, L, C, tile,
+                                        stages, k, n_docs, out)
+                    : launch_runs<false>(s, store, params, prefix, state, sums, Q, L, C, tile,
+                                         stages, k, n_docs, out);
 }

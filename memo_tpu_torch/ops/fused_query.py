@@ -18,8 +18,8 @@ parameter block (mlo, mhi, plo, phi, qs) and the prefix [Q, C]; the kernel
 finds each tile's rows itself. Its plain PyTorch version is
 :func:`prepare_streams` (the streams as memo_query_pallas builds them, over
 M rows from ``mlo`` and ``plo``) followed by :func:`fused_query_reference`.
-The v2 kernel (:mod:`memo_tpu_torch.ops.fused_query_v2`) reads those
-streams.
+The v2 kernel (:mod:`memo_tpu_torch.ops.fused_query_v2`) has the same
+contract and the same plain version.
 """
 
 from __future__ import annotations
@@ -178,31 +178,30 @@ def fused_query_reference(streams: Streams, prefix: torch.Tensor, *, n_docs: int
     return out if batched else out[0]
 
 
-def check_launch(name: str, streams: Streams, tensors: tuple, devices: set, tile: int):
-    """Validate a kernel launch on ``tensors`` (the streams' six tensors and
-    the prefix) on ``devices``: returns the leading shape of the output, ()
-    for one window or (Q,) for Q, and the tile count nt. Raises on anything
-    the kernel does not take, so that a CUDA tensor never reaches a plain
-    version."""
+def check_rows_launch(name: str, placed, params: torch.Tensor, prefix: torch.Tensor,
+                      devices: set, *, k: int, L: int, C: int) -> tuple[int, int]:
+    """Validate a kernel launch on the placed store's six row tensors, the
+    parameter block [Q, 5] and the prefix [Q, C], all on ``devices``:
+    returns (Q, rows per store tensor). Raises on anything the kernels do
+    not take, so that a CUDA tensor never reaches a plain version."""
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{name} needs all tensors on one CUDA device, got {devices}")
-    L, C = streams.L, tensors[-1].shape[-1]
-    if L < 1:
-        raise ValueError(f"{name} needs a window of at least one position, got L={L}")
-    if streams.tile != tile:
-        raise ValueError(f"tile {streams.tile} is not the kernel's tile {tile} for C={C}")
-    lead = streams.pos_m.shape[:-1]
-    if len(lead) > 1 or not 1 <= (lead[0] if lead else 1) <= MAX_WINDOWS:
-        raise ValueError(f"{name} takes one window or 1 to {MAX_WINDOWS}, got streams {lead}")
-    for t in tensors:
-        if t.dtype != torch.int32 or t.shape[:-1] != lead or not t.is_contiguous():
-            raise ValueError(f"{name} takes contiguous int32 tensors, all 1-D or all [Q, ...]")
-    nt = -(-L // tile)
-    if streams.off_m.shape[-1] != nt + 1 or streams.off_p.shape[-1] != nt + 1:
-        raise ValueError(f"tile offsets must hold nt + 1 = {nt + 1} entries per window")
-    if streams.pos_m.shape != streams.val_m.shape or streams.pos_p.shape != streams.val_p.shape:
-        raise ValueError("each stream needs as many positions as values")
-    return tuple(lead), nt
+    n_win = params.shape[0] if params.dim() == 2 else 0
+    if L < 1 or k < 1:
+        raise ValueError(f"{name} needs L >= 1 and k >= 1, got L={L}, k={k}")
+    if params.shape != (n_win, 5) or not 1 <= n_win <= MAX_WINDOWS:
+        raise ValueError(
+            f"params must be [Q, 5] with 1 <= Q <= {MAX_WINDOWS}, got {tuple(params.shape)}"
+        )
+    if prefix.shape != (n_win, C):
+        raise ValueError(f"prefix must be [Q, C] = [{n_win}, {C}], got {tuple(prefix.shape)}")
+    n_rows = placed[0].numel()
+    for t in (*placed, params, prefix):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous int32 tensors")
+    if any(t.dim() != 1 or t.numel() != n_rows for t in placed) or n_rows >= 2**31:
+        raise ValueError("the placed store needs six 1-D row tensors of one length below 2**31")
+    return n_win, n_rows
 
 
 def output_tensor(lead: tuple, L: int, C: int, membership: bool, device) -> torch.Tensor:
@@ -265,24 +264,9 @@ def fused_query_rows(placed, params: torch.Tensor, prefix: torch.Tensor, *, k: i
     if devices == {CPU}:
         return fused_query_rows_reference(placed, params, prefix, k=k, L=L, C=C, n_docs=n_docs,
                                           membership=membership)
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(f"fused_query_rows needs all tensors on one CUDA device, got {devices}")
+    n_win, n_rows = check_rows_launch("fused_query_rows", placed, params, prefix, devices, k=k,
+                                      L=L, C=C)
     tile = rows_tile(C)
-    n_win = params.shape[0] if params.dim() == 2 else 0
-    if L < 1 or k < 1:
-        raise ValueError(f"fused_query_rows needs L >= 1 and k >= 1, got L={L}, k={k}")
-    if params.shape != (n_win, 5) or not 1 <= n_win <= MAX_WINDOWS:
-        raise ValueError(
-            f"params must be [Q, 5] with 1 <= Q <= {MAX_WINDOWS}, got {tuple(params.shape)}"
-        )
-    if prefix.shape != (n_win, C):
-        raise ValueError(f"prefix must be [Q, C] = [{n_win}, {C}], got {tuple(prefix.shape)}")
-    n_rows = placed[0].numel()
-    for t in tensors:
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError("fused_query_rows takes contiguous int32 tensors")
-    if any(t.dim() != 1 or t.numel() != n_rows for t in placed) or n_rows >= 2**31:
-        raise ValueError("the placed store needs six 1-D row tensors of one length below 2**31")
 
     from memo_tpu_torch.ops._build import load_library
 

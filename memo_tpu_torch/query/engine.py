@@ -5,9 +5,9 @@ Counterpart of :mod:`memo_tpu.query.engine`, with the same contracts:
 
 1. host-side binary search for the candidate row ranges of a window,
 2. a device step per (window, interval bucket): the fused CUDA kernel
-   (backend ``fused``; v1 reads the placed rows of the candidate ranges from
-   one parameter upload, v2 the event streams of ``prepare_streams``), or
-   the diff-array tensor ops (backend ``torch``); ``numpy`` runs on the host,
+   (backend ``fused``; v1 and v2 both read the placed rows of the candidate
+   ranges from one parameter upload), or the diff-array tensor ops (backend
+   ``torch``); ``numpy`` runs on the host,
 3. bit-exact text output (:mod:`memo_tpu_torch.query.output`).
 
 Large windows run in position chunks and oversized candidate sets halve the
@@ -16,7 +16,7 @@ stores split into length buckets (the proofs are in the JAX engine's
 docstrings and in memo_tpu/ops/query_ops.py). A batch of windows of one
 record (``conservation_batch``/``membership_batch``) runs as one launch of
 the kernel. PyTorch runs eagerly, so the pow2 candidate bucket M only
-bounds the working set of one step (v1 does not read it).
+bounds the working set of one step (the fused kernels do not read it).
 """
 
 from __future__ import annotations
@@ -30,8 +30,8 @@ import torch
 
 from memo_tpu_torch.index.store import IntervalStore
 from memo_tpu_torch.ops import query_ops as Q
-from memo_tpu_torch.ops.fused_query import fused_query_rows, prepare_streams, window_args
-from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2, kernel_constants_v2
+from memo_tpu_torch.ops.fused_query import fused_query_rows, window_args
+from memo_tpu_torch.ops.fused_query_v2 import ROW_SLACK, fused_query_v2_rows
 from memo_tpu_torch.utils.device import resolve_device
 
 BACKENDS = ("fused", "torch", "numpy")
@@ -163,7 +163,9 @@ class QueryEngine:
             self._init_stratified(store)
             return
         if backend != "numpy":
-            pad = min(self.max_intervals, _next_pow2(max(store.num_intervals, 1)))
+            # v2 reads rows in 16-byte copies, up to ROW_SLACK rows past a range.
+            pad = max(min(self.max_intervals, _next_pow2(max(store.num_intervals, 1))),
+                      ROW_SLACK + 1)
             self._d = place_store(store, self.device, pad)
             self._layout = store.query_layout()
 
@@ -327,9 +329,8 @@ class QueryEngine:
         # memo_tpu pads the window count to a power of two to bound the
         # programs XLA compiles; nothing here compiles per shape, so the
         # batch keeps its own count.
-        M = min(_next_pow2(max(max(counts), 1)), self.max_intervals)
         ranges = np.array([p[:4] + (qs,) for p, (qs, _) in zip(params, windows)], np.int64)
-        out = self._run_kernel(ranges, np.stack([p[4] for p in params]), k, M, L, membership)
+        out = self._run_kernel(ranges, np.stack([p[4] for p in params]), k, L, membership)
         self.last_stats = QueryStats(
             candidate_intervals=sum(counts),
             chunks=len(windows),
@@ -437,23 +438,18 @@ class QueryEngine:
             return self._cat(left, right)
         stats.candidate_intervals += count
         ranges = np.array([[mlo, mhi, plo, phi, qs]])
-        return self._finish(self._run_kernel(ranges, prefix[None], k, M, L, membership)[0])
+        return self._finish(self._run_kernel(ranges, prefix[None], k, L, membership)[0])
 
-    def _run_kernel(self, ranges: np.ndarray, prefix: np.ndarray, k: int, M: int, L: int,
+    def _run_kernel(self, ranges: np.ndarray, prefix: np.ndarray, k: int, L: int,
                     membership: bool) -> torch.Tensor:
         """The fused kernel on Q windows of L positions: ``ranges`` holds
-        (mlo, mhi, plo, phi, qs) per window, ``prefix`` int[Q, C]. v1 reads
-        the placed rows from one parameter upload; v2 runs on the event
-        streams of M rows. Output [Q, L] or [Q, L, C]."""
+        (mlo, mhi, plo, phi, qs) per window, ``prefix`` int[Q, C]. Both
+        versions read the placed rows from one parameter upload. Output
+        [Q, L] or [Q, L, C]."""
         n = self.n_docs
         params, prefix_t = window_args(ranges, prefix, self.device)
-        if self.kernel_version == "v1":
-            return fused_query_rows(self._d, params, prefix_t, k=k, L=L, C=n, n_docs=n,
-                                    membership=membership)
-        mlo, mhi, plo, phi, qs = ranges.T
-        streams = prepare_streams(*self._d, mlo, mhi, plo, phi, qs, k, M=M, L=L, C=n,
-                                  tile=kernel_constants_v2(n))
-        return fused_query_v2(streams, prefix_t, n_docs=n, membership=membership)
+        run = fused_query_rows if self.kernel_version == "v1" else fused_query_v2_rows
+        return run(self._d, params, prefix_t, k=k, L=L, C=n, n_docs=n, membership=membership)
 
 
 def _device_query(d: PlacedStore, lo, rec_end, qs, k, M, L, n, membership):

@@ -3,8 +3,7 @@ CPU, for both kernel generations: every window equals the port's
 single-window output and memo_tpu's numpy engine, the fused batch is one
 kernel call, and the fallbacks, the stratified engine, the empty batch and
 the errors follow memo_tpu/query/engine.py:268-383. Also the kernel_version
-selection. On the CPU the batched stream set-up runs with the kernels'
-plain versions."""
+selection. On the CPU both kernels run their plain version."""
 
 import numpy as np
 import pytest
@@ -36,7 +35,7 @@ def memb_store():
 def kernel_calls(monkeypatch):
     """Count calls of each kernel wrapper through the engine."""
     calls = {"v1": 0, "v2": 0}
-    for version, name in (("v1", "fused_query_rows"), ("v2", "fused_query_v2")):
+    for version, name in (("v1", "fused_query_rows"), ("v2", "fused_query_v2_rows")):
         def counted(*args, _run=getattr(engine_mod, name), _v=version, **kwargs):
             calls[_v] += 1
             return _run(*args, **kwargs)
@@ -185,13 +184,13 @@ def cuda_device():
 @pytest.mark.parametrize("kind", ["conservation", "membership"])
 def test_cuda_batch_matches_numpy_oracle(cuda_device, kernel_version, kind):
     from memo_tpu_torch.ops.fused_query import fused_query_rows
-    from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2
+    from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2_rows
 
     store = _store(np.random.default_rng(29), True, kind=kind, n_records=2, n_docs=16,
                    rec_len=3000)
     oracle = JaxEngine(store, backend="numpy")
     eng = QueryEngine(store, device=cuda_device, kernel_version=kernel_version)
-    run = fused_query_rows if kernel_version == "v1" else fused_query_v2
+    run = fused_query_rows if kernel_version == "v1" else fused_query_v2_rows
     wins = [(0, 3000), (123, 2456), (2990, 3000), (1500, 1501)]
     fn = getattr(eng, f"{kind}_batch")
     for k in (1, 3, 31, 101):

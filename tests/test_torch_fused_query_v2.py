@@ -1,25 +1,30 @@
-"""memo_tpu_torch.ops.fused_query_v2: the plain version of the v2 CUDA
-kernel, on the port's streams, held exactly against memo_query_pallas_v2 run
-in interpret mode on the CPU (sparse and dense-band stores, a wide store, a
-width that is not a multiple of 8, membership). At most 6 interpret-mode
-programs are compiled in this file: more in one process can crash the XLA
-CPU compiler. The kernel itself runs only on a GPU: its tests carry the
-``cuda`` marker and skip here."""
+"""memo_tpu_torch.ops.fused_query_v2.fused_query_v2_rows: the v2 query read
+from the placed store's rows. On the CPU it runs its plain version
+(fused_query_rows_reference), fed from place_store and window_args, and is
+held exactly against memo_query_pallas_v2 run in interpret mode on the CPU
+(sparse and dense-band stores, a wide store, a width that is not a multiple
+of 8, membership). At most 6 interpret-mode programs are compiled in this
+file: more in one process can crash the XLA CPU compiler. The kernel itself
+runs only on a GPU: its tests carry the ``cuda`` marker and skip here; they
+hold it against the plain version on random stores with edge rows.
+Tolerance: exact (integer outputs)."""
 
 import numpy as np
 import pytest
 import torch
 from test_pallas import _store
-from test_torch_fused_query import _random_streams, _window
+from test_torch_fused_query import _window
+from test_torch_fused_rows import BATCH, WINDOWS, random_store
 
 from memo_tpu.query.engine import _next_pow2
-from memo_tpu_torch.ops.fused_query import Streams, prepare_streams
+from memo_tpu_torch.ops.fused_query import fused_query_rows_reference, window_args
 from memo_tpu_torch.ops.fused_query_v2 import (
-    fused_query_v2,
-    fused_query_v2_reference,
-    kernel_constants_v2,
+    ARMS,
+    ROW_SLACK,
+    fused_query_v2_rows,
+    v2_constants,
 )
-from memo_tpu_torch.query.engine import place_store
+from memo_tpu_torch.query.engine import QueryEngine, place_store
 
 # (n_docs, kind, rec_len, window, k): sparse n=6 (C not a multiple of 8),
 # the dense band store n=60 at rec_len 256 (tens of events per position,
@@ -34,7 +39,7 @@ PALLAS_V2_CASES = [
 
 
 @pytest.mark.parametrize("n_docs,kind,rec_len,window,k", PALLAS_V2_CASES)
-def test_reference_matches_pallas_v2_interpret(n_docs, kind, rec_len, window, k):
+def test_rows_match_pallas_v2_interpret(n_docs, kind, rec_len, window, k):
     import jax.numpy as jnp
 
     from memo_tpu.ops.pallas_query_v2 import kernel_constants_v2 as jax_constants
@@ -59,46 +64,73 @@ def test_reference_matches_pallas_v2_interpret(n_docs, kind, rec_len, window, k)
         tile=tile, ev_rows=ev_rows,
     )
     placed = place_store(store, "cpu", _next_pow2(store.num_intervals))
-    streams = prepare_streams(*placed, *ranges, qs, k, M=M, L=L, C=n_docs,
-                              tile=kernel_constants_v2(n_docs))
-    prefix_t = torch.from_numpy(prefix.astype(np.int32))
-    got = fused_query_v2(streams, prefix_t, n_docs=n_docs, membership=membership)
+    params, prefix_t = window_args(np.array([[*ranges, qs]]), prefix[None], "cpu")
+    got = fused_query_v2_rows(placed, params, prefix_t, k=k, L=L, C=n_docs, n_docs=n_docs,
+                              membership=membership)
     assert got.dtype == (torch.int8 if membership else torch.int32)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want))
+
+
+def _rows_args(eng: QueryEngine, record: str, wins, k: int, device):
+    """window_args of ``wins`` of one record at the longest length, from the
+    engine's host search, and that length."""
+    L = max(qe - qs for qs, qe in wins)
+    params = [eng._window_params(record, qs, qs + L, k) for qs, _ in wins]
+    ranges = np.array([p[:4] + (qs,) for p, (qs, _) in zip(params, wins)])
+    return window_args(ranges, np.stack([p[4] for p in params]), device), L
 
 
 def test_cpu_runs_plain_version_and_counts_no_launch():
-    rng = np.random.default_rng(4)
-    before = fused_query_v2.launches
-    for n_win in (1, 3):
-        streams, prefix = _random_streams(rng, n_win, 300, 7, 2, kernel_constants_v2(7), "cpu")
+    store = _store(np.random.default_rng(4), True, n_records=2, n_docs=7, rec_len=300)
+    eng = QueryEngine(store, device="cpu", stratify=False, kernel_version="v2")
+    before = fused_query_v2_rows.launches
+    for wins in ([(0, 300)], [(0, 120), (100, 220), (180, 300)]):
+        args, L = _rows_args(eng, "chr1", wins, 5, "cpu")
         for membership in (False, True):
-            got = fused_query_v2(streams, prefix, n_docs=7, membership=membership)
-            want = fused_query_v2_reference(streams, prefix, n_docs=7, membership=membership)
+            got = fused_query_v2_rows(eng._d, *args, k=5, L=L, C=7, n_docs=7,
+                                      membership=membership)
+            want = fused_query_rows_reference(eng._d, *args, k=5, L=L, C=7, n_docs=7,
+                                              membership=membership)
             assert torch.equal(got, want)
-    assert fused_query_v2.launches == before
+    assert fused_query_v2_rows.launches == before
 
 
 def test_refuses_tensors_off_cpu_and_cuda():
     """A tensor that is neither on the CPU nor on a CUDA device never falls
     back to the plain version."""
-    z = torch.zeros(4, dtype=torch.int32, device="meta")
-    streams = Streams(z, z, z, z, z, z, 4, 256)
+    z = torch.zeros(8, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        fused_query_v2(streams, z, n_docs=4, membership=False)
+        fused_query_v2_rows((z,) * 6, z.view(-1, 8)[:, :5], z.view(8, 1), k=3, L=4, C=1,
+                            n_docs=1, membership=False)
+
+
+def test_engine_leaves_rows_for_bulk_copies():
+    """The kernel copies rows in 16-byte runs, up to ROW_SLACK rows past the
+    last one a window names: the engine places at least ROW_SLACK + 1
+    sentinel rows after the store, however small it is."""
+    store = _store(np.random.default_rng(5), True, n_records=1, n_docs=3, rec_len=40)
+    one = type(store)(record_names=store.record_names, record_lens=store.record_lens,
+                      n_docs=3, kind=store.kind, rec_id=store.rec_id[:1],
+                      start=store.start[:1], end=store.end[:1], order=store.order[:1])
+    for s in (one, store):
+        eng = QueryEngine(s, device="cpu", stratify=False)
+        assert all(t.numel() >= s.num_intervals + ROW_SLACK + 1 for t in eng._d)
+        assert (eng._d.order[s.num_intervals:] == -1).all()
 
 
 @pytest.mark.parametrize(
-    "C,tile", [(6, 256), (16, 256), (90, 256), (160, 256), (225, 256), (226, 128), (257, 128),
-               (447, 128), (448, 64), (880, 64)]
+    "C,tile,stages", [(6, 256, 8), (16, 256, 6), (90, 256, 3), (129, 256, 8), (160, 256, 8),
+                      (225, 128, 8), (257, 128, 8), (400, 128, 3), (447, 64, 8), (819, 64, 2)]
 )
-def test_kernel_constants_v2(C, tile):
-    assert kernel_constants_v2(C) == tile
+def test_v2_constants(C, tile, stages):
+    """The widest tile that leaves room for a ring of two stages, and as
+    many stages as fit without costing a block per SM."""
+    assert v2_constants(C) == (tile, stages)
 
 
-def test_kernel_constants_v2_rejects_too_wide():
-    with pytest.raises(ValueError, match="at most 880 columns"):
-        kernel_constants_v2(881)
+def test_v2_constants_rejects_too_wide():
+    with pytest.raises(ValueError, match="at most 819 columns"):
+        v2_constants(820)
 
 
 @pytest.fixture
@@ -109,17 +141,47 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arm", ARMS)
 @pytest.mark.parametrize("C", [6, 16, 90, 129, 160, 257])
-@pytest.mark.parametrize("membership", [False, True])
-@pytest.mark.parametrize("n_win", [1, 3])
-def test_cuda_kernel_matches_reference(cuda_device, C, membership, n_win):
-    rng = np.random.default_rng(C + 1000 * n_win)
-    tile = kernel_constants_v2(C)
-    for L, per_pos in ((1, 2), (777, 3), (37 * tile + 3, 20)):
-        streams, prefix = _random_streams(rng, n_win, L, C, per_pos, tile, cuda_device)
-        before = fused_query_v2.launches
-        got = fused_query_v2(streams, prefix, n_docs=C, membership=membership)
-        torch.cuda.synchronize()
-        assert fused_query_v2.launches == before + 1
-        want = fused_query_v2_reference(streams, prefix, n_docs=C, membership=membership)
-        assert torch.equal(got, want), (C, L, membership, n_win)
+def test_cuda_rows_match_plain(cuda_device, C, arm):
+    """The kernel against its plain version on random stores with dropped
+    rows (order < 0 and >= C), for every window of test_torch_fused_rows
+    (a record's start and end, one position, an empty record) and its
+    3-window batch, k in {1, 2, 31}, both kinds; one launch per call."""
+    for kind in ("conservation", "membership"):
+        store = random_store(np.random.default_rng(C), C, kind, rec_len=3000)
+        eng = QueryEngine(store, device=cuda_device, stratify=False)
+        for k in (1, 2, 31):
+            cases = [(record, [(qs, qe)]) for record, qs, qe in WINDOWS] + [("chr0", BATCH)]
+            for record, wins in cases:
+                args, L = _rows_args(eng, record, wins, k, cuda_device)
+                before = fused_query_v2_rows.launches
+                got = fused_query_v2_rows(eng._d, *args, k=k, L=L, C=C, n_docs=C,
+                                          membership=kind == "membership", arm=arm)
+                torch.cuda.synchronize()
+                assert fused_query_v2_rows.launches == before + 1
+                want = fused_query_rows_reference(eng._d, *args, k=k, L=L, C=C, n_docs=C,
+                                                  membership=kind == "membership")
+                assert torch.equal(got, want), (C, kind, k, record, wins, arm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ARMS)
+def test_cuda_long_and_dense_windows(cuda_device, arm):
+    """Long runs (a 300 Kbp window, 40 windows a launch) and a dense store
+    with thousands of rows a tile (many ring stages per tile), C=16,
+    launched twice in a row (the state words reset themselves)."""
+    cases = ((random_store(np.random.default_rng(43), 16, rec_len=300_000, per_pos=2),
+              ([(0, 300_000)], [(i * 7000, i * 7000 + 9000) for i in range(40)])),
+             (random_store(np.random.default_rng(44), 16, rec_len=20_000, per_pos=12),
+              ([(0, 20_000)],)))
+    for store, windows in cases:
+        eng = QueryEngine(store, device=cuda_device, stratify=False)
+        for wins in windows:
+            args, L = _rows_args(eng, "chr0", wins, 31, cuda_device)
+            want = fused_query_rows_reference(eng._d, *args, k=31, L=L, C=16, n_docs=16,
+                                              membership=False)
+            for _ in range(2):
+                got = fused_query_v2_rows(eng._d, *args, k=31, L=L, C=16, n_docs=16,
+                                          membership=False, arm=arm)
+                assert torch.equal(got, want), (wins[0], arm)
