@@ -62,8 +62,7 @@ EDGE_REC_LEN = 200_000  # records of the random stores that phase 2 checks v1 on
 # upload and the three kernels of csrc/fused_query.cu.
 V1_OPS = ("Memcpy HtoD", "rows_net_kernel", "tile_scan_kernel", "rows_apply_kernel")
 V1_GRAPH = {"memcpy": 1, "kernel": 3}  # the same, as CUDA graph nodes
-V2_ARM = "runs"  # the arm of csrc/fused_query_v2.cu that the engine runs
-V2_OPS = ("Memcpy HtoD", f"v2_{V2_ARM}_kernel")  # a v2 query: the upload and one kernel
+V2_OPS = ("Memcpy HtoD", "fused_query_v2_kernel")  # a v2 query: the upload and one kernel
 V2_GRAPH = {"memcpy": 1, "kernel": 1}
 DENSE_LEN, DENSE_DOCS = 1 << 18, 90  # dense_small: tools/kernel_lab.py's 256 Kbp, C=90 store
 PROFILE_TRIES = 3
@@ -321,14 +320,11 @@ def kernel_case(engine, record, windows, k, membership, kernels) -> dict[str, in
 
 
 def kernel_functions() -> dict:
-    """The kernel wrappers that phase 2 checks: v1 and each arm of v2."""
-    import functools
-
+    """The kernel wrappers: v1 and v2."""
     from memo_tpu_torch.ops.fused_query import fused_query_rows
-    from memo_tpu_torch.ops.fused_query_v2 import ARMS, fused_query_v2_rows
+    from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2_rows
 
-    return {"v1": fused_query_rows,
-            **{f"v2_{arm}": functools.partial(fused_query_v2_rows, arm=arm) for arm in ARMS}}
+    return {"v1": fused_query_rows, "v2": fused_query_v2_rows}
 
 
 def phase_kernels(device) -> dict[str, int]:
@@ -359,12 +355,10 @@ def phase_kernels(device) -> dict[str, int]:
                         errors[name].append(err)
             del eng
     worst = {name: max(errs) for name, errs in errors.items()}
-    emit("phase2_kernels", cases=len(errors["v1"]), max_abs_err=worst["v1"], widths=list(widths),
-         k=[1, 2, 31], windows_per_launch=[1, 3])
-    v2 = {name: err for name, err in worst.items() if name != "v1"}
-    emit("phase6_kernels_v2", cases=len(errors["v1"]), max_abs_err=max(v2.values()), arms=v2,
-         widths=list(widths), k=[1, 2, 31], windows_per_launch=[1, 3])
-    return {"v1": worst["v1"], "v2": max(v2.values())}
+    for phase, name in (("phase2_kernels", "v1"), ("phase6_kernels_v2", "v2")):
+        emit(phase, cases=len(errors[name]), max_abs_err=worst[name], widths=list(widths),
+             k=[1, 2, 31], windows_per_launch=[1, 3])
+    return worst
 
 
 def time_function(engine, record: str, windows, k: int, version: str = "v1") -> dict:
@@ -376,7 +370,7 @@ def time_function(engine, record: str, windows, k: int, version: str = "v1") -> 
     from memo_tpu_torch.ops.fused_query import fused_query_rows_reference, rows_tile, window_args
     from memo_tpu_torch.ops.fused_query_v2 import v2_constants
 
-    fn = kernel_functions()[version if version == "v1" else f"v2_{V2_ARM}"]
+    fn = kernel_functions()[version]
     ranges, prefix, L = v1_inputs(engine, record, windows, k)
     args = window_args(ranges, prefix, engine.device)
     C = engine.n_docs
@@ -402,19 +396,23 @@ def time_function(engine, record: str, windows, k: int, version: str = "v1") -> 
             "bound_share": bound / ms, "kernels_us": ops}
 
 
-def ab_v2(engine, record: str, windows, k: int) -> dict:
-    """v2's two arms on the same uploaded parameters, timed in turns (tiles,
-    runs, runs, tiles) by CUDA events, beside v1 in the same turns."""
-    from memo_tpu_torch.ops.fused_query import window_args
+def sweep_runs(engine, record: str, windows, k: int) -> dict:
+    """v2's device time at run lengths of 1/2/4/8/16 tiles and its own
+    choice (0), in turns (each twice), beside v1, on the same parameters."""
+    import functools
 
-    kernels = kernel_functions()
+    from memo_tpu_torch.ops.fused_query import fused_query_rows, window_args
+    from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2_rows
+
     ranges, prefix, L = v1_inputs(engine, record, windows, k)
     args = window_args(ranges, prefix, engine.device)
     C = engine.n_docs
-    times = {name: [] for name in kernels}
-    for name in ("v2_tiles", "v2_runs", "v1", "v2_runs", "v2_tiles", "v1"):
-        times[name].append(kernel_ms(lambda: kernels[name](engine._d, *args, k=k, L=L, C=C,
-                                                          n_docs=C, membership=False)))
+    fns = {"v1": fused_query_rows,
+           **{f"R{r}": functools.partial(fused_query_v2_rows, run_tiles=r) for r in (1, 2, 4, 8, 16, 0)}}
+    times = {name: [] for name in fns}
+    for name in [*fns, *reversed(fns)]:
+        times[name].append(kernel_ms(lambda: fns[name](engine._d, *args, k=k, L=L, C=C, n_docs=C,
+                                                      membership=False)))
     return times
 
 
@@ -549,7 +547,7 @@ def phase_headline(device, tmp: str):
     host_ms = (time.perf_counter() - t0) * 1e3
     kern = time_function(fused, "chr1", [(0, L)], K)
     kern_v2 = time_function(fused, "chr1", [(0, L)], K, "v2")
-    kern_v2["ab_ms"] = ab_v2(fused, "chr1", [(0, L)], K)
+    kern_v2["sweep"] = sweep_runs(fused, "chr1", [(0, L)], K)
     res = fused.conservation("chr1", 0, L, K)
     t0 = time.perf_counter()
     format_conservation(res)
@@ -609,7 +607,7 @@ def phase_batched(device, store):
         check(graph == want_graph, f"one {version} batch is {want_graph}: {graph}")
         kerns[version] = time_function(eng, "chr1", wins, K, version)
         if version == "v2":
-            kerns[version]["ab_ms"] = ab_v2(eng, "chr1", wins, K)
+            kerns[version]["sweep"] = sweep_runs(eng, "chr1", wins, K)
         fields[version] = {"launches": launches[version], "batch_wall_ms": batch_s * 1e3,
                            "per_window_ms": batch_s * 1e3 / len(wins),
                            "single_window_ms": single_s * 1e3,
@@ -671,9 +669,8 @@ def phase_full_width(device, large_store) -> dict:
     """The stratified engine with v2 at the n=90 store (bucket 0 runs at
     k=31), at a 160-genome store and at dense_small (tools/kernel_lab.py's
     256 Kbp pivot at n=90 density, built here): spot windows exact against
-    the reference loop; on bucket 0's whole window, v1 and both v2 arms
-    exact against the plain version, their device times (the arms in turns)
-    and the bounds."""
+    the reference loop; on bucket 0's whole window, v1 and v2 exact against
+    the plain version, their device times and the bounds."""
     from memo_tpu_torch.index.builder import store_from_ms
     from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2_rows
     from memo_tpu_torch.query.engine import QueryEngine
@@ -708,7 +705,7 @@ def phase_full_width(device, large_store) -> dict:
         child = eng._children[0][1] if eng._children else eng
         exact = kernel_case(child, "chr1", [(0, L)], K, False, kernel_functions())
         v2 = time_function(child, "chr1", [(0, L)], K, "v2")
-        v2["ab_ms"] = ab_v2(child, "chr1", [(0, L)], K)
+        v2["sweep"] = sweep_runs(child, "chr1", [(0, L)], K)
         v1 = time_function(child, "chr1", [(0, L)], K)
         fields[name] = {"intervals": store.num_intervals, "n_docs": store.n_docs, "L": L,
                         "stratified": eng._children is not None, "v2_launches": launches,
@@ -826,8 +823,7 @@ def main() -> int:
     for version in ("v1", "v2"):
         emit(f"{version}_function", card=card, **{name: {key: cell[key] for key in FUNCTION_KEYS}
                                                   for name, cell in cells[version].items()})
-    emit("v2_arms_ms", card=card, order="tiles, runs, v1, runs, tiles, v1",
-         **{name: cell["ab_ms"] for name, cell in cells["v2"].items()})
+    emit("v2_run_sweep_ms", card=card, **{name: cell["sweep"] for name, cell in cells["v2"].items()})
     print(json.dumps({"kernels": [{
         "name": "fused_query_rows",
         "route": "cuda",

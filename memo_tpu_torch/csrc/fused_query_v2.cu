@@ -17,34 +17,33 @@
 // One pass: v1 reads every row twice from device memory (its net pass and
 // its apply pass) and carries the coverage by a scan over tiles in between.
 // Here every row is read from device memory once, and the carry into a run
-// of tiles comes from a decoupled look-back over the earlier runs of its
+// of R tiles comes from a decoupled look-back over the earlier runs of its
 // window: a run publishes its aggregate (net events per column) and, once it
-// has its carry, its inclusive sum; a run walks back over the aggregates and
-// stops at the first inclusive. Runs are drawn by one atomic ticket in
-// window-major order, so a run waits only on runs drawn before it, whose
-// blocks are running: the look-back cannot deadlock. Statuses carry the
-// launch's epoch, and the last block to leave resets the ticket and moves
-// the epoch on, so the state is zeroed once when the wrapper allocates it
-// and never again (a launch is one kernel node, no memset).
+// has its carry, its inclusive sum; a run walks back over its predecessors
+// 32 at a time and stops at the nearest inclusive. Runs are drawn by one
+// atomic ticket in window-major order, so a run waits only on runs drawn
+// before it, whose blocks are running: the look-back cannot deadlock.
+// Statuses carry the launch's epoch, and the last block to leave resets the
+// ticket and moves the epoch on, so the state is zeroed once when the
+// wrapper allocates it (a launch is one kernel node, no memset).
 //
-// Two arms, timed against each other by chip_smoke.py:
-//  A ("tiles"): one block per tile; it finds its rows with v1's warp
-//    searches, scatters them from device memory into the [C][T + 1] diff
-//    tile and into its aggregate at once, looks back per tile, and finishes
-//    with v1's scan and reduce (tile.cuh).
-//  B ("runs"): a persistent grid (every block resident), each block walking
-//    runs of R tiles. Its producer warp finds the run's row bounds (v1's
-//    searches for the run's ends, one binary search per lane for the tile
-//    bounds inside it) and streams the rows with bulk copies (cp.async.bulk,
-//    the 1-D TMA) into an S-stage shared-memory ring, each stage a chunk of
-//    one stream's rows of [floor4(lo), ceil4(hi)) with full and empty
-//    mbarriers. The run's rows pass twice through the ring: first for its
-//    aggregate, then, after the look-back, tile by tile for the diff tile
-//    (the second read comes from L2). The eight consumer warps wait only on
-//    their stage's barrier; the producer is a run ahead, so the next run's
-//    rows land while a tile is scanned. The finish is v1's, with the carry
-//    handed from tile to tile in shared memory and the tile zeroed as the
-//    scan reads it.
+// The grid is persistent (as many blocks as are resident, each walking
+// runs). A block's producer warp finds the run's row bounds (the run's ends
+// by four searches side by side, eight lanes each; the tile bounds inside it
+// by one binary search per lane) and streams the rows with bulk copies
+// (cp.async.bulk, the 1-D TMA) into an S-stage shared-memory ring, each
+// stage a chunk of one stream's rows of [floor4(lo), ceil4(hi)) with full
+// and empty mbarriers. The run's rows pass twice through the ring: first for
+// its aggregate, then, after the look-back, tile by tile into the diff tile
+// (the second read comes from L2). The eight consumer warps wait only on
+// their stage's barrier; the producer runs ahead, so the next rows land
+// while a tile is scanned. The finish is v1's (tile.cuh), with the carry
+// handed from tile to tile in shared memory and the tile zeroed as the scan
+// reads it.
+//
+// Measured and dropped: one block per tile that reads its rows directly and
+// looks back per tile (1.4-3.3x slower than this design at every cell,
+// PERF.md).
 //
 // Bank conflicts as in v1: the tile is cov[C][T + 1], word (c, p) in bank
 // (c + p) % 32.
@@ -69,7 +68,7 @@ namespace {
 
 constexpr int kConsumers = 256;  // threads that scatter, scan and reduce
 constexpr int kConsumerWarps = kConsumers / 32;
-constexpr int kRunThreads = kConsumers + 32;  // arm B: the consumers and one producer warp
+constexpr int kThreads = kConsumers + 32;  // the consumers and one producer warp
 constexpr int kStageRows = 512;               // rows of one stream in one ring stage
 constexpr int kMaxStages = 8;
 constexpr int kMaxRun = 16;  // tiles of a run: the producer's lanes 0-14 and 16-30 search
@@ -104,8 +103,8 @@ __device__ __forceinline__ void store_release(int* p, int v) {
   asm volatile("st.release.gpu.global.b32 [%0], %1;" : : "l"(p), "r"(v) : "memory");
 }
 
-// Barrier 1 over the 256 consumer threads (warps 0-7); the producer warp of
-// arm B never takes it.
+// Barrier 1 over the 256 consumer threads (warps 0-7); the producer warp
+// never takes it.
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;" : : "n"(kConsumers) : "memory");
 }
@@ -117,12 +116,16 @@ __device__ __forceinline__ void publish(int* status, int value) {
   if (threadIdx.x == 0) store_release(status, value);
 }
 
-// Unit j of a window (a run or a tile; its units are first .. first + n - 1
-// of the status words and of sums[.., 2, C]) publishes its aggregate net[C]
-// and gets its carry[C] from the prefix (j == 0) or by walking back over
-// the window's earlier units. Called by the 256 consumer threads.
+// Run j of a window (its runs are first .. first + n - 1 of the status
+// words and of sums[.., 2, C]) publishes its aggregate net[C] and gets its
+// carry[C] from the prefix (j == 0) or by walking back over the window's
+// earlier runs, 32 at a time: warp 0 waits until the 32 nearest unread
+// predecessors have published, each lane acquiring one status, and finds
+// the nearest inclusive among them (`code` in shared memory: n > 0, the
+// n-th is inclusive; -n, n aggregates and no inclusive); then every thread
+// adds those sums for its columns. Called by the 256 consumer threads.
 __device__ void look_back(int* status, int32_t* sums, const int32_t* prefix, size_t first, int j,
-                          const int* net, int* carry, int C, int epoch) {
+                          const int* net, int* carry, int C, int epoch, int* code) {
   const int tid = threadIdx.x;
   const size_t unit = first + j;
   int32_t* aggregate = sums + unit * 2 * C;
@@ -133,29 +136,42 @@ __device__ void look_back(int* status, int32_t* sums, const int32_t* prefix, siz
       inclusive[c] = prefix[c] + net[c];
     }
   } else {
-    for (int c = tid; c < C; c += kConsumers) aggregate[c] = net[c];
-    publish(&status[unit], (epoch << 2) | kAggregate);
-    // Each thread walks back for its own columns and acquires each status
-    // itself before it reads the sums that the status covers.
     for (int c = tid; c < C; c += kConsumers) {
-      int acc = 0;
-      for (int pred = j - 1;; --pred) {
-        const size_t pred_unit = first + pred;
-        int v, spins = 0;
-        while (((v = load_acquire(&status[pred_unit])) >> 2) != epoch || (v & 3) == 0) {
-          __nanosleep(32);
-          if (++spins > kSpinLimit) __trap();
-        }
-        const int32_t* pred_sums = sums + pred_unit * 2 * C;
-        if ((v & 3) == kInclusive) {
-          acc += __ldcg(pred_sums + C + c);
-          break;
-        }
-        acc += __ldcg(pred_sums + c);
-      }
-      carry[c] = acc;
-      inclusive[c] = acc + net[c];
+      aggregate[c] = net[c];
+      carry[c] = 0;
     }
+    publish(&status[unit], (epoch << 2) | kAggregate);
+    for (int end = j;;) {  // predecessors end - 1, end - 2, ... not read yet
+      if (tid < 32) {
+        const int pred = end - 1 - tid;
+        int flag = 0;
+        if (pred >= 0) {
+          int v, spins = 0;
+          while (((v = load_acquire(&status[first + pred])) >> 2) != epoch || (v & 3) == 0) {
+            __nanosleep(32);
+            if (++spins > kSpinLimit) __trap();
+          }
+          flag = v & 3;
+        }
+        const unsigned found = __ballot_sync(0xffffffffu, flag == kInclusive);
+        if (tid == 0) *code = found ? __ffs(found) : -min(32, end);
+      }
+      consumer_sync();
+      const int got = *code;
+      const int n = got > 0 ? got : -got;
+      for (int c = tid; c < C; c += kConsumers) {
+        int acc = carry[c];
+        for (int i = 0; i < n; ++i) {
+          const int32_t* pred_sums = sums + (first + end - 1 - i) * 2 * C;
+          acc += __ldcg(pred_sums + (got > 0 && i == n - 1 ? C : 0) + c);
+        }
+        carry[c] = acc;
+      }
+      consumer_sync();  // code is rewritten by the next round
+      if (got > 0) break;
+      end -= n;
+    }
+    for (int c = tid; c < C; c += kConsumers) inclusive[c] = carry[c] + net[c];
   }
   publish(&status[unit], (epoch << 2) | kInclusive);
 }
@@ -175,66 +191,6 @@ __device__ void leave(int* state, int epoch) {
     }
   }
 }
-
-// ------------------------------------------------------------------ arm A
-
-// Add the live events of rows [lo, hi) at positions [base, base + T) into the
-// diff tile cov[C][T + 1] and the tile's net[C], reading the rows from device
-// memory.
-template <bool kPlus>
-__device__ void scatter_tile(const Stream& st, int lo, int hi, int base, int T, int k, int C,
-                             int* cov, int* net) {
-  for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-    const int key = st.key[i];
-    const int c = live_column<kPlus>(key, st.partner[i], st.order[i], k, C);
-    const int p = key - st.shift - base;
-    if (c >= 0 && p >= 0 && p < T) {
-      atomicAdd(&cov[c * (T + 1) + p], kPlus ? 1 : -1);
-      atomicAdd(&net[c], kPlus ? 1 : -1);
-    }
-  }
-}
-
-template <bool kMembership>
-__global__ void __launch_bounds__(kConsumers)
-v2_tiles_kernel(Store store, const int32_t* __restrict__ params, const int32_t* __restrict__ prefix,
-                int* __restrict__ state, int32_t* __restrict__ sums, int L, int C, int T, int k,
-                int n_docs, void* __restrict__ out) {
-  extern __shared__ int smem[];
-  int* cov = smem;                 // [C][T + 1]
-  int* carry = cov + C * (T + 1);  // [C]
-  int* net = carry + C;            // [C]
-  int* first = net + C;            // [T]
-  int* found = first + T;          // [4]
-  int* drawn = found + 4;          // [2]: ticket, epoch
-  const int nt = (L + T - 1) / T;
-  if (threadIdx.x == 0) {
-    drawn[0] = atomicAdd(&state[kTicket], 1);
-    drawn[1] = *static_cast<volatile int*>(&state[kEpoch]);
-  }
-  for (int i = threadIdx.x; i < C * (T + 1); i += blockDim.x) cov[i] = 0;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) net[c] = 0;
-  for (int p = threadIdx.x; p < T; p += blockDim.x) first[p] = n_docs;
-  __syncthreads();
-  const int q = drawn[0] / nt;
-  const int t = drawn[0] - q * nt;
-  const int epoch = drawn[1];
-  const Window w = load_window(store, params, q, k);
-  const int base = t * T;
-  find_bounds(w, base, base + T, found);
-  __syncthreads();
-  scatter_tile<false>(w.minus, found[0], found[1], base, T, k, C, cov, net);
-  scatter_tile<true>(w.plus, found[2], found[3], base, T, k, C, cov, net);
-  __syncthreads();
-  look_back(state + kStatus, sums, prefix + static_cast<size_t>(q) * C,
-            static_cast<size_t>(q) * nt, t, net, carry, C, epoch);
-  __syncthreads();
-  finish_tile<kConsumerWarps, kMembership>(cov, carry, first, T, C, min(T, L - base), n_docs, out,
-                                           static_cast<size_t>(q) * L + base);
-  leave(state, epoch);
-}
-
-// ------------------------------------------------------------------ arm B
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -346,6 +302,27 @@ __device__ __forceinline__ int lower_bound(const int32_t* __restrict__ key, int 
   return lo;
 }
 
+// First row of [lo, hi) whose key is >= v, searched by the eight lanes of
+// this lane's group of eight: 8 probes cut the range into 9 parts a step (7
+// steps for 4M rows), and the four groups of a warp search side by side.
+// Every lane of the group returns the answer.
+__device__ int group_lower_bound(const int32_t* __restrict__ key, int lo, int hi, int v) {
+  const int sub = threadIdx.x & 7;
+  const int shift = threadIdx.x & 24;  // the group's first lane
+  while (__any_sync(0xffffffffu, lo < hi)) {
+    const long long n = hi - lo;
+    const int probe = lo + static_cast<int>(n * (sub + 1) / 9);
+    const bool lt = lo < hi && key[probe] < v;
+    const int below = __popc((__ballot_sync(0xffffffffu, lt) >> shift) & 0xffu);
+    if (lo < hi) {
+      const int new_lo = below == 0 ? lo : lo + static_cast<int>(n * below / 9) + 1;
+      hi = below == 8 ? hi : lo + static_cast<int>(n * (below + 1) / 9);
+      lo = new_lo;
+    }
+  }
+  return lo;
+}
+
 // The producer warp: draw runs until none is left; for each, find its tile
 // bounds and stream its rows twice (aggregate pass, then tile by tile).
 __device__ void produce(Ring r, const Store& store, const int32_t* params, int* ticket, int Q,
@@ -366,12 +343,17 @@ __device__ void produce(Ring r, const Store& store, const int32_t* params, int* 
     const int n = min(R, nt - t0);
     const Window w = load_window(store, params, q, k);
     const Stream* streams[2] = {&w.minus, &w.plus};
+    // The run's first and last rows in each stream: four searches side by
+    // side, eight lanes each (group g: stream g >> 1, end g & 1).
+    const int group = lane >> 3;
+    const Stream& mine = *streams[group >> 1];
+    const int found = group_lower_bound(mine.key, mine.lo, mine.hi,
+                                        mine.shift + (t0 + (group & 1) * n) * T);
     int lo[2], hi[2];
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
-      const Stream& st = *streams[s];
-      lo[s] = warp_lower_bound(st.key, st.lo, st.hi, st.shift + t0 * T);
-      hi[s] = warp_lower_bound(st.key, lo[s], st.hi, st.shift + (t0 + n) * T);
+      lo[s] = __shfl_sync(0xffffffffu, found, s * 16);
+      hi[s] = __shfl_sync(0xffffffffu, found, s * 16 + 8);
     }
     // Lane l < 15 holds the minus stream's bound of tile t0 + l + 1, lane
     // 16 + l the plus stream's.
@@ -424,7 +406,7 @@ __device__ void consume_rows(const int* rows, int lo, int hi, int a, int off, in
 template <bool kMembership>
 __device__ void consume(Ring r, int* status, int32_t* sums, const int32_t* prefix, int L, int C,
                         int T, int k, int n_docs, int runs, int epoch, int* cov, int* carry,
-                        int* net, int* first, void* out) {
+                        int* net, int* first, int* code, void* out) {
   const int warp = threadIdx.x >> 5;
   const int S = T + 1;
   for (;;) {
@@ -450,7 +432,7 @@ __device__ void consume(Ring r, int* status, int32_t* sums, const int32_t* prefi
     consumer_sync();
     if (kind == kAggStage) {
       look_back(status, sums, prefix + static_cast<size_t>(q) * C, static_cast<size_t>(q) * runs,
-                j, net, carry, C, epoch);
+                j, net, carry, C, epoch, code);
       for (int c = threadIdx.x; c < C; c += kConsumers) net[c] = 0;
       continue;  // the tile's scatter ends in a consumer_sync before carry is read
     }
@@ -478,8 +460,8 @@ __device__ void consume(Ring r, int* status, int32_t* sums, const int32_t* prefi
 }
 
 template <bool kMembership>
-__global__ void __launch_bounds__(kRunThreads)
-v2_runs_kernel(Store store, const int32_t* __restrict__ params, const int32_t* __restrict__ prefix,
+__global__ void __launch_bounds__(kThreads)
+fused_query_v2_kernel(Store store, const int32_t* __restrict__ params, const int32_t* __restrict__ prefix,
                int* __restrict__ state, int32_t* __restrict__ sums, int Q, int L, int C, int T,
                int k, int n_docs, int R, int S, void* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -492,6 +474,7 @@ v2_runs_kernel(Store store, const int32_t* __restrict__ params, const int32_t* _
   int* net = carry + C;                  // [C]
   int* first = net + C;                  // [T]
   int* epoch_word = first + T;           // [1]
+  int* code = epoch_word + 1;            // [1]: look_back's word
   const int nt = (L + T - 1) / T;
   const int runs = (nt + R - 1) / R;
   if (threadIdx.x == 0) {
@@ -514,62 +497,43 @@ v2_runs_kernel(Store store, const int32_t* __restrict__ params, const int32_t* _
     produce(r, store, params, &state[kTicket], Q, nt, runs, R, T, k);
   } else {
     consume<kMembership>(r, state + kStatus, sums, prefix, L, C, T, k, n_docs, runs, epoch, cov,
-                         carry, net, first, out);
+                         carry, net, first, code, out);
   }
   leave(state, epoch);
 }
 
-size_t tiles_smem(int C, int T) {
-  return (static_cast<size_t>(C) * (T + 1) + 2 * C + T + 6) * sizeof(int);
-}
-
-size_t runs_smem(int C, int T, int S) {
+// Shared memory of one block: the ring, the tile, carry, aggregate, first
+// marked columns, the epoch and look_back's word.
+size_t smem_bytes(int C, int T, int S) {
   return kRingHeader + static_cast<size_t>(S) * 3 * kStageRows * sizeof(int) +
-         (static_cast<size_t>(C) * (T + 1) + 2 * C + T + 1) * sizeof(int);
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+         (static_cast<size_t>(C) * (T + 1) + 2 * C + T + 2) * sizeof(int);
 }
 
 template <bool kMembership>
-cudaError_t launch_tiles(cudaStream_t stream, const Store& store, const int32_t* params,
-                         const int32_t* prefix, int* state, int32_t* sums, int Q, int L, int C,
-                         int T, int k, int n_docs, void* out) {
-  const size_t smem = tiles_smem(C, T);
-  const cudaError_t err = allow_smem(v2_tiles_kernel<kMembership>, smem);
-  if (err != cudaSuccess) return err;
-  const long long blocks = static_cast<long long>(Q) * ((L + T - 1) / T);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  v2_tiles_kernel<kMembership><<<static_cast<unsigned>(blocks), kConsumers, smem, stream>>>(
-      store, params, prefix, state, sums, L, C, T, k, n_docs, out);
-  return cudaGetLastError();
-}
-
-template <bool kMembership>
-cudaError_t launch_runs(cudaStream_t stream, const Store& store, const int32_t* params,
-                        const int32_t* prefix, int* state, int32_t* sums, int Q, int L, int C,
-                        int T, int S, int k, int n_docs, void* out) {
-  const size_t smem = runs_smem(C, T, S);
-  cudaError_t err = allow_smem(v2_runs_kernel<kMembership>, smem);
+cudaError_t launch(cudaStream_t stream, const Store& store, const int32_t* params,
+                   const int32_t* prefix, int* state, int32_t* sums, int Q, int L, int C, int T,
+                   int S, int k, int n_docs, int run_tiles, void* out) {
+  const size_t smem = smem_bytes(C, T, S);
+  cudaError_t err = cudaFuncSetAttribute(fused_query_v2_kernel<kMembership>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int device = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) {
     return err;
   }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, v2_runs_kernel<kMembership>,
-                                                      kRunThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_query_v2_kernel<kMembership>,
+                                                      kThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int grid = per_sm * sms;  // every block resident: the look-back needs it
+  const int grid = per_sm * sms;  // every block resident
   // Runs of R tiles, about four per block, so that blocks finish together.
   const long long tiles = static_cast<long long>(Q) * ((L + T - 1) / T);
   long long R = tiles / (4LL * grid);
   R = R < 1 ? 1 : (R > kMaxRun ? kMaxRun : R);
-  v2_runs_kernel<kMembership><<<grid, kRunThreads, smem, stream>>>(
+  if (run_tiles > 0) R = run_tiles < kMaxRun ? run_tiles : kMaxRun;
+  fused_query_v2_kernel<kMembership><<<grid, kThreads, smem, stream>>>(
       store, params, prefix, state, sums, Q, L, C, T, k, n_docs, static_cast<int>(R), S, out);
   return cudaGetLastError();
 }
@@ -577,13 +541,12 @@ cudaError_t launch_runs(cudaStream_t stream, const Store& store, const int32_t* 
 }  // namespace
 
 // Query Q windows of L positions on `stream` from the placed store's six
-// row arrays, each holding n_rows + 3 rows (the bulk copies of arm B read up
-// to 3 rows past a window's last). params is int32[Q, 5] (mlo, mhi, plo,
+// row arrays, each holding n_rows + 3 rows (the bulk copies read up to 3
+// rows past a window's last). params is int32[Q, 5] (mlo, mhi, plo,
 // phi, qs per window), prefix int32[Q, C]; state is int32[4 + Q * nt]
 // (nt = ceil(L / tile)), zeroed once when it was allocated and left for the
-// next launch on this stream; sums is int32[Q * nt * 2 * C] scratch; out is
-// int32[Q, L] or int8[Q, L, C]. arm 0 is A (tiles), 1 is B (runs, `stages`
-// ring stages). Returns the CUDA error code of the first call that failed,
+// next launch on this device; sums is int32[Q * nt * 2 * C] scratch; out is
+// int32[Q, L] or int8[Q, L, C]; the ring has `stages` stages. Returns the CUDA error code of the first call that failed,
 // 0 when all were accepted.
 extern "C" int memo_fused_query_v2_rows(const int32_t* start, const int32_t* end,
                                         const int32_t* order, const int32_t* end_s,
@@ -591,22 +554,16 @@ extern "C" int memo_fused_query_v2_rows(const int32_t* start, const int32_t* end
                                         const int32_t* order_by_end, const int32_t* params,
                                         const int32_t* prefix, int32_t* state, int32_t* sums,
                                         void* out, int n_rows, int Q, int L, int C, int k,
-                                        int tile, int stages, int n_docs, int membership, int arm,
-                                        void* stream) {
+                                        int tile, int stages, int n_docs, int membership,
+                                        int run_tiles, void* stream) {
   if (n_rows < 0 || Q < 1 || L < 1 || C < 1 || k < 1 || tile < 32 || tile % 32 != 0 ||
       tile > 32 * kMaxChunks || stages < 2 || stages > kMaxStages) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Store store{start, end, order, end_s, start_by_end, order_by_end, n_rows};
-  if (arm == 0) {
-    return membership ? launch_tiles<true>(s, store, params, prefix, state, sums, Q, L, C, tile, k,
-                                           n_docs, out)
-                      : launch_tiles<false>(s, store, params, prefix, state, sums, Q, L, C, tile,
-                                            k, n_docs, out);
-  }
-  return membership ? launch_runs<true>(s, store, params, prefix, state, sums, Q, L, C, tile,
-                                        stages, k, n_docs, out)
-                    : launch_runs<false>(s, store, params, prefix, state, sums, Q, L, C, tile,
-                                         stages, k, n_docs, out);
+  return membership ? launch<true>(s, store, params, prefix, state, sums, Q, L, C, tile, stages, k,
+                                   n_docs, run_tiles, out)
+                    : launch<false>(s, store, params, prefix, state, sums, Q, L, C, tile, stages,
+                                    k, n_docs, run_tiles, out);
 }

@@ -32,14 +32,14 @@ SM_SMEM_BYTES = 233_472  # shared memory of one Hopper SM, for all its blocks
 BLOCK_RESERVED = 1024  # shared memory the hardware keeps for each block
 MAX_BLOCKS = 4  # blocks per SM that the ring is sized for
 ROW_SLACK = 3  # rows past a window's last that a 16-byte bulk copy may read
-ARMS = ("tiles", "runs")
 
 
 def _smem_bytes(tile: int, stages: int, C: int) -> int:
     """Shared memory of one block: the ring header and ``stages`` stages,
     the tile int32[C][tile + 1], the carry and the aggregate [C], the first
-    marked column of each position [tile] and the epoch."""
-    return RING_HEADER + stages * STAGE_BYTES + (C * (tile + 1) + 2 * C + tile + 1) * 4
+    marked column of each position [tile], the epoch and the look-back's
+    word."""
+    return RING_HEADER + stages * STAGE_BYTES + (C * (tile + 1) + 2 * C + tile + 2) * 4
 
 
 def v2_constants(C: int) -> tuple[int, int]:
@@ -73,7 +73,7 @@ def _state(device: torch.device, n_words: int) -> torch.Tensor:
 
 
 def fused_query_v2_rows(placed, params: torch.Tensor, prefix: torch.Tensor, *, k: int, L: int,
-                        C: int, n_docs: int, membership: bool, arm: str = "runs"):
+                        C: int, n_docs: int, membership: bool, run_tiles: int = 0):
     """Conservation int32[Q, L] or membership int8[Q, L, C] of Q windows of
     L positions at k, from the placed store (``engine.PlacedStore``, six
     int32 row tensors, each with at least 3 rows after the last one a window
@@ -93,8 +93,6 @@ def fused_query_v2_rows(placed, params: torch.Tensor, prefix: torch.Tensor, *, k
     n_win, n_rows = check_rows_launch("fused_query_v2_rows", placed, params, prefix, devices, k=k,
                                       L=L, C=C)
     tile, stages = v2_constants(C)
-    if arm not in ARMS:
-        raise ValueError(f"unknown arm {arm!r}, expected one of {ARMS}")
     if n_rows <= ROW_SLACK or any(t.data_ptr() % 16 for t in placed):
         raise ValueError("fused_query_v2_rows reads the store rows in 16-byte copies: each row "
                          f"tensor must be 16-byte aligned and hold more than {ROW_SLACK} rows")
@@ -111,7 +109,7 @@ def fused_query_v2_rows(placed, params: torch.Tensor, prefix: torch.Tensor, *, k
         err = lib.memo_fused_query_v2_rows(
             *(t.data_ptr() for t in tensors), state.data_ptr(), sums.data_ptr(), out.data_ptr(),
             n_rows - ROW_SLACK, n_win, L, C, k, tile, stages, n_docs, int(membership),
-            ARMS.index(arm), torch.cuda.current_stream(device).cuda_stream,
+            run_tiles, torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise launch_error("fused_query_v2_rows", lib, err)

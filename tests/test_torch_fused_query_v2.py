@@ -18,12 +18,7 @@ from test_torch_fused_rows import BATCH, WINDOWS, random_store
 
 from memo_tpu.query.engine import _next_pow2
 from memo_tpu_torch.ops.fused_query import fused_query_rows_reference, window_args
-from memo_tpu_torch.ops.fused_query_v2 import (
-    ARMS,
-    ROW_SLACK,
-    fused_query_v2_rows,
-    v2_constants,
-)
+from memo_tpu_torch.ops.fused_query_v2 import ROW_SLACK, fused_query_v2_rows, v2_constants
 from memo_tpu_torch.query.engine import QueryEngine, place_store
 
 # (n_docs, kind, rec_len, window, k): sparse n=6 (C not a multiple of 8),
@@ -141,9 +136,8 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arm", ARMS)
 @pytest.mark.parametrize("C", [6, 16, 90, 129, 160, 257])
-def test_cuda_rows_match_plain(cuda_device, C, arm):
+def test_cuda_rows_match_plain(cuda_device, C):
     """The kernel against its plain version on random stores with dropped
     rows (order < 0 and >= C), for every window of test_torch_fused_rows
     (a record's start and end, one position, an empty record) and its
@@ -157,17 +151,16 @@ def test_cuda_rows_match_plain(cuda_device, C, arm):
                 args, L = _rows_args(eng, record, wins, k, cuda_device)
                 before = fused_query_v2_rows.launches
                 got = fused_query_v2_rows(eng._d, *args, k=k, L=L, C=C, n_docs=C,
-                                          membership=kind == "membership", arm=arm)
+                                          membership=kind == "membership")
                 torch.cuda.synchronize()
                 assert fused_query_v2_rows.launches == before + 1
                 want = fused_query_rows_reference(eng._d, *args, k=k, L=L, C=C, n_docs=C,
                                                   membership=kind == "membership")
-                assert torch.equal(got, want), (C, kind, k, record, wins, arm)
+                assert torch.equal(got, want), (C, kind, k, record, wins)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arm", ARMS)
-def test_cuda_long_and_dense_windows(cuda_device, arm):
+def test_cuda_long_and_dense_windows(cuda_device):
     """Long runs (a 300 Kbp window, 40 windows a launch) and a dense store
     with thousands of rows a tile (many ring stages per tile), C=16,
     launched twice in a row (the state words reset themselves)."""
@@ -183,5 +176,5 @@ def test_cuda_long_and_dense_windows(cuda_device, arm):
                                               membership=False)
             for _ in range(2):
                 got = fused_query_v2_rows(eng._d, *args, k=31, L=L, C=16, n_docs=16,
-                                          membership=False, arm=arm)
-                assert torch.equal(got, want), (wins[0], arm)
+                                          membership=False)
+                assert torch.equal(got, want), wins[0]
