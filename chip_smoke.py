@@ -396,26 +396,6 @@ def time_function(engine, record: str, windows, k: int, version: str = "v1") -> 
             "bound_share": bound / ms, "kernels_us": ops}
 
 
-def sweep_runs(engine, record: str, windows, k: int) -> dict:
-    """v2's device time at run lengths of 1/2/4/8/16 tiles and its own
-    choice (0), in turns (each twice), beside v1, on the same parameters."""
-    import functools
-
-    from memo_tpu_torch.ops.fused_query import fused_query_rows, window_args
-    from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2_rows
-
-    ranges, prefix, L = v1_inputs(engine, record, windows, k)
-    args = window_args(ranges, prefix, engine.device)
-    C = engine.n_docs
-    fns = {"v1": fused_query_rows,
-           **{f"R{r}": functools.partial(fused_query_v2_rows, run_tiles=r) for r in (1, 2, 4, 8, 16, 0)}}
-    times = {name: [] for name in fns}
-    for name in [*fns, *reversed(fns)]:
-        times[name].append(kernel_ms(lambda: fns[name](engine._d, *args, k=k, L=L, C=C, n_docs=C,
-                                                      membership=False)))
-    return times
-
-
 def device_ops(fn, expect: tuple[str, ...]) -> list[tuple[str, float]]:
     """The device operations (kernels, copies, memsets) of one call of
     ``fn``, with their device microseconds, from torch.profiler, in the
@@ -547,7 +527,6 @@ def phase_headline(device, tmp: str):
     host_ms = (time.perf_counter() - t0) * 1e3
     kern = time_function(fused, "chr1", [(0, L)], K)
     kern_v2 = time_function(fused, "chr1", [(0, L)], K, "v2")
-    kern_v2["sweep"] = sweep_runs(fused, "chr1", [(0, L)], K)
     res = fused.conservation("chr1", 0, L, K)
     t0 = time.perf_counter()
     format_conservation(res)
@@ -606,8 +585,6 @@ def phase_batched(device, store):
         graph = graph_ops(batch)
         check(graph == want_graph, f"one {version} batch is {want_graph}: {graph}")
         kerns[version] = time_function(eng, "chr1", wins, K, version)
-        if version == "v2":
-            kerns[version]["sweep"] = sweep_runs(eng, "chr1", wins, K)
         fields[version] = {"launches": launches[version], "batch_wall_ms": batch_s * 1e3,
                            "per_window_ms": batch_s * 1e3 / len(wins),
                            "single_window_ms": single_s * 1e3,
@@ -705,7 +682,6 @@ def phase_full_width(device, large_store) -> dict:
         child = eng._children[0][1] if eng._children else eng
         exact = kernel_case(child, "chr1", [(0, L)], K, False, kernel_functions())
         v2 = time_function(child, "chr1", [(0, L)], K, "v2")
-        v2["sweep"] = sweep_runs(child, "chr1", [(0, L)], K)
         v1 = time_function(child, "chr1", [(0, L)], K)
         fields[name] = {"intervals": store.num_intervals, "n_docs": store.n_docs, "L": L,
                         "stratified": eng._children is not None, "v2_launches": launches,
@@ -823,7 +799,6 @@ def main() -> int:
     for version in ("v1", "v2"):
         emit(f"{version}_function", card=card, **{name: {key: cell[key] for key in FUNCTION_KEYS}
                                                   for name, cell in cells[version].items()})
-    emit("v2_run_sweep_ms", card=card, **{name: cell["sweep"] for name, cell in cells["v2"].items()})
     print(json.dumps({"kernels": [{
         "name": "fused_query_rows",
         "route": "cuda",

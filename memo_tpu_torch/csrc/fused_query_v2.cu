@@ -512,7 +512,7 @@ size_t smem_bytes(int C, int T, int S) {
 template <bool kMembership>
 cudaError_t launch(cudaStream_t stream, const Store& store, const int32_t* params,
                    const int32_t* prefix, int* state, int32_t* sums, int Q, int L, int C, int T,
-                   int S, int k, int n_docs, int run_tiles, void* out) {
+                   int S, int k, int n_docs, void* out) {
   const size_t smem = smem_bytes(C, T, S);
   cudaError_t err = cudaFuncSetAttribute(fused_query_v2_kernel<kMembership>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -528,11 +528,12 @@ cudaError_t launch(cudaStream_t stream, const Store& store, const int32_t* param
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int grid = per_sm * sms;  // every block resident
-  // Runs of R tiles, about four per block, so that blocks finish together.
+  // Runs of R tiles: as long as keeps every block busy (one run each), at
+  // most kMaxRun. Longer runs pay fewer searches and look-backs; a block's
+  // runs are drawn one ahead, so many short runs chain their waits (PERF.md).
   const long long tiles = static_cast<long long>(Q) * ((L + T - 1) / T);
-  long long R = tiles / (4LL * grid);
+  long long R = (tiles + grid - 1) / grid;
   R = R < 1 ? 1 : (R > kMaxRun ? kMaxRun : R);
-  if (run_tiles > 0) R = run_tiles < kMaxRun ? run_tiles : kMaxRun;
   fused_query_v2_kernel<kMembership><<<grid, kThreads, smem, stream>>>(
       store, params, prefix, state, sums, Q, L, C, T, k, n_docs, static_cast<int>(R), S, out);
   return cudaGetLastError();
@@ -555,7 +556,7 @@ extern "C" int memo_fused_query_v2_rows(const int32_t* start, const int32_t* end
                                         const int32_t* prefix, int32_t* state, int32_t* sums,
                                         void* out, int n_rows, int Q, int L, int C, int k,
                                         int tile, int stages, int n_docs, int membership,
-                                        int run_tiles, void* stream) {
+                                        void* stream) {
   if (n_rows < 0 || Q < 1 || L < 1 || C < 1 || k < 1 || tile < 32 || tile % 32 != 0 ||
       tile > 32 * kMaxChunks || stages < 2 || stages > kMaxStages) {
     return cudaErrorInvalidValue;
@@ -563,7 +564,7 @@ extern "C" int memo_fused_query_v2_rows(const int32_t* start, const int32_t* end
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Store store{start, end, order, end_s, start_by_end, order_by_end, n_rows};
   return membership ? launch<true>(s, store, params, prefix, state, sums, Q, L, C, tile, stages, k,
-                                   n_docs, run_tiles, out)
+                                   n_docs, out)
                     : launch<false>(s, store, params, prefix, state, sums, Q, L, C, tile, stages,
-                                    k, n_docs, run_tiles, out);
+                                    k, n_docs, out);
 }
