@@ -2,25 +2,27 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA device
 
-Builds the CUDA kernels from ``memo_tpu_torch/csrc`` (v1 ``fused_query_rows``,
-which reads the placed store's rows, and v2 ``fused_query_v2``), holds each
-against its plain PyTorch version (v1 on random stores with edge cases, one
-and three windows per launch; v2 on random event streams), and drives the
-query paths: the single-window path through the CLI at the headline size
-(2 Mbp pivot, 16 genomes, k=31), with the device operations of one query counted exactly by capturing it into a CUDA
-graph (the parameter copy and the three kernels) and timed by
-torch.profiler; the batched-windows path (16 staggered 1 Mbp windows, one
-launch, v1 and v2) through the engine and through the CLI's
-``--regions-file`` with every strategy; the HPRC-width store (90
-genomes, ~75M intervals) and a 160-genome store through the stratified
-engine with both kernels; and a membership store. Every output is checked
+Builds the CUDA kernels from ``memo_tpu_torch/csrc`` (v1 ``fused_query_rows``
+and v2 ``fused_query_v2_rows``, both reading the placed store's rows), holds
+each against their plain PyTorch version on random stores with edge cases,
+one and three windows per launch, and drives the query paths: the
+single-window path through the CLI at the headline size (2 Mbp pivot, 16
+genomes, k=31), with the device operations of one query of each kernel
+counted exactly by capturing it into a CUDA graph (the parameter copy and
+three kernels for v1, one for v2) and timed by torch.profiler; the
+batched-windows path (16 staggered 1 Mbp windows, one launch, v1 and v2,
+graphs counted the same way) through the engine and through the CLI's
+``--regions-file`` with every strategy; the HPRC-width store (90 genomes,
+~75M intervals), a 160-genome store and dense_small (tools/kernel_lab.py's
+256 Kbp, 90-genome store) through the stratified engine with v2, bucket 0
+timed with both kernels; and a membership store. Every output is checked
 exactly against the reference loop below (memo_query.py's per-interval slice
-writes), the port's single-window outputs or the port's numpy engine. The
-v1 function's device time is printed at the headline, n=90, n=160 and for
-the batch beside its bound. Each phase prints one line; the last line is
-``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
-non-zero and prints no result. It exits non-zero at once where no CUDA
-device is available.
+writes), the port's single-window outputs, the other kernel or the port's
+numpy engine. Each function's device time is printed at every cell beside
+its bound (lines v1_function and v2_function). Each phase prints one line;
+the last line is ``{"ok": true, "device": {...}}``. Any failure raises, so
+the script exits non-zero and prints no result. It exits non-zero at once
+where no CUDA device is available.
 
 The stores are synthetic and made from a seed here, on the port's own index
 builder; nothing of the JAX package is imported.
@@ -324,10 +326,7 @@ def kernel_functions() -> dict:
     from memo_tpu_torch.ops.fused_query import fused_query_rows
     from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2_rows
 
-    import functools
-
-    return {"v1": fused_query_rows, "v2": fused_query_v2_rows,
-            **{f"v2_var{v}": functools.partial(fused_query_v2_rows, variant=v) for v in (1, 2, 3)}}
+    return {"v1": fused_query_rows, "v2": fused_query_v2_rows}
 
 
 def phase_kernels(device) -> dict[str, int]:
@@ -360,7 +359,7 @@ def phase_kernels(device) -> dict[str, int]:
     worst = {name: max(errs) for name, errs in errors.items()}
     for phase, name in (("phase2_kernels", "v1"), ("phase6_kernels_v2", "v2")):
         emit(phase, cases=len(errors[name]), max_abs_err=worst[name], widths=list(widths),
-             k=[1, 2, 31], windows_per_launch=[1, 3], variants=worst)
+             k=[1, 2, 31], windows_per_launch=[1, 3])
     return worst
 
 
@@ -397,26 +396,6 @@ def time_function(engine, record: str, windows, k: int, version: str = "v1") -> 
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "upload_ms": upload,
             "bytes": n_bytes, "ops": n_ops, "bound_ms": bound, "bound_by": bound_by,
             "bound_share": bound / ms, "kernels_us": ops}
-
-
-def ab_variants(engine, record: str, windows, k: int) -> dict:
-    """v2's look-back and aggregate variants (0: 32 predecessors a step; 1:
-    256; 2: one atomic per column and warp in the aggregate pass; 3: both),
-    timed in turns (0, 1, 2, 3, 3, 2, 1, 0) on the same parameters."""
-    import functools
-
-    from memo_tpu_torch.ops.fused_query import window_args
-    from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2_rows
-
-    ranges, prefix, L = v1_inputs(engine, record, windows, k)
-    args = window_args(ranges, prefix, engine.device)
-    C = engine.n_docs
-    times = {v: [] for v in range(4)}
-    for v in (0, 1, 2, 3, 3, 2, 1, 0):
-        fn = functools.partial(fused_query_v2_rows, variant=v)
-        times[v].append(kernel_ms(lambda: fn(engine._d, *args, k=k, L=L, C=C, n_docs=C,
-                                             membership=False)))
-    return times
 
 
 def device_ops(fn, expect: tuple[str, ...]) -> list[tuple[str, float]]:
@@ -550,7 +529,6 @@ def phase_headline(device, tmp: str):
     host_ms = (time.perf_counter() - t0) * 1e3
     kern = time_function(fused, "chr1", [(0, L)], K)
     kern_v2 = time_function(fused, "chr1", [(0, L)], K, "v2")
-    kern_v2["variants"] = ab_variants(fused, "chr1", [(0, L)], K)
     res = fused.conservation("chr1", 0, L, K)
     t0 = time.perf_counter()
     format_conservation(res)
@@ -609,8 +587,6 @@ def phase_batched(device, store):
         graph = graph_ops(batch)
         check(graph == want_graph, f"one {version} batch is {want_graph}: {graph}")
         kerns[version] = time_function(eng, "chr1", wins, K, version)
-        if version == "v2":
-            kerns[version]["variants"] = ab_variants(eng, "chr1", wins, K)
         fields[version] = {"launches": launches[version], "batch_wall_ms": batch_s * 1e3,
                            "per_window_ms": batch_s * 1e3 / len(wins),
                            "single_window_ms": single_s * 1e3,
@@ -708,7 +684,6 @@ def phase_full_width(device, large_store) -> dict:
         child = eng._children[0][1] if eng._children else eng
         exact = kernel_case(child, "chr1", [(0, L)], K, False, kernel_functions())
         v2 = time_function(child, "chr1", [(0, L)], K, "v2")
-        v2["variants"] = ab_variants(child, "chr1", [(0, L)], K)
         v1 = time_function(child, "chr1", [(0, L)], K)
         fields[name] = {"intervals": store.num_intervals, "n_docs": store.n_docs, "L": L,
                         "stratified": eng._children is not None, "v2_launches": launches,
@@ -826,7 +801,6 @@ def main() -> int:
     for version in ("v1", "v2"):
         emit(f"{version}_function", card=card, **{name: {key: cell[key] for key in FUNCTION_KEYS}
                                                   for name, cell in cells[version].items()})
-    emit("v2_variants_ms", card=card, **{name: cell["variants"] for name, cell in cells["v2"].items()})
     print(json.dumps({"kernels": [{
         "name": "fused_query_rows",
         "route": "cuda",

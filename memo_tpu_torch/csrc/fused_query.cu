@@ -61,6 +61,9 @@
 //  4. Launches: one host-to-device copy of the parameters and prefix (the
 //     wrapper's), then the three kernels; about 30 before.
 //
+// The store and the tile's scan and reduce live in tile.cuh, shared with v2
+// (csrc/fused_query_v2.cu).
+//
 // The launcher runs on the caller's stream, does not synchronise and does not
 // allocate: the wrapper passes the scratch and the output.
 
@@ -82,6 +85,35 @@ constexpr int kScanWarps = kScanThreads / 32;
 static_assert(kScanWarps == 32, "the tile scan's second level is one warp wide");
 static_assert(kNetThreads >= 128, "four warps search the row bounds");
 
+// First row of [lo, hi) whose key is >= v, or hi (the keys are sorted on
+// [lo, hi)). One warp: 32 probes cut the range into 33 parts a step, so a
+// range of 4M rows takes 5 steps. Every lane returns the answer.
+__device__ int warp_lower_bound(const int32_t* __restrict__ key, int lo, int hi, int v) {
+  const int lane = threadIdx.x & 31;
+  // Invariant: the answer lies in [lo, hi].
+  while (lo < hi) {
+    const long long n = hi - lo;
+    const int probe = lo + static_cast<int>(n * (lane + 1) / 33);  // in [lo, hi)
+    const int below = __popc(__ballot_sync(0xffffffffu, key[probe] < v));
+    const int new_lo = below == 0 ? lo : lo + static_cast<int>(n * below / 33) + 1;
+    hi = below == 32 ? hi : lo + static_cast<int>(n * (below + 1) / 33);
+    lo = new_lo;
+  }
+  return lo;
+}
+
+// The rows of window positions [p0, p1): found[0..1] in the minus stream,
+// found[2..3] in the plus stream. Warps 0-3 search one bound each; the caller
+// synchronises before reading found.
+__device__ void find_bounds(const Window& w, int p0, int p1, int* found) {
+  const int warp = threadIdx.x >> 5;
+  if (warp < 4) {
+    const Stream& st = warp < 2 ? w.minus : w.plus;
+    const int row = warp_lower_bound(st.key, st.lo, st.hi, st.shift + ((warp & 1) ? p1 : p0));
+    if ((threadIdx.x & 31) == 0) found[warp] = row;
+  }
+}
+
 // Add the live events of rows [lo, hi) at positions [base, base + T) into
 // dst[c * S + (p - base) * P]: a diff tile with P = 1, per-column sums with
 // S = 1 and P = 0. Reads the rows from device memory.
@@ -93,6 +125,26 @@ __device__ void scatter(const Stream& st, int lo, int hi, int base, int T, int k
     const int c = live_column<kPlus>(key, st.partner[i], st.order[i], k, C);
     const int p = key - st.shift - base;
     if (c >= 0 && p >= 0 && p < T) atomicAdd(&dst[c * S + p * P], kPlus ? 1 : -1);
+  }
+}
+
+// Reduce the scattered diff tile cov[C][T + 1] from carry[C] (first[T] all
+// n_docs) and write the output of its first `rows` positions from out_row
+// (an index into out's Q * L positions). The caller has synchronised.
+template <bool kMembership>
+__device__ void finish_tile(int* cov, int* carry, int* first, int T, int C, int rows, int n_docs,
+                            void* out, size_t out_row) {
+  const int S = T + 1;
+  const int warp = threadIdx.x >> 5;
+  if constexpr (kMembership) {
+    scan_tile<kWarps>(cov, carry, T, S, C, warp);
+    __syncthreads();
+    reduce_membership<kWarps>(cov, S, C, rows, static_cast<int8_t*>(out) + out_row * C, warp);
+  } else {
+    scan_conservation<kWarps>(cov, carry, first, T, S, C, n_docs, warp);
+    __syncthreads();
+    int32_t* o = static_cast<int32_t*>(out) + out_row;
+    for (int p = threadIdx.x; p < rows; p += blockDim.x) o[p] = first[p];
   }
 }
 
@@ -187,8 +239,8 @@ rows_apply_kernel(Store store, const int32_t* __restrict__ params,
   scatter<false>(w.minus, b[0], b[1], base, T, k, C, cov, T + 1, 1);
   scatter<true>(w.plus, b[2], b[3], base, T, k, C, cov, T + 1, 1);
   __syncthreads();
-  finish_tile<kWarps, kMembership>(cov, carry, first, T, C, min(T, L - base), n_docs, out,
-                                   static_cast<size_t>(q) * L + base);
+  finish_tile<kMembership>(cov, carry, first, T, C, min(T, L - base), n_docs, out,
+                           static_cast<size_t>(q) * L + base);
 }
 
 template <bool kMembership>

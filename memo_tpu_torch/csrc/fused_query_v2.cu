@@ -119,12 +119,11 @@ __device__ __forceinline__ void publish(int* status, int value) {
 // Run j of a window (its runs are first .. first + n - 1 of the status
 // words and of sums[.., 2, C]) publishes its aggregate net[C] and gets its
 // carry[C] from the prefix (j == 0) or by walking back over the window's
-// earlier runs, 32 * kLookWarps at a time: warps 0 .. kLookWarps - 1 wait
-// until that many nearest unread predecessors have published, each lane
-// acquiring one status, and each finds the nearest inclusive among its 32
-// (code[w]: its distance, 0 for none); then the consumer threads add those
-// sums, several threads a column. Called by the 256 consumer threads.
-template <int kLookWarps>
+// earlier runs, 32 at a time: warp 0 waits until the 32 nearest unread
+// predecessors have published, each lane acquiring one status, and finds
+// the nearest inclusive among them (`code` in shared memory: n > 0, the
+// n-th is inclusive; -n, n aggregates and no inclusive); then every thread
+// adds those sums for its columns. Called by the 256 consumer threads.
 __device__ void look_back(int* status, int32_t* sums, const int32_t* prefix, size_t first, int j,
                           const int* net, int* carry, int C, int epoch, int* code) {
   const int tid = threadIdx.x;
@@ -142,14 +141,9 @@ __device__ void look_back(int* status, int32_t* sums, const int32_t* prefix, siz
       carry[c] = 0;
     }
     publish(&status[unit], (epoch << 2) | kAggregate);
-    const int per = C < kConsumers ? kConsumers / C : 1;  // threads a column
-    const int col = tid / per;
-    const int sub = tid - col * per;
     for (int end = j;;) {  // predecessors end - 1, end - 2, ... not read yet
-      const int warp = tid >> 5;
-      if (warp < kLookWarps) {
-        const int lane = tid & 31;
-        const int pred = end - 1 - warp * 32 - lane;
+      if (tid < 32) {
+        const int pred = end - 1 - tid;
         int flag = 0;
         if (pred >= 0) {
           int v, spins = 0;
@@ -160,28 +154,21 @@ __device__ void look_back(int* status, int32_t* sums, const int32_t* prefix, siz
           flag = v & 3;
         }
         const unsigned found = __ballot_sync(0xffffffffu, flag == kInclusive);
-        if (lane == 0) code[warp] = found ? warp * 32 + __ffs(found) : 0;
+        if (tid == 0) *code = found ? __ffs(found) : -min(32, end);
       }
       consumer_sync();
-      int n = min(32 * kLookWarps, end);
-      bool inclusive_found = false;
-#pragma unroll
-      for (int w = 0; w < kLookWarps; ++w) {
-        if (!inclusive_found && code[w] > 0) {
-          n = code[w];
-          inclusive_found = true;
-        }
-      }
-      for (int c = col; c < C; c += kConsumers / per) {
-        int acc = 0;
-        for (int i = sub; i < n; i += per) {
+      const int got = *code;
+      const int n = got > 0 ? got : -got;
+      for (int c = tid; c < C; c += kConsumers) {
+        int acc = carry[c];
+        for (int i = 0; i < n; ++i) {
           const int32_t* pred_sums = sums + (first + end - 1 - i) * 2 * C;
-          acc += __ldcg(pred_sums + (inclusive_found && i == n - 1 ? C : 0) + c);
+          acc += __ldcg(pred_sums + (got > 0 && i == n - 1 ? C : 0) + c);
         }
-        if (acc != 0) atomicAdd(&carry[c], acc);
+        carry[c] = acc;
       }
       consumer_sync();  // code is rewritten by the next round
-      if (inclusive_found) break;
+      if (got > 0) break;
       end -= n;
     }
     for (int c = tid; c < C; c += kConsumers) inclusive[c] = carry[c] + net[c];
@@ -397,22 +384,18 @@ __device__ void produce(Ring r, const Store& store, const int32_t* params, int* 
 
 // A stage's live rows into net[C] (aggregate) or into the diff tile at
 // position key - off.
-template <bool kPlus, bool kApply, bool kMatch>
+template <bool kPlus, bool kApply>
 __device__ void consume_rows(const int* rows, int lo, int hi, int a, int off, int T, int k, int C,
                              int* cov, int* net) {
   for (int i = lo + threadIdx.x; i < hi; i += kConsumers) {
     const int x = i - a;
     const int key = rows[x];
     const int c = live_column<kPlus>(key, rows[kStageRows + x], rows[2 * kStageRows + x], k, C);
+    if (c < 0) continue;
     if (kApply) {
       const int p = key - off;
-      if (c >= 0 && p >= 0 && p < T) atomicAdd(&cov[c * (T + 1) + p], kPlus ? 1 : -1);
-    } else if (kMatch) {  // one atomic per column and warp
-      const unsigned peers = __match_any_sync(__activemask(), c);
-      if (c >= 0 && static_cast<int>(threadIdx.x & 31) == __ffs(peers) - 1) {
-        atomicAdd(&net[c], (kPlus ? 1 : -1) * __popc(peers));
-      }
-    } else if (c >= 0) {
+      if (p >= 0 && p < T) atomicAdd(&cov[c * (T + 1) + p], kPlus ? 1 : -1);
+    } else {
       atomicAdd(&net[c], kPlus ? 1 : -1);
     }
   }
@@ -420,7 +403,7 @@ __device__ void consume_rows(const int* rows, int lo, int hi, int a, int off, in
 
 // The consumer warps: take stages until the end stage; after a run's last
 // aggregate stage, look back; after a tile's last stage, finish the tile.
-template <bool kMembership, int kLookWarps, bool kMatch>
+template <bool kMembership>
 __device__ void consume(Ring r, int* status, int32_t* sums, const int32_t* prefix, int L, int C,
                         int T, int k, int n_docs, int runs, int epoch, int* cov, int* carry,
                         int* net, int* first, int* code, void* out) {
@@ -435,11 +418,11 @@ __device__ void consume(Ring r, int* status, int32_t* sums, const int32_t* prefi
     const bool plus = head & 4;
     const int* rows = r.stage_rows();
     if (kind == kAggStage) {
-      if (plus) consume_rows<true, false, kMatch>(rows, lo, hi, a, off, T, k, C, cov, net);
-      else consume_rows<false, false, kMatch>(rows, lo, hi, a, off, T, k, C, cov, net);
+      if (plus) consume_rows<true, false>(rows, lo, hi, a, off, T, k, C, cov, net);
+      else consume_rows<false, false>(rows, lo, hi, a, off, T, k, C, cov, net);
     } else if (kind == kApplyStage) {
-      if (plus) consume_rows<true, true, false>(rows, lo, hi, a, off, T, k, C, cov, net);
-      else consume_rows<false, true, false>(rows, lo, hi, a, off, T, k, C, cov, net);
+      if (plus) consume_rows<true, true>(rows, lo, hi, a, off, T, k, C, cov, net);
+      else consume_rows<false, true>(rows, lo, hi, a, off, T, k, C, cov, net);
     }
     __syncwarp();
     if ((threadIdx.x & 31) == 0) arrive(&r.empty[r.stage]);
@@ -448,7 +431,7 @@ __device__ void consume(Ring r, int* status, int32_t* sums, const int32_t* prefi
     if (!(head & 8)) continue;
     consumer_sync();
     if (kind == kAggStage) {
-      look_back<kLookWarps>(status, sums, prefix + static_cast<size_t>(q) * C, static_cast<size_t>(q) * runs,
+      look_back(status, sums, prefix + static_cast<size_t>(q) * C, static_cast<size_t>(q) * runs,
                 j, net, carry, C, epoch, code);
       for (int c = threadIdx.x; c < C; c += kConsumers) net[c] = 0;
       continue;  // the tile's scatter ends in a consumer_sync before carry is read
@@ -476,7 +459,7 @@ __device__ void consume(Ring r, int* status, int32_t* sums, const int32_t* prefi
   }
 }
 
-template <bool kMembership, int kLookWarps, bool kMatch>
+template <bool kMembership>
 __global__ void __launch_bounds__(kThreads)
 fused_query_v2_kernel(Store store, const int32_t* __restrict__ params, const int32_t* __restrict__ prefix,
                int* __restrict__ state, int32_t* __restrict__ sums, int Q, int L, int C, int T,
@@ -491,7 +474,7 @@ fused_query_v2_kernel(Store store, const int32_t* __restrict__ params, const int
   int* net = carry + C;                  // [C]
   int* first = net + C;                  // [T]
   int* epoch_word = first + T;           // [1]
-  int* code = epoch_word + 1;            // [8]: look_back's words
+  int* code = epoch_word + 1;            // [1]: look_back's word
   const int nt = (L + T - 1) / T;
   const int runs = (nt + R - 1) / R;
   if (threadIdx.x == 0) {
@@ -513,7 +496,7 @@ fused_query_v2_kernel(Store store, const int32_t* __restrict__ params, const int
   if (threadIdx.x >= kConsumers) {
     produce(r, store, params, &state[kTicket], Q, nt, runs, R, T, k);
   } else {
-    consume<kMembership, kLookWarps, kMatch>(r, state + kStatus, sums, prefix, L, C, T, k, n_docs, runs, epoch, cov,
+    consume<kMembership>(r, state + kStatus, sums, prefix, L, C, T, k, n_docs, runs, epoch, cov,
                          carry, net, first, code, out);
   }
   leave(state, epoch);
@@ -523,15 +506,15 @@ fused_query_v2_kernel(Store store, const int32_t* __restrict__ params, const int
 // marked columns, the epoch and look_back's word.
 size_t smem_bytes(int C, int T, int S) {
   return kRingHeader + static_cast<size_t>(S) * 3 * kStageRows * sizeof(int) +
-         (static_cast<size_t>(C) * (T + 1) + 2 * C + T + 9) * sizeof(int);
+         (static_cast<size_t>(C) * (T + 1) + 2 * C + T + 2) * sizeof(int);
 }
 
-template <bool kMembership, int kLookWarps, bool kMatch>
+template <bool kMembership>
 cudaError_t launch(cudaStream_t stream, const Store& store, const int32_t* params,
                    const int32_t* prefix, int* state, int32_t* sums, int Q, int L, int C, int T,
                    int S, int k, int n_docs, void* out) {
   const size_t smem = smem_bytes(C, T, S);
-  cudaError_t err = cudaFuncSetAttribute(fused_query_v2_kernel<kMembership, kLookWarps, kMatch>,
+  cudaError_t err = cudaFuncSetAttribute(fused_query_v2_kernel<kMembership>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -540,8 +523,8 @@ cudaError_t launch(cudaStream_t stream, const Store& store, const int32_t* param
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) {
     return err;
   }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fused_query_v2_kernel<kMembership, kLookWarps, kMatch>, kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_query_v2_kernel<kMembership>,
+                                                      kThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int grid = per_sm * sms;  // every block resident
@@ -551,7 +534,7 @@ cudaError_t launch(cudaStream_t stream, const Store& store, const int32_t* param
   const long long tiles = static_cast<long long>(Q) * ((L + T - 1) / T);
   long long R = (tiles + grid - 1) / grid;
   R = R < 1 ? 1 : (R > kMaxRun ? kMaxRun : R);
-  fused_query_v2_kernel<kMembership, kLookWarps, kMatch><<<grid, kThreads, smem, stream>>>(
+  fused_query_v2_kernel<kMembership><<<grid, kThreads, smem, stream>>>(
       store, params, prefix, state, sums, Q, L, C, T, k, n_docs, static_cast<int>(R), S, out);
   return cudaGetLastError();
 }
@@ -573,29 +556,15 @@ extern "C" int memo_fused_query_v2_rows(const int32_t* start, const int32_t* end
                                         const int32_t* prefix, int32_t* state, int32_t* sums,
                                         void* out, int n_rows, int Q, int L, int C, int k,
                                         int tile, int stages, int n_docs, int membership,
-                                        int variant, void* stream) {
+                                        void* stream) {
   if (n_rows < 0 || Q < 1 || L < 1 || C < 1 || k < 1 || tile < 32 || tile % 32 != 0 ||
       tile > 32 * kMaxChunks || stages < 2 || stages > kMaxStages) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Store store{start, end, order, end_s, start_by_end, order_by_end, n_rows};
-  if (membership) {
-    return launch<true, 1, false>(s, store, params, prefix, state, sums, Q, L, C, tile, stages, k,
-                                  n_docs, out);
-  }
-  switch (variant) {
-    case 1:
-      return launch<false, 8, false>(s, store, params, prefix, state, sums, Q, L, C, tile, stages,
-                                     k, n_docs, out);
-    case 2:
-      return launch<false, 1, true>(s, store, params, prefix, state, sums, Q, L, C, tile, stages,
+  return membership ? launch<true>(s, store, params, prefix, state, sums, Q, L, C, tile, stages, k,
+                                   n_docs, out)
+                    : launch<false>(s, store, params, prefix, state, sums, Q, L, C, tile, stages,
                                     k, n_docs, out);
-    case 3:
-      return launch<false, 8, true>(s, store, params, prefix, state, sums, Q, L, C, tile, stages,
-                                    k, n_docs, out);
-    default:
-      return launch<false, 1, false>(s, store, params, prefix, state, sums, Q, L, C, tile, stages,
-                                     k, n_docs, out);
-  }
 }

@@ -1,8 +1,7 @@
 // What both fused-query kernels share (csrc/fused_query.cu, v1, and
 // csrc/fused_query_v2.cu, v2): the placed store's rows, a window's two event
-// streams, the warp-wide row search, and the finish of a tile: the scan of
-// its [C][T + 1] diff tile from a carry, reduced to conservation or
-// membership.
+// streams, and the finish of a tile: the scan of its [C][T + 1] diff tile
+// from a carry, reduced to conservation or membership.
 //
 // The finish functions run on kWarps warps numbered 0 .. kWarps - 1 (`warp`
 // is the caller's warp index among them); warp w takes columns w, w + kWarps,
@@ -61,35 +60,6 @@ template <bool kPlus>
 __device__ __forceinline__ int live_column(int key, int partner, int o, int k, int C) {
   const int span = kPlus ? key - partner : partner - key;
   return span < k - 1 && o >= 0 && o < C ? o : -1;
-}
-
-// First row of [lo, hi) whose key is >= v, or hi (the keys are sorted on
-// [lo, hi)). One warp: 32 probes cut the range into 33 parts a step, so a
-// range of 4M rows takes 5 steps. Every lane returns the answer.
-__device__ inline int warp_lower_bound(const int32_t* __restrict__ key, int lo, int hi, int v) {
-  const int lane = threadIdx.x & 31;
-  // Invariant: the answer lies in [lo, hi].
-  while (lo < hi) {
-    const long long n = hi - lo;
-    const int probe = lo + static_cast<int>(n * (lane + 1) / 33);  // in [lo, hi)
-    const int below = __popc(__ballot_sync(0xffffffffu, key[probe] < v));
-    const int new_lo = below == 0 ? lo : lo + static_cast<int>(n * below / 33) + 1;
-    hi = below == 32 ? hi : lo + static_cast<int>(n * (below + 1) / 33);
-    lo = new_lo;
-  }
-  return lo;
-}
-
-// The rows of window positions [p0, p1): found[0..1] in the minus stream,
-// found[2..3] in the plus stream. Warps 0-3 search one bound each; the caller
-// synchronises before reading found.
-__device__ inline void find_bounds(const Window& w, int p0, int p1, int* found) {
-  const int warp = threadIdx.x >> 5;
-  if (warp < 4) {
-    const Stream& st = warp < 2 ? w.minus : w.plus;
-    const int row = warp_lower_bound(st.key, st.lo, st.hi, st.shift + ((warp & 1) ? p1 : p0));
-    if ((threadIdx.x & 31) == 0) found[warp] = row;
-  }
 }
 
 // Coverage along each column of the tile from carry[c]: one warp per column.
@@ -183,26 +153,5 @@ __device__ void reduce_membership(const int* cov, int S, int C, int rows, int8_t
     for (int c = lane; c < C; c += 32) {
       out[static_cast<size_t>(p) * C + c] = cov[c * S + p] > 0 ? 0 : 1;
     }
-  }
-}
-
-// Reduce the scattered diff tile cov[C][T + 1] from carry[C] (first[T] all
-// n_docs) and write the output of its first `rows` positions from out_row
-// (an index into out's Q * L positions). All kWarps warps of the block take
-// part (blockDim.x == 32 * kWarps); the caller has synchronised.
-template <int kWarps, bool kMembership>
-__device__ void finish_tile(int* cov, int* carry, int* first, int T, int C, int rows, int n_docs,
-                            void* out, size_t out_row) {
-  const int S = T + 1;
-  const int warp = threadIdx.x >> 5;
-  if constexpr (kMembership) {
-    scan_tile<kWarps>(cov, carry, T, S, C, warp);
-    __syncthreads();
-    reduce_membership<kWarps>(cov, S, C, rows, static_cast<int8_t*>(out) + out_row * C, warp);
-  } else {
-    scan_conservation<kWarps>(cov, carry, first, T, S, C, n_docs, warp);
-    __syncthreads();
-    int32_t* o = static_cast<int32_t*>(out) + out_row;
-    for (int p = threadIdx.x; p < rows; p += blockDim.x) o[p] = first[p];
   }
 }
