@@ -398,37 +398,6 @@ def time_function(engine, record: str, windows, k: int, version: str = "v1") -> 
             "bound_share": bound / ms, "kernels_us": ops}
 
 
-def v2_phases(engine, record: str, windows, k: int) -> dict:
-    """Where one v2 launch's time goes, from per-block %globaltimer stamps:
-    microseconds from the earliest block start to each block's first run's
-    searches done, aggregate pass done, look-back done, and to its end
-    (median and max over blocks)."""
-    from memo_tpu_torch.ops.fused_query import window_args
-    from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2_rows
-
-    ranges, prefix, L = v1_inputs(engine, record, windows, k)
-    args = window_args(ranges, prefix, engine.device)
-    C = engine.n_docs
-    trace = torch.zeros((132 * 16, 8), dtype=torch.int64, device=engine.device)
-    for _ in range(3):  # warm; the last launch's stamps are kept
-        trace.zero_()
-        fused_query_v2_rows(engine._d, *args, k=k, L=L, C=C, n_docs=C, membership=False,
-                            trace=trace)
-    torch.cuda.synchronize()
-    t = trace.cpu().numpy()
-    t = t[t[:, 0] > 0]
-    if t.size == 0:  # no stamps: the plain version ran
-        return {"blocks": 0}
-    t0 = t[:, 0].min()
-    out = {"blocks": int(t.shape[0])}
-    for slot, name in ((0, "start"), (1, "searched"), (2, "aggregated"), (3, "looked_back"),
-                       (4, "end")):
-        v = t[:, slot]
-        v = (v[v > 0] - t0) / 1e3
-        out[name] = [float(np.median(v)), float(v.max())] if v.size else None
-    return out
-
-
 def device_ops(fn, expect: tuple[str, ...]) -> list[tuple[str, float]]:
     """The device operations (kernels, copies, memsets) of one call of
     ``fn``, with their device microseconds, from torch.profiler, in the
@@ -560,7 +529,6 @@ def phase_headline(device, tmp: str):
     host_ms = (time.perf_counter() - t0) * 1e3
     kern = time_function(fused, "chr1", [(0, L)], K)
     kern_v2 = time_function(fused, "chr1", [(0, L)], K, "v2")
-    kern_v2["phases"] = v2_phases(fused, "chr1", [(0, L)], K)
     res = fused.conservation("chr1", 0, L, K)
     t0 = time.perf_counter()
     format_conservation(res)
@@ -619,8 +587,6 @@ def phase_batched(device, store):
         graph = graph_ops(batch)
         check(graph == want_graph, f"one {version} batch is {want_graph}: {graph}")
         kerns[version] = time_function(eng, "chr1", wins, K, version)
-        if version == "v2":
-            kerns[version]["phases"] = v2_phases(eng, "chr1", wins, K)
         fields[version] = {"launches": launches[version], "batch_wall_ms": batch_s * 1e3,
                            "per_window_ms": batch_s * 1e3 / len(wins),
                            "single_window_ms": single_s * 1e3,
@@ -718,7 +684,6 @@ def phase_full_width(device, large_store) -> dict:
         child = eng._children[0][1] if eng._children else eng
         exact = kernel_case(child, "chr1", [(0, L)], K, False, kernel_functions())
         v2 = time_function(child, "chr1", [(0, L)], K, "v2")
-        v2["phases"] = v2_phases(child, "chr1", [(0, L)], K)
         v1 = time_function(child, "chr1", [(0, L)], K)
         fields[name] = {"intervals": store.num_intervals, "n_docs": store.n_docs, "L": L,
                         "stratified": eng._children is not None, "v2_launches": launches,
@@ -836,7 +801,6 @@ def main() -> int:
     for version in ("v1", "v2"):
         emit(f"{version}_function", card=card, **{name: {key: cell[key] for key in FUNCTION_KEYS}
                                                   for name, cell in cells[version].items()})
-    emit("v2_phases_us", card=card, **{name: cell["phases"] for name, cell in cells["v2"].items()})
     print(json.dumps({"kernels": [{
         "name": "fused_query_rows",
         "route": "cuda",

@@ -93,14 +93,6 @@ constexpr int kAggStage = 0;
 constexpr int kApplyStage = 1;
 constexpr int kEndStage = 2;
 
-// Temporary: per-block phase stamps (ns, %globaltimer) for chip_smoke.py.
-__device__ __forceinline__ void stamp(long long* trace, int slot) {
-  if (trace == nullptr) return;
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  trace[blockIdx.x * 8 + slot] = static_cast<long long>(t);
-}
-
 __device__ __forceinline__ int load_acquire(const int* p) {
   int v;
   asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
@@ -334,10 +326,10 @@ __device__ int group_lower_bound(const int32_t* __restrict__ key, int lo, int hi
 // The producer warp: draw runs until none is left; for each, find its tile
 // bounds and stream its rows twice (aggregate pass, then tile by tile).
 __device__ void produce(Ring r, const Store& store, const int32_t* params, int* ticket, int Q,
-                        int nt, int runs, int R, int T, int k, long long* trace) {
+                        int nt, int runs, int R, int T, int k) {
   const int lane = threadIdx.x & 31;
   const Stream none{};
-  for (int drawn = 0;; ++drawn) {
+  for (;;) {
     int g = 0;
     if (lane == 0) g = atomicAdd(ticket, 1);
     g = __shfl_sync(0xffffffffu, g, 0);
@@ -370,7 +362,6 @@ __device__ void produce(Ring r, const Store& store, const int32_t* params, int* 
     const int inner = i < n ? lower_bound(streams[s]->key, lo[s], hi[s],
                                           streams[s]->shift + (t0 + i) * T)
                             : 0;
-    if (drawn == 0 && lane == 0) stamp(trace, 1);
     push_rows(r, kAggStage, false, false, w.minus, lo[0], hi[0], q, j, t0, 0);
     push_rows(r, kAggStage, true, true, w.plus, lo[1], hi[1], q, j, t0, 0);
     int from[2] = {lo[0], lo[1]};
@@ -415,10 +406,10 @@ __device__ void consume_rows(const int* rows, int lo, int hi, int a, int off, in
 template <bool kMembership>
 __device__ void consume(Ring r, int* status, int32_t* sums, const int32_t* prefix, int L, int C,
                         int T, int k, int n_docs, int runs, int epoch, int* cov, int* carry,
-                        int* net, int* first, int* code, void* out, long long* trace) {
+                        int* net, int* first, int* code, void* out) {
   const int warp = threadIdx.x >> 5;
   const int S = T + 1;
-  for (int run = 0;;) {
+  for (;;) {
     wait_parity(&r.full[r.stage], r.phase);
     const int* m = r.stage_meta();
     const int head = m[0], lo = m[1], hi = m[2], a = m[3], q = m[4], j = m[5], t = m[6];
@@ -436,18 +427,13 @@ __device__ void consume(Ring r, int* status, int32_t* sums, const int32_t* prefi
     __syncwarp();
     if ((threadIdx.x & 31) == 0) arrive(&r.empty[r.stage]);
     r.advance();
-    if (kind == kEndStage) {
-      if (threadIdx.x == 0) stamp(trace, 4);
-      return;
-    }
+    if (kind == kEndStage) return;
     if (!(head & 8)) continue;
     consumer_sync();
     if (kind == kAggStage) {
-      if (run == 0 && threadIdx.x == 0) stamp(trace, 2);
       look_back(status, sums, prefix + static_cast<size_t>(q) * C, static_cast<size_t>(q) * runs,
                 j, net, carry, C, epoch, code);
       for (int c = threadIdx.x; c < C; c += kConsumers) net[c] = 0;
-      if (run++ == 0 && threadIdx.x == 0) stamp(trace, 3);
       continue;  // the tile's scatter ends in a consumer_sync before carry is read
     }
     const int base = t * T;
@@ -477,7 +463,7 @@ template <bool kMembership>
 __global__ void __launch_bounds__(kThreads)
 fused_query_v2_kernel(Store store, const int32_t* __restrict__ params, const int32_t* __restrict__ prefix,
                int* __restrict__ state, int32_t* __restrict__ sums, int Q, int L, int C, int T,
-               int k, int n_docs, int R, int S, void* __restrict__ out, long long* trace) {
+               int k, int n_docs, int R, int S, void* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
   uint64_t* empty = full + kMaxStages;
@@ -506,13 +492,12 @@ fused_query_v2_kernel(Store store, const int32_t* __restrict__ params, const int
   for (int p = threadIdx.x; p < T; p += blockDim.x) first[p] = n_docs;
   __syncthreads();
   const int epoch = *epoch_word;
-  if (threadIdx.x == 0) stamp(trace, 0);
   const Ring r{full, empty, meta, ring, S, 0, 0};
   if (threadIdx.x >= kConsumers) {
-    produce(r, store, params, &state[kTicket], Q, nt, runs, R, T, k, trace);
+    produce(r, store, params, &state[kTicket], Q, nt, runs, R, T, k);
   } else {
     consume<kMembership>(r, state + kStatus, sums, prefix, L, C, T, k, n_docs, runs, epoch, cov,
-                         carry, net, first, code, out, trace);
+                         carry, net, first, code, out);
   }
   leave(state, epoch);
 }
@@ -527,7 +512,7 @@ size_t smem_bytes(int C, int T, int S) {
 template <bool kMembership>
 cudaError_t launch(cudaStream_t stream, const Store& store, const int32_t* params,
                    const int32_t* prefix, int* state, int32_t* sums, int Q, int L, int C, int T,
-                   int S, int k, int n_docs, void* out, long long* trace) {
+                   int S, int k, int n_docs, void* out) {
   const size_t smem = smem_bytes(C, T, S);
   cudaError_t err = cudaFuncSetAttribute(fused_query_v2_kernel<kMembership>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -550,7 +535,7 @@ cudaError_t launch(cudaStream_t stream, const Store& store, const int32_t* param
   long long R = (tiles + grid - 1) / grid;
   R = R < 1 ? 1 : (R > kMaxRun ? kMaxRun : R);
   fused_query_v2_kernel<kMembership><<<grid, kThreads, smem, stream>>>(
-      store, params, prefix, state, sums, Q, L, C, T, k, n_docs, static_cast<int>(R), S, out, trace);
+      store, params, prefix, state, sums, Q, L, C, T, k, n_docs, static_cast<int>(R), S, out);
   return cudaGetLastError();
 }
 
@@ -571,7 +556,7 @@ extern "C" int memo_fused_query_v2_rows(const int32_t* start, const int32_t* end
                                         const int32_t* prefix, int32_t* state, int32_t* sums,
                                         void* out, int n_rows, int Q, int L, int C, int k,
                                         int tile, int stages, int n_docs, int membership,
-                                        long long* trace, void* stream) {
+                                        void* stream) {
   if (n_rows < 0 || Q < 1 || L < 1 || C < 1 || k < 1 || tile < 32 || tile % 32 != 0 ||
       tile > 32 * kMaxChunks || stages < 2 || stages > kMaxStages) {
     return cudaErrorInvalidValue;
@@ -579,7 +564,7 @@ extern "C" int memo_fused_query_v2_rows(const int32_t* start, const int32_t* end
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Store store{start, end, order, end_s, start_by_end, order_by_end, n_rows};
   return membership ? launch<true>(s, store, params, prefix, state, sums, Q, L, C, tile, stages, k,
-                                   n_docs, out, trace)
+                                   n_docs, out)
                     : launch<false>(s, store, params, prefix, state, sums, Q, L, C, tile, stages,
-                                    k, n_docs, out, trace);
+                                    k, n_docs, out);
 }

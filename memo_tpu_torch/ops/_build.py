@@ -93,7 +93,7 @@ def load_library() -> ctypes.CDLL:
     lib.memo_fused_query_rows.restype = i32
     # v2: 6 store row pointers, params, prefix, state, sums, out; n_rows, Q,
     # L, C, k, tile, stages, n_docs, membership; the stream.
-    lib.memo_fused_query_v2_rows.argtypes = [ptr] * 11 + [i32] * 9 + [ptr, ptr]
+    lib.memo_fused_query_v2_rows.argtypes = [ptr] * 11 + [i32] * 9 + [ptr]
     lib.memo_fused_query_v2_rows.restype = i32
     lib.memo_cuda_error_string.argtypes = [i32]
     lib.memo_cuda_error_string.restype = ctypes.c_char_p

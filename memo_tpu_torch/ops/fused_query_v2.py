@@ -73,7 +73,7 @@ def _state(device: torch.device, n_words: int) -> torch.Tensor:
 
 
 def fused_query_v2_rows(placed, params: torch.Tensor, prefix: torch.Tensor, *, k: int, L: int,
-                        C: int, n_docs: int, membership: bool, trace=None):
+                        C: int, n_docs: int, membership: bool):
     """Conservation int32[Q, L] or membership int8[Q, L, C] of Q windows of
     L positions at k, from the placed store (``engine.PlacedStore``, six
     int32 row tensors, each with at least 3 rows after the last one a window
@@ -109,7 +109,6 @@ def fused_query_v2_rows(placed, params: torch.Tensor, prefix: torch.Tensor, *, k
         err = lib.memo_fused_query_v2_rows(
             *(t.data_ptr() for t in tensors), state.data_ptr(), sums.data_ptr(), out.data_ptr(),
             n_rows - ROW_SLACK, n_win, L, C, k, tile, stages, n_docs, int(membership),
-            None if trace is None else trace.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
