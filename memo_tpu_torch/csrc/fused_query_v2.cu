@@ -159,11 +159,25 @@ __device__ void look_back(int* status, int32_t* sums, const int32_t* prefix, siz
       consumer_sync();
       const int got = *code;
       const int n = got > 0 ? got : -got;
+      // Predecessor end - 1 - i's aggregate (its inclusive for the last one
+      // when got > 0), 8 loads in flight at a time.
+      const int32_t* base = sums + (first + end - 1) * 2 * C;
+      const int last = got > 0 ? n - 1 : n;
       for (int c = tid; c < C; c += kConsumers) {
         int acc = carry[c];
-        for (int i = 0; i < n; ++i) {
-          const int32_t* pred_sums = sums + (first + end - 1 - i) * 2 * C;
-          acc += __ldcg(pred_sums + (got > 0 && i == n - 1 ? C : 0) + c);
+        int i = 0;
+        for (; i + 8 <= n; i += 8) {
+          int v[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            v[u] = __ldcg(base - static_cast<long long>(i + u) * 2 * C +
+                          (i + u == last ? C : 0) + c);
+          }
+#pragma unroll
+          for (int u = 0; u < 8; ++u) acc += v[u];
+        }
+        for (; i < n; ++i) {
+          acc += __ldcg(base - static_cast<long long>(i) * 2 * C + (i == last ? C : 0) + c);
         }
         carry[c] = acc;
       }
@@ -355,15 +369,15 @@ __device__ void produce(Ring r, const Store& store, const int32_t* params, int* 
       lo[s] = __shfl_sync(0xffffffffu, found, s * 16);
       hi[s] = __shfl_sync(0xffffffffu, found, s * 16 + 8);
     }
+    push_rows(r, kAggStage, false, false, w.minus, lo[0], hi[0], q, j, t0, 0);
+    push_rows(r, kAggStage, true, true, w.plus, lo[1], hi[1], q, j, t0, 0);
     // Lane l < 15 holds the minus stream's bound of tile t0 + l + 1, lane
-    // 16 + l the plus stream's.
+    // 16 + l the plus stream's; searched while the consumers aggregate.
     const int s = lane >> 4;
     const int i = (lane & 15) + 1;
     const int inner = i < n ? lower_bound(streams[s]->key, lo[s], hi[s],
                                           streams[s]->shift + (t0 + i) * T)
                             : 0;
-    push_rows(r, kAggStage, false, false, w.minus, lo[0], hi[0], q, j, t0, 0);
-    push_rows(r, kAggStage, true, true, w.plus, lo[1], hi[1], q, j, t0, 0);
     int from[2] = {lo[0], lo[1]};
     for (int x = 0; x < n; ++x) {
       const int t = t0 + x;
