@@ -15,7 +15,12 @@ graphs counted the same way) through the engine and through the CLI's
 ``--regions-file`` with every strategy; the HPRC-width store (90 genomes,
 ~75M intervals), a 160-genome store and dense_small (tools/kernel_lab.py's
 256 Kbp, 90-genome store) through the stratified engine with v2, bucket 0
-timed with both kernels; and a membership store. Every output is checked
+timed with both kernels; a membership store; and the multi-device layer
+(phase 10): this script run again under ``torchrun --nproc-per-node
+<device count>`` in an NCCL process group, where the dry run, the CLI's
+``--regions-file --mesh 1,<n>`` with three strategies and the n=90 store
+through every strategy run and are timed beside the in-process 1 x 1
+layout. Every output is checked
 exactly against the reference loop below (memo_query.py's per-interval slice
 writes), the port's single-window outputs, the other kernel or the port's
 numpy engine. Each function's device time is printed at every cell beside
@@ -34,6 +39,7 @@ import contextlib
 import json
 import logging
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -68,6 +74,9 @@ V2_OPS = ("Memcpy HtoD", "fused_query_v2_kernel")  # a v2 query: the upload and 
 V2_GRAPH = {"memcpy": 1, "kernel": 1}
 DENSE_LEN, DENSE_DOCS = 1 << 18, 90  # dense_small: tools/kernel_lab.py's 256 Kbp, C=90 store
 PROFILE_TRIES = 3
+MESH_REPS = 3  # timed runs of each strategy on the mesh, after one checked run
+MESH_TIMEOUT_S = 300  # the torchrun of phase 10, start to end
+MESH_CHILD = "--mesh-child"  # argv[1] of the ranks phase 10 starts
 
 
 def check(cond: bool, what: str) -> None:
@@ -602,13 +611,18 @@ def phase_batched(device, store):
     return singles, kerns
 
 
-def phase_hprc(device):
+def phase_hprc(device, tmp: str):
+    """The n=90 store through the stratified engine; the store is also saved,
+    uncompressed, for phase 10."""
     from memo_tpu_torch.query.engine import QueryEngine
 
     L = LARGE_PIVOT_LEN
     t0 = time.perf_counter()
     store = build_large_store(np.random.default_rng(SEED))
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store.save(os.path.join(tmp, "hprc.npz"), compressed=False)
+    save_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = QueryEngine(store, backend="fused", device=device, chunk_positions=L,
@@ -624,7 +638,8 @@ def phase_hprc(device):
         check(np.array_equal(out[sub[0]:sub[1]], reference_query_np(store, *sub, K)),
               f"HPRC spot window {sub}")
     emit("phase4_hprc", intervals=store.num_intervals, n_docs=store.n_docs, L=L, k=K,
-         store_build_s=build_s, engine_init_s=init_s, mbp_s=L / dt / 1e6, last_stats=stats,
+         store_build_s=build_s, store_save_s=save_s, engine_init_s=init_s, mbp_s=L / dt / 1e6,
+         last_stats=stats,
          buckets=[lb for lb, _ in eng._children], peak_device_bytes=peak,
          spot_windows_exact=2)
     return store
@@ -771,6 +786,184 @@ def phase_membership(device) -> None:
          exact=True)
 
 
+def mesh_walls(store, mesh, singles: list[np.ndarray]) -> dict[str, float]:
+    """The 16 batch windows through ShardedQuery (position, interval) and
+    ResidentShardedQuery on ``mesh``: each strategy once, checked exact
+    against the single-window outputs, then the median wall of MESH_REPS
+    more, each from construction (the host gather, or the placement) to the
+    last window on the host."""
+    from memo_tpu_torch.parallel import ResidentShardedQuery, ShardedQuery
+
+    wins = batch_windows(PIVOT_LEN)
+    regions = [("chr1", qs, qe) for qs, qe in wins]
+    runs = {
+        "position": lambda: ShardedQuery(store, mesh, "position").conservation(regions, K),
+        "interval": lambda: ShardedQuery(store, mesh, "interval").conservation(regions, K),
+        "resident": lambda: ResidentShardedQuery(store, mesh, record="chr1")
+        .conservation_windows(wins, K),
+    }
+    walls = {}
+    for name, fn in runs.items():
+        for (qs, qe), got, one in zip(wins, fn(), singles):
+            check(np.array_equal(got, one), f"mesh {mesh.shape} {name} window {qs}-{qe} == single")
+        times = []
+        for _ in range(MESH_REPS):
+            sync(mesh.device)
+            t0 = time.perf_counter()
+            fn()
+            sync(mesh.device)
+            times.append(time.perf_counter() - t0)
+        walls[f"{name}_ms"] = statistics.median(times) * 1e3
+    return walls
+
+
+def phase_mesh(tmp: str, singles: list[np.ndarray]) -> None:
+    """The multi-device layer: this script again as :func:`mesh_child` under
+    torchrun, one rank per CUDA device, in an NCCL group; its result comes
+    back in phase10.json."""
+    np.savez(os.path.join(tmp, "singles.npz"), *singles)
+    n = torch.cuda.device_count()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(n), os.path.abspath(__file__), MESH_CHILD, tmp]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=MESH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)  # torchrun and its ranks
+        proc.communicate()
+        raise RuntimeError(f"chip_smoke: phase 10's torchrun ran past {MESH_TIMEOUT_S} s")
+    torchrun_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(log[-8000:], file=sys.stderr)
+    check(proc.returncode == 0, f"phase 10: torchrun of {n} rank(s) exit code {proc.returncode}")
+    with open(os.path.join(tmp, "phase10.json")) as fh:
+        result = json.load(fh)
+    emit("phase10_mesh", devices=n, torchrun_s=torchrun_s, **result)
+
+
+def mesh_child(tmp: str) -> int:
+    """One rank of phase 10 (started by torchrun): joins the NCCL group and on
+    the (1, world) mesh runs the dry run; ``query --regions-file --mesh
+    1,<world>`` with position, interval and resident, byte for byte against
+    phase 9's files; the 16 batch windows through each strategy, exact
+    against the single-window outputs and timed in turns on the group's mesh
+    and on the in-process one-device layout (no collective), in this
+    process: in-process, group, group, in-process; and the n=90 store from phase
+    4's .npz through resident (placement, query, peak device memory),
+    position and interval, exact against the port's numpy engine. Every rank
+    checks its own outputs; rank 0 writes phase10.json."""
+    import torch.distributed as dist
+
+    from memo_tpu_torch import cli
+    from memo_tpu_torch.index.store import IntervalStore
+    from memo_tpu_torch.parallel import (Mesh, ResidentShardedQuery, ShardedQuery, initialize,
+                                         make_mesh)
+    from memo_tpu_torch.parallel.distributed import shutdown
+    from memo_tpu_torch.parallel.dryrun import dryrun_multichip
+    from memo_tpu_torch.query.engine import QueryEngine
+
+    t0 = time.perf_counter()
+    initialize(device="cuda")
+    rank, n = dist.get_rank(), dist.get_world_size()
+    check(dist.get_backend() == "nccl", f"the CUDA group is NCCL, not {dist.get_backend()}")
+    mesh = make_mesh(1, n)
+    init_s = time.perf_counter() - t0
+    dp = 2 if n % 2 == 0 and n > 1 else 1
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(make_mesh(dp, n // dp))
+    dryrun_s = time.perf_counter() - t0
+
+    wins = batch_windows(PIVOT_LEN)
+    npz, regions = os.path.join(tmp, "headline.npz"), os.path.join(tmp, "regions.txt")
+    cli_s = {}
+    for strategy in ("position", "interval", "resident"):
+        out = os.path.join(tmp, f"mesh_{strategy}")
+        t0 = time.perf_counter()
+        rc = cli.main(["query", "-b", npz, "-k", str(K), "--regions-file", regions, "-o", out,
+                       "--mesh", f"1,{n}", "--strategy", strategy, "--device", "cuda"])
+        dist.barrier()  # rank 0 has written the files
+        cli_s[strategy] = time.perf_counter() - t0
+        check(rc == 0, f"CLI --mesh 1,{n} --strategy {strategy} exit code")
+        for qs, qe in wins:
+            name = f"chr1_{qs}_{qe}.txt"
+            with open(f"{out}.{name}", "rb") as got, \
+                    open(os.path.join(tmp, f"regions_position.{name}"), "rb") as want:
+                check(got.read() == want.read(), f"--mesh 1,{n} {strategy} {name} == phase 9's")
+
+    store = IntervalStore.load(npz)
+    with np.load(os.path.join(tmp, "singles.npz")) as z:
+        singles = [z[f"arr_{i}"] for i in range(len(wins))]
+    in_process = Mesh(1, 1, mesh.device)  # the layout without a group: no collective
+    walls = {"in_process": [], "group": []}
+    for name, where in (("in_process", in_process), ("group", mesh), ("group", mesh),
+                        ("in_process", in_process)):
+        walls[name].append(mesh_walls(store, where, singles))
+    del store
+    # The collectives alone, at the batch's shapes: the all-gather of a
+    # conservation output [16, L/sp] over sp and the interval strategy's
+    # reduce-scatter of int32 partial counts [L, 16, C=16].
+    L_div = BATCH_LEN // n * n
+    out = torch.ones((BATCH_WINDOWS, L_div // n), dtype=torch.int32, device=mesh.device)
+    part = torch.ones((L_div, BATCH_WINDOWS, N_DOCS), dtype=torch.int32, device=mesh.device)
+    collective_ms = {
+        "all_gather_bytes": out.numel() * 4 * n,
+        "all_gather_ms": wall_median_s(lambda: mesh.all_gather(out, "sp"), mesh.device) * 1e3,
+        "reduce_scatter_bytes": part.numel() * 4,
+        "reduce_scatter_ms": wall_median_s(lambda: mesh.reduce_scatter(part, "sp"), mesh.device)
+        * 1e3,
+    }
+    del out, part
+
+    t0 = time.perf_counter()
+    large = IntervalStore.load(os.path.join(tmp, "hprc.npz"))
+    load_s = time.perf_counter() - t0
+    oracle = QueryEngine(large, backend="numpy", device="cpu")
+    L = LARGE_PIVOT_LEN
+    spots = [(WINDOW, WINDOW + (1 << 15)), (L - (1 << 15) - 7, L - 7), (777_777, 781_873)]
+    want = [oracle.conservation("chr1", qs, qe, K) for qs, qe in spots]
+    want_memb = oracle.membership("chr1", *spots[2], K)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    t0 = time.perf_counter()
+    rq = ResidentShardedQuery(large, mesh, k_max=1024)
+    place_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = {"resident": rq.conservation_windows(spots, K)}
+    query_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(mesh.device)
+    got_memb = {"resident": rq.membership_windows(spots[2:], K)[0]}
+    stats = rq.stats()
+    del rq
+    torch.cuda.empty_cache()
+    n90_ms = {}
+    for strategy in ("position", "interval"):
+        t0 = time.perf_counter()
+        sq = ShardedQuery(large, mesh, strategy)
+        got[strategy] = sq.conservation([("chr1", qs, qe) for qs, qe in spots], K)
+        n90_ms[strategy] = (time.perf_counter() - t0) * 1e3
+        got_memb[strategy] = sq.membership([("chr1", *spots[2])], K)[0]
+    for name in got:
+        for (qs, qe), g, w in zip(spots, got[name], want):
+            check(np.array_equal(g, w), f"n90 {name} {qs}-{qe} == numpy engine")
+        check(got_memb[name].shape == (spots[2][1] - spots[2][0], LARGE_N_DOCS)
+              and np.array_equal(got_memb[name], want_memb), f"n90 {name} membership == numpy engine")
+    if rank == 0:
+        result = {"backend": dist.get_backend(), "world": n, "mesh": mesh.shape,
+                  "init_s": init_s, "dryrun": dry, "dryrun_s": dryrun_s, "cli_s": cli_s,
+                  "cli_bytes_equal_phase9": True, "batch_walls_in_turns": walls,
+                  "collectives": collective_ms,
+                  "batch_exact": True,
+                  "n90": {"load_s": load_s, "resident_place_s": place_s,
+                          "resident_query_s": query_s, "resident_peak_device_bytes": peak,
+                          "resident_stats": stats, "sharded_ms": n90_ms, "windows": spots,
+                          "exact_vs_numpy": True}}
+        with open(os.path.join(tmp, "phase10.json"), "w") as fh:
+            json.dump(result, fh)
+    shutdown()
+    return 0
+
+
 FUNCTION_KEYS = ("C", "L", "windows", "candidate_rows", "tile", "ms", "plain_ms", "bytes",
                  "bound_ms", "bound_share", "kernels_us")
 
@@ -789,10 +982,11 @@ def main() -> int:
         singles, batch = phase_batched(device, store)
         del store
         v2_launches = phase_cli_regions(device, tmp, singles, mbp_s["torch"])
-    large = phase_hprc(device)
-    wide = phase_full_width(device, large)
-    del large
-    phase_membership(device)
+        large = phase_hprc(device, tmp)
+        wide = phase_full_width(device, large)
+        del large
+        phase_membership(device)
+        phase_mesh(tmp, singles)
     cells = {"v1": {"headline": head, "batch": batch["v1"]},
              "v2": {"headline": head_v2, "batch": batch["v2"]}}
     for name in ("n90", "n160", "dense_small"):
@@ -834,4 +1028,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [MESH_CHILD]:
+        raise SystemExit(mesh_child(sys.argv[2]))
     raise SystemExit(main())

@@ -141,7 +141,9 @@ def _add_query(sub: argparse._SubParsersAction) -> None:
         default=None,
         metavar="DP,SP",
         help="device layout for --regions-file: data-parallel x position-parallel "
-        "sizes; only 1,1 (one device) is ported [1,1]",
+        "sizes, one process per device: dp*sp > 1 runs under `torchrun "
+        "--nproc-per-node dp*sp` (NCCL for --device cuda, gloo for cpu) "
+        "[1,1 alone; 1,<ranks> under torchrun]",
     )
     p.add_argument(
         "--strategy",
@@ -284,13 +286,13 @@ def cmd_view(args) -> int:
     return 0
 
 
-def pick_batch_strategy(store, regions, device) -> str:
+def pick_batch_strategy(store, regions, device, n_ranks: int = 1) -> str:
     """Resolve ``--strategy auto`` for a regions batch with memo_tpu's rules
     (memo_tpu/cli.py:256-287): resident when the windows cover at least 1/16
     of the records they touch or there are at least 8 windows per record
     (one whole-record dispatch serves them all); else, for scattered small
     windows, batched where memo_tpu sees a single TPU, which here reads "the
-    query device is CUDA"; else position."""
+    query device is CUDA and the layout has one rank"; else position."""
     by_record: dict[str, int] = {}
     for record, qs, qe in regions:
         by_record[record] = by_record.get(record, 0) + max(qe - qs, 0)
@@ -298,26 +300,53 @@ def pick_batch_strategy(store, regions, device) -> str:
     touched = sum(int(store.record_lens[store.record_index(r)]) for r in by_record)
     if queried * 16 >= touched or len(regions) >= 8 * len(by_record):
         return "resident"
-    if torch.device(device).type == "cuda":
+    if torch.device(device).type == "cuda" and n_ranks == 1:
         return "batched"
     return "position"
 
 
 def _query_regions(args, device) -> int:
+    """``query --regions-file``. Under torchrun every rank joins the process
+    group, builds the mesh and computes; rank 0 alone writes the outputs."""
+    import torch.distributed as dist
+
+    from memo_tpu_torch.parallel import distributed, make_mesh
+    from memo_tpu_torch.query.engine import parse_region
     from memo_tpu_torch.query.output import write_conservation, write_membership
-    from memo_tpu_torch.parallel import ResidentShardedQuery, ShardedQuery, check_layout
-    from memo_tpu_torch.query.engine import QueryEngine, parse_region
 
     with open(args.regions_file) as fh:
         regions = [parse_region(line.strip()) for line in fh if line.strip()]
+    created = distributed.launched() and distributed.initialize(device=device.type)
     try:
-        mesh = check_layout(args.mesh.split(",")) if args.mesh else (1, 1)
-    except ValueError as err:
-        raise SystemExit(f"--mesh {args.mesh}: {err}") from None
+        try:
+            dp_sp = [int(x) for x in args.mesh.split(",")] if args.mesh else [None, None]
+            mesh = make_mesh(*dp_sp, device_type=device.type)
+        except ValueError as err:
+            raise SystemExit(f"--mesh {args.mesh}: {err}") from None
+        results = _run_regions(args, regions, mesh)
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            write = write_membership if args.membership else write_conservation
+            for (record, qs, qe), res in zip(regions, results):
+                write(np.asarray(res), f"{args.out_file}.{record}_{qs}_{qe}.txt")
+            log.info("wrote %d region outputs (mesh=%s)", len(regions), mesh.shape)
+    except BaseException:
+        if created:
+            dist.destroy_process_group()  # no barrier: the other ranks may be in a collective
+        raise
+    if created:
+        distributed.shutdown()
+    return 0
+
+
+def _run_regions(args, regions, mesh) -> list:
+    """Each region's output, by ``--strategy`` on ``mesh``."""
+    from memo_tpu_torch.parallel import ResidentShardedQuery, ShardedQuery
+    from memo_tpu_torch.query.engine import QueryEngine
+
     store = load_store(args.index, args.num_docs, args.membership, force=args.force)
     strategy = args.strategy
     if strategy == "auto":
-        strategy = pick_batch_strategy(store, regions, device)
+        strategy = pick_batch_strategy(store, regions, mesh.device, mesh.dp * mesh.sp)
         log.info("--strategy auto resolved to %r", strategy)
     with trace_context(args.profile):
         if strategy == "resident":
@@ -325,11 +354,12 @@ def _query_regions(args, device) -> int:
             # (record, k) are slices of one whole-record dispatch.
             uniq = list(dict.fromkeys(record for record, _, _ in regions))
             placement = {"record": uniq[0]} if len(uniq) == 1 else {"records": uniq}
-            rq = ResidentShardedQuery(store, device, k_max=max(args.k, 1024), **placement)
+            rq = ResidentShardedQuery(store, mesh, k_max=max(args.k, 1024), **placement)
             fn = rq.membership if args.membership else rq.conservation
-            results = [fn(qs, qe, args.k, record=record) for record, qs, qe in regions]
-        elif strategy == "batched":
-            engine = QueryEngine(store, backend=args.backend, device=device)
+            return [fn(qs, qe, args.k, record=record) for record, qs, qe in regions]
+        if strategy == "batched":
+            # One device's engine; under a group every rank runs it on its own.
+            engine = QueryEngine(store, backend=args.backend, device=mesh.device)
             fn = engine.membership_batch if args.membership else engine.conservation_batch
             by_rec: dict[str, list[tuple[int, int]]] = {}
             for record, qs, qe in regions:
@@ -338,15 +368,9 @@ def _query_regions(args, device) -> int:
             for record, wins in by_rec.items():
                 for (qs, qe), o in zip(wins, fn(record, wins, args.k)):
                     outs[(record, qs, qe)] = o
-            results = [outs[key] for key in regions]
-        else:
-            sq = ShardedQuery(store, device, strategy=strategy)
-            results = (sq.membership if args.membership else sq.conservation)(regions, args.k)
-    write = write_membership if args.membership else write_conservation
-    for (record, qs, qe), res in zip(regions, results):
-        write(np.asarray(res), f"{args.out_file}.{record}_{qs}_{qe}.txt")
-    log.info("wrote %d region outputs (mesh=%s)", len(regions), {"dp": mesh[0], "sp": mesh[1]})
-    return 0
+            return [outs[key] for key in regions]
+        sq = ShardedQuery(store, mesh, strategy=strategy)
+        return (sq.membership if args.membership else sq.conservation)(regions, args.k)
 
 
 def cmd_query(args) -> int:

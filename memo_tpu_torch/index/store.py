@@ -114,14 +114,16 @@ class IntervalStore:
         return lo, hi
 
     # ------------------------------------------------------------- serialization
-    def save(self, path: str | os.PathLike) -> None:
+    def save(self, path: str | os.PathLike, compressed: bool = True) -> None:
+        """Write the store as .npz; ``compressed=False`` skips zlib (fast for
+        stores of tens of millions of rows)."""
         meta = {
             "magic": _MAGIC,
             "record_names": self.record_names,
             "n_docs": self.n_docs,
             "kind": self.kind,
         }
-        np.savez_compressed(
+        (np.savez_compressed if compressed else np.savez)(
             path,
             meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
             record_lens=self.record_lens,

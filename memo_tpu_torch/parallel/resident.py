@@ -1,18 +1,20 @@
-"""Device-resident interval store answering whole records, on one GPU.
+"""Device-resident, coordinate-sharded interval store answering whole records.
 
 Counterpart of :mod:`memo_tpu.parallel.resident` (its docstring proves the
-placement exact). The store's rows are placed on the device once; every
-query at a new (k, mode) is one dispatch that computes the whole record's
-coverage from the resident rows, and every window is a slice of it. The
-placement keeps only rows that can mark at some k <= k_max: an interval
-marks only when its length < k - 1, so rows with length >= k_max - 1 are
-dropped when the store is placed.
+placement exact). Each record's coordinate axis is split into ``sp`` slabs
+of B positions; with ``records=``, record i goes to dp slot ``i % dp`` (batch
+slot ``i // dp``), so the ``dp`` axis serves distinct records. Rank (d, s) of
+the mesh places, once, only the rows of slab s of the records in its dp
+slot: the rows ``window_bounds(s*B, (s+1)*B, k_max)``, less those with
+length >= k_max - 1, which never mark at any k this placement serves. So
+each device holds about 1/(dp*sp) of the index. With ``record=`` every dp
+rank holds slab s of the one record, as memo_tpu replicates it over dp.
 
-memo_tpu splits each record into ``sp`` coordinate slabs, one per device,
-and with ``records=`` spreads the records over ``dp``. The port runs the
-one-device layout (1 x 1) until its multi-GPU slice: one slab per record,
-the records of a multi-record placement stacked as the window dimension of
-``query_ops.coverage_counts``, so one dispatch still serves them all.
+A query at a new (k, mode) is one dispatch on every rank: the coverage of
+its own slabs from its own rows (no halo: the k-1 shadow reach is in the row
+ranges), then all-gathers over ``sp`` and ``dp`` into memo_tpu's layout
+([n_batch, dp, sp*B(, C)], or [sp*B(, C)] for ``record=``), so every rank
+holds every record's output. Every window is a slice of it.
 """
 
 from __future__ import annotations
@@ -25,24 +27,26 @@ from memo_tpu_torch.ops.query_ops import (
     coverage_marks,
     membership_from_marks,
 )
-from memo_tpu_torch.parallel.sharded import _round_up
-from memo_tpu_torch.utils.device import resolve_device
+from memo_tpu_torch.parallel.sharded import _round_up, as_mesh
 
 
 class ResidentShardedQuery:
-    """Arbitrary-k queries against a device-resident store.
+    """Arbitrary-k queries against a coordinate-sharded device-resident store.
 
+    ``mesh`` is a :class:`~memo_tpu_torch.parallel.sharded.Mesh`, None
+    (``make_mesh``'s default) or a device for the 1 x 1 layout on it.
     ``record=`` places one record, ``records=`` several in one placement
     (with neither, a one-record store places its record and a multi-record
     store all of them). Whole-record outputs are memoized per (k, mode) in
     a 4-entry LRU, so the windows of one (record, k) batch cost one
-    dispatch (``dispatch_count`` counts them).
+    dispatch (``dispatch_count`` counts them). Every rank must make the same
+    calls in the same order: each dispatch ends in collectives.
     """
 
     def __init__(
         self,
         store,
-        device="cuda",
+        mesh=None,
         record: str | None = None,
         k_max: int = 1024,
         device_output: bool = False,
@@ -58,8 +62,9 @@ class ResidentShardedQuery:
             else:
                 records = list(store.record_names)
         self.store = store
-        self.device = resolve_device(device)
-        self.n_dp, self.n_sp = 1, 1  # the one-device layout (see the module docstring)
+        self.mesh = as_mesh(mesh)
+        self.device = self.mesh.device
+        self.n_dp, self.n_sp = self.mesh.dp, self.mesh.sp
         self.k_max = int(k_max)
         self.n_docs = store.n_docs
         self.device_output = bool(device_output)
@@ -83,41 +88,42 @@ class ResidentShardedQuery:
             if seg.stop > seg.start and int((store.end[seg] - store.start[seg]).min()) < 0:
                 raise ValueError("store has end < start rows; cannot shard by coordinate")
 
-        # Placement-time length filter (exact): rows with length >= k_max-1
-        # never mark at any k this placement serves.
-        all_rows = []  # [record][shard] -> index array into the store
+        # Every rank finds every slab's rows on the host (binary searches), so
+        # that the padded width M is memo_tpu's; it uploads only its own.
+        all_rows = []  # [record][slab] -> index array into the store
         for name, r in zip(self.records, rec_idx):
             rec_end = int(store.rec_offsets[r + 1])
-            rows_per_shard = []
-            for d in range(n_sp):
+            rows_per_slab = []
+            for s in range(n_sp):
                 lo, hi = store.window_bounds(
-                    name, d * self.B, min((d + 1) * self.B, self._rec_lens[name]), self.k_max
+                    name, s * self.B, min((s + 1) * self.B, self._rec_lens[name]), self.k_max
                 )
                 hi = min(hi, rec_end)
                 idx = np.arange(lo, hi)
                 if hi > lo:
                     ln = store.end[lo:hi] - store.start[lo:hi]
-                    idx = idx[ln < self.k_max - 1]
-                rows_per_shard.append(idx)
-            all_rows.append(rows_per_shard)
+                    idx = idx[ln < self.k_max - 1]  # exact: these rows never mark
+                rows_per_slab.append(idx)
+            all_rows.append(rows_per_slab)
         M = _round_up(max(1, max(len(ix) for b in all_rows for ix in b)), 8)
+        self.rows_per_shard = M
+        d, s = self.mesh.coord("dp"), self.mesh.coord("sp")
+        self._s = s
         if self._multi:
             self.n_batch = (len(self.records) + self.n_dp - 1) // self.n_dp
-            shape = (self.n_batch, self.n_dp, n_sp, M)
+            mine = [all_rows[i][s] if i < len(all_rows) else np.arange(0)
+                    for i in range(d, self.n_batch * self.n_dp, self.n_dp)]
         else:
             self.n_batch = 1
-            shape = (n_sp, M)
-        starts = np.zeros(shape, np.int32)
-        ends = np.zeros(shape, np.int32)
-        orders = np.full(shape, -1, np.int32)  # order<0 rows are dropped
-        for i, rows_per_shard in enumerate(all_rows):
-            slot = (i // self.n_dp, i % self.n_dp) if self._multi else ()
-            for d, ix in enumerate(rows_per_shard):
-                m = len(ix)
-                starts[slot + (d, slice(0, m))] = store.start[ix]
-                ends[slot + (d, slice(0, m))] = store.end[ix]
-                orders[slot + (d, slice(0, m))] = store.order[ix]
-        self.rows_per_shard = M
+            mine = [all_rows[0][s]]
+        self.local_rows = sum(len(ix) for ix in mine)  # store rows this rank holds
+        starts = np.zeros((len(mine), M), np.int32)
+        ends = np.zeros((len(mine), M), np.int32)
+        orders = np.full((len(mine), M), -1, np.int32)  # order<0 rows are dropped
+        for b, ix in enumerate(mine):
+            starts[b, :len(ix)] = store.start[ix]
+            ends[b, :len(ix)] = store.end[ix]
+            orders[b, :len(ix)] = store.order[ix]
         self._d_start, self._d_end, self._d_order = (
             torch.from_numpy(a).to(self.device) for a in (starts, ends, orders)
         )
@@ -137,6 +143,7 @@ class ResidentShardedQuery:
             "slab_positions": self.B,
             "rows_per_shard": self.rows_per_shard,
             "resident_bytes_per_shard": self.rows_per_shard * 12 * self.n_batch,
+            "local_rows": self.local_rows,
             "k_max": self.k_max,
         }
 
@@ -189,9 +196,10 @@ class ResidentShardedQuery:
         return out[: self._rec_lens[record]]
 
     def _full(self, k: int, membership: bool) -> torch.Tensor:
-        """Whole-placement output [..., n_sp * B(, C)]: every (record, slab)
-        row of the placement is one window of the coverage op, at qs = its
-        slab's first position."""
+        """Whole-placement output, [n_batch, dp, sp*B(, C)] or [sp*B(, C)]:
+        this rank's [n_batch, B(, C)] slab outputs (each row of its placement
+        is one window of the coverage op, at qs = the slab's first position),
+        all-gathered over sp, then over dp."""
         if not 1 <= k <= self.k_max:
             raise ValueError(f"k={k} outside this store's placement (k_max={self.k_max})")
         key = (int(k), bool(membership))
@@ -199,19 +207,19 @@ class ResidentShardedQuery:
         if hit is not None:
             self._full_cache[key] = hit  # refresh LRU position
             return hit
-        lead = self._d_start.shape[:-2]
-        M = self.rows_per_shard
-        n_rows = self._d_start.numel() // M
-        slab_qs = (torch.arange(n_rows, device=self.device) % self.n_sp) * self.B
-        marks = coverage_marks(
-            self._d_start.view(n_rows, M), self._d_end.view(n_rows, M),
-            self._d_order.view(n_rows, M), slab_qs, k, L=self.B, C=self.n_docs,
-        )
+        marks = coverage_marks(self._d_start, self._d_end, self._d_order, self._s * self.B, k,
+                               L=self.B, C=self.n_docs)
         if membership:
             out = membership_from_marks(marks)
         else:
             out = conservation_from_marks(marks, self.n_docs)
-        out = out.reshape(lead + (self.n_sp * self.B,) + out.shape[2:])
+        tail = tuple(out.shape[2:])
+        out = self.mesh.all_gather(out, "sp").transpose(0, 1)  # [n_batch, sp, B(, C)]
+        out = out.reshape((self.n_batch, self.n_sp * self.B) + tail)
+        if self._multi:
+            out = self.mesh.all_gather(out, "dp").transpose(0, 1).contiguous()
+        else:
+            out = out[0]
         self.dispatch_count += 1
         if len(self._full_cache) >= self._full_cache_cap:
             self._full_cache.pop(next(iter(self._full_cache)))

@@ -90,12 +90,12 @@ def test_regions_file_batched_v2_and_mesh_one_by_one(indexes, tmp_path, monkeypa
 
 
 def test_regions_file_not_yet_ported(indexes, tmp_path):
-    """--regions-file runs on one device; other --mesh layouts raise and
-    name the ROADMAP item that ports them."""
+    """Without a process group --regions-file runs on one device; other
+    --mesh layouts exit and say to launch one process per device."""
     regions = tmp_path / "regions.txt"
     regions.write_text("piv_1:0-40\n")
     for mesh in ("2,1", "1,2"):
-        with pytest.raises(SystemExit, match="not yet ported.*ROADMAP"):
+        with pytest.raises(SystemExit, match="--mesh .*no process group exists.*torchrun"):
             cli.main(["query", "-b", str(indexes / "cons.npz"), "--regions-file", str(regions),
                       "-o", str(tmp_path / "b"), "--device", "cpu", "--mesh", mesh])
 
@@ -115,6 +115,19 @@ def test_pick_batch_strategy_matches_memo_tpu(indexes):
         assert cli.pick_batch_strategy(store, parsed, "cuda") == (
             "batched" if want == "position" else want
         )
+
+
+def test_pick_batch_strategy_multi_rank_keeps_position(indexes):
+    """batched is a one-device strategy: a layout of several ranks keeps
+    position for scattered windows, as memo_tpu's multi-device meshes do."""
+    from memo_tpu.index.store import IntervalStore
+    from memo_tpu.query.engine import parse_region
+
+    store = IntervalStore.load(indexes / "cons.npz")
+    parsed = [parse_region(r) for r in ("piv_1:0-2", "piv_1:9-11")]
+    assert cli.pick_batch_strategy(store, parsed, "cuda", n_ranks=1) == "batched"
+    for n_ranks in (2, 4):
+        assert cli.pick_batch_strategy(store, parsed, "cuda", n_ranks=n_ranks) == "position"
 
 
 def test_regions_file_auto_logs_its_choice(indexes, tmp_path, caplog):

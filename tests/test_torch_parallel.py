@@ -15,7 +15,8 @@ from memo_tpu.parallel import ResidentShardedQuery as JaxResident
 from memo_tpu.parallel import ShardedQuery as JaxSharded
 from memo_tpu.parallel import make_mesh
 from memo_tpu.query.engine import QueryEngine as JaxEngine
-from memo_tpu_torch.parallel import ResidentShardedQuery, ShardedQuery, check_layout
+from memo_tpu_torch.parallel import ResidentShardedQuery, ShardedQuery, check_layout, initialize
+from memo_tpu_torch.parallel import make_mesh as make_torch_mesh
 
 
 def _random_store(rng, n_records=2, n_docs=5, rec_len=400, kind="conservation"):
@@ -92,8 +93,32 @@ def test_check_layout_accepts_one_device(layout):
 
 @pytest.mark.parametrize("layout", [(2, 1), (1, 2), (4, 2)])
 def test_check_layout_refuses_other_layouts(layout):
-    with pytest.raises(ValueError, match="not yet ported.*ROADMAP"):
+    """Without a process group only the one-device layout runs; any other
+    raises and says how to launch one process per device."""
+    with pytest.raises(ValueError, match="no process group exists.*torchrun --nproc-per-node"):
         check_layout(layout)
+
+
+def test_make_mesh_without_group_is_one_device(store):
+    """Without a process group the mesh is the in-process 1 x 1 layout, and a
+    device in the mesh's place means that layout on it."""
+    mesh = make_torch_mesh(device_type="cpu")
+    assert mesh.shape == {"dp": 1, "sp": 1} and mesh.device_mesh is None
+    for where in (mesh, "cpu"):
+        sq = ShardedQuery(store, where, strategy="interval")
+        assert sq.mesh.shape == {"dp": 1, "sp": 1} and sq.device.type == "cpu"
+    with pytest.raises(ValueError, match="torchrun"):
+        make_torch_mesh(2, 2, device_type="cpu")
+
+
+def test_initialize_cuda_without_gpu_raises(monkeypatch):
+    """A CUDA group where there is no GPU raises; nothing joins with gloo instead."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        initialize("localhost:1", 1, 0, device="cuda")
+    assert not dist.is_initialized()
 
 
 @pytest.fixture(scope="module")
