@@ -5,15 +5,21 @@
 Builds the CUDA kernels from ``memo_tpu_torch/csrc`` (v1 ``fused_query_rows``
 and v2 ``fused_query_v2_rows``, both reading the placed store's rows), holds
 each against their plain PyTorch version on random stores with edge cases,
-one and three windows per launch, and drives the query paths: the
-single-window path through the CLI at the headline size (2 Mbp pivot, 16
-genomes, k=31), with the device operations of one query of each kernel
+one and three windows per launch, runs the twin of ``__graft_entry__.entry()``
+(phase 11), and drives the query paths: the single-window path through the
+CLI at the headline size (2 Mbp pivot, 16 genomes, k=31), its wall split
+into stages (store load, engine set-up, query, format, write), the engine's
+set-up split into stages (upload, the gate, the bucket split and the
+sub-stores' copy back, the card's sorts and gathers, sentinel padding, the
+layout's copy back) and the query layout it built on the
+card held to the numpy build array for array, with the device operations of one query of each kernel
 counted exactly by capturing it into a CUDA graph (the parameter copy and
 three kernels for v1, one for v2) and timed by torch.profiler; the
 batched-windows path (16 staggered 1 Mbp windows, one launch, v1 and v2,
 graphs counted the same way) through the engine and through the CLI's
 ``--regions-file`` with every strategy; the HPRC-width store (90 genomes,
-~75M intervals), a 160-genome store and dense_small (tools/kernel_lab.py's
+~75M intervals; set-up stages and peak memory, bucket 0's card layout ==
+numpy, a CLI ``-r`` query of its index split into stages), a 160-genome store and dense_small (tools/kernel_lab.py's
 256 Kbp, 90-genome store) through the stratified engine with v2, bucket 0
 timed with both kernels; a membership store; and the multi-device layer
 (phase 10): this script run again under ``torchrun --nproc-per-node
@@ -137,6 +143,48 @@ def gpu_name_and_power() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip()
+
+
+def timed_stages(run):
+    """``run()``'s result, its wall seconds and the stage timers
+    (``utils.profiling.GLOBAL_TIMES``: ``query.*`` of the CLI's ``-r`` path,
+    ``engine.*`` and the placement's ``place.*``, each summed over buckets)
+    that it recorded."""
+    from memo_tpu_torch.utils.profiling import GLOBAL_TIMES
+
+    GLOBAL_TIMES.times.clear()
+    t0 = time.perf_counter()
+    result = run()
+    wall = time.perf_counter() - t0
+    return result, wall, dict(GLOBAL_TIMES.times)
+
+
+def layout_check(engine, store) -> dict:
+    """The engine's placed rows and host layout, built on the card, against
+    the numpy ``QueryLayout.build`` of its store, array for array (and in
+    dtype for what the host keeps); returns the numpy build's seconds."""
+    from memo_tpu_torch.index.placement import PlacedStore
+    from memo_tpu_torch.index.store import QueryLayout
+
+    t0 = time.perf_counter()
+    want = QueryLayout.build(store)
+    numpy_s = time.perf_counter() - t0
+    host, n = engine._layout, store.num_intervals
+    for name in ("end_sorted", "col_offsets", "s_keys", "e_keys"):
+        got, exp = getattr(host, name), getattr(want, name)
+        check(got.dtype == exp.dtype and np.array_equal(got, exp), f"card layout {name} == numpy")
+    check((host.monotone, host.key_stride) == (want.monotone, want.key_stride),
+          "card layout monotone and key stride == numpy")
+    seg = np.repeat(np.arange(len(want.col_offsets) - 1), np.diff(want.col_offsets))
+    check(np.array_equal(host.s_keys - seg * host.key_stride, want.s_by_col)
+          and np.array_equal(host.e_keys - seg * host.key_stride, want.e_by_col),
+          "card layout by-column starts and ends == numpy")
+    rows = (store.start, store.end, store.order, want.end_sorted, want.start_by_end,
+            want.order_by_end)
+    for name, t, exp, fill in zip(PlacedStore._fields, engine._d, rows, (0, 0, -1, 0, 0, -1)):
+        check(t.dtype == torch.int32 and np.array_equal(t[:n].cpu().numpy(), exp.astype(np.int32))
+              and bool((t[n:] == fill).all()), f"placed {name} == numpy, sentinel pads")
+    return {"rows": n, "monotone": host.monotone, "equal": True, "numpy_build_s": numpy_s}
 
 
 # ------------------------------------------------- stores and reference loops
@@ -296,6 +344,23 @@ def phase_build() -> None:
     ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "Compiling entry" in ln]
     emit("phase1_build", seconds=seconds, libms_seconds=libms_s, library=os.path.relpath(lib),
          ptxas=ptxas)
+
+
+def phase_entry(device) -> None:
+    """The twin of ``__graft_entry__.entry()`` once on the card, against the
+    numpy engine's ops on the same arguments."""
+    from memo_tpu_torch.entry import entry
+    from memo_tpu_torch.ops.query_ops import conservation_np, coverage_marks_np
+
+    fn, args = entry(device)
+    out = fn(*args)
+    sync(device)
+    starts, ends, orders = (a.cpu().numpy() for a in args[:3])
+    want = conservation_np(coverage_marks_np(starts, ends, orders, 0, 31, 1024, 8), 8)
+    check(out.device.type == "cuda" and out.dtype == torch.int32 and tuple(out.shape) == (1024,),
+          f"entry() output on the card, int32[1024]: {out.device} {out.dtype} {tuple(out.shape)}")
+    check(np.array_equal(out.cpu().numpy(), want), "entry() == numpy conservation")
+    emit("phase11_entry", shape=list(out.shape), dtype=str(out.dtype), exact_vs_numpy=True)
 
 
 def v1_inputs(engine, record: str, windows, k: int):
@@ -489,10 +554,9 @@ def phase_headline(device, tmp: str):
     store.save(npz)
 
     fused_query_rows.launches = 0
-    t0 = time.perf_counter()
-    rc = cli.main(["query", "-b", npz, "-k", str(K), "-r", f"chr1:0-{L}", "-o", out,
-                   "--device", device.type, "--stats"])
-    cli_s = time.perf_counter() - t0
+    rc, cli_s, cli_stages = timed_stages(lambda: cli.main(
+        ["query", "-b", npz, "-k", str(K), "-r", f"chr1:0-{L}", "-o", out,
+         "--device", device.type, "--stats"]))
     launches = fused_query_rows.launches
     check(rc == 0, "CLI query exit code")
     check(launches > 0, "the CLI query launched the v1 kernel")
@@ -512,7 +576,11 @@ def phase_headline(device, tmp: str):
         dt = wall_median_s(lambda: eng.conservation("chr1", 0, L, K), device)
         mbp_s[backend] = L / dt / 1e6
 
-    fused = QueryEngine(store, backend="fused", device=device, chunk_positions=L)
+    torch.cuda.reset_peak_memory_stats()
+    fused, init_s, init_stages = timed_stages(
+        lambda: QueryEngine(store, backend="fused", device=device, chunk_positions=L))
+    setup_peak = torch.cuda.max_memory_allocated()
+    layout = layout_check(fused, store)
     oracle = QueryEngine(store, backend="numpy", device="cpu")
     for k in (21, 51, 101):
         check(np.array_equal(fused.conservation("chr1", 0, L, k), oracle.conservation("chr1", 0, L, k)),
@@ -543,7 +611,9 @@ def phase_headline(device, tmp: str):
     format_conservation(res)
     format_ms = (time.perf_counter() - t0) * 1e3
     emit("phase3_headline", intervals=store.num_intervals, n_docs=store.n_docs, L=L, k=K,
-         store_build_s=build_s, cli_query_s=cli_s, launches=launches, exact_cli_bytes=True,
+         store_build_s=build_s, cli_query_s=cli_s, cli_stages_s=cli_stages, launches=launches,
+         exact_cli_bytes=True, engine_init_s=init_s, engine_init_stages=init_stages,
+         setup_peak_device_bytes=setup_peak, card_layout=layout,
          reference_loop_s=ref_s, mbp_s=mbp_s, k_sweep_exact=[21, 51, 101],
          device_ops=sum(graph.values()), graph_nodes=graph, device_op_list=ops,
          graph_nodes_v2=graph_v2,
@@ -612,23 +682,31 @@ def phase_batched(device, store):
 
 
 def phase_hprc(device, tmp: str):
-    """The n=90 store through the stratified engine; the store is also saved,
-    uncompressed, for phase 10."""
+    """The n=90 store through the stratified engine: its set-up split into
+    stages and its peak device memory, bucket 0's layout built on the card
+    against the numpy build, the whole window timed and spot-checked, and a
+    CLI ``-r`` query of the saved index (uncompressed, also for phase 10)
+    split into stages, its bytes == the engine's output."""
+    from memo_tpu_torch import cli
     from memo_tpu_torch.query.engine import QueryEngine
+    from memo_tpu_torch.query.output import format_conservation
 
     L = LARGE_PIVOT_LEN
     t0 = time.perf_counter()
     store = build_large_store(np.random.default_rng(SEED))
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    store.save(os.path.join(tmp, "hprc.npz"), compressed=False)
+    npz = os.path.join(tmp, "hprc.npz")
+    store.save(npz, compressed=False)
     save_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    eng = QueryEngine(store, backend="fused", device=device, chunk_positions=L,
-                      max_intervals_per_chunk=1 << 25, device_output=True)
-    init_s = time.perf_counter() - t0
+    eng, init_s, init_stages = timed_stages(lambda: QueryEngine(
+        store, backend="fused", device=device, chunk_positions=L,
+        max_intervals_per_chunk=1 << 25, device_output=True))
+    setup_peak = torch.cuda.max_memory_allocated()
     check(eng._children is not None, "HPRC-width store is stratified")
+    bucket0 = eng._children[0][1]
+    layout = layout_check(bucket0, bucket0.store)
     dt = wall_median_s(lambda: eng.conservation("chr1", 0, L, K), device, reps=HPRC_REPS)
     out = eng.conservation("chr1", 0, L, K).cpu().numpy()
     stats = eng.last_stats.as_dict()
@@ -637,11 +715,22 @@ def phase_hprc(device, tmp: str):
         sub = (sub_qs, sub_qs + (1 << 15))
         check(np.array_equal(out[sub[0]:sub[1]], reference_query_np(store, *sub, K)),
               f"HPRC spot window {sub}")
+    buckets = [(lb, child.store.num_intervals) for lb, child in eng._children]
+    del eng, bucket0
+    torch.cuda.empty_cache()
+    cli_out = os.path.join(tmp, "hprc_cons.txt")
+    rc, cli_s, cli_stages = timed_stages(lambda: cli.main(
+        ["query", "-b", npz, "-k", str(K), "-r", f"chr1:0-{L}", "-o", cli_out,
+         "--device", device.type]))
+    check(rc == 0, "n90 CLI query exit code")
+    with open(cli_out, "rb") as fh:
+        check(fh.read() == format_conservation(out), "n90 CLI bytes == the engine's output")
     emit("phase4_hprc", intervals=store.num_intervals, n_docs=store.n_docs, L=L, k=K,
-         store_build_s=build_s, store_save_s=save_s, engine_init_s=init_s, mbp_s=L / dt / 1e6,
-         last_stats=stats,
-         buckets=[lb for lb, _ in eng._children], peak_device_bytes=peak,
-         spot_windows_exact=2)
+         store_build_s=build_s, store_save_s=save_s, engine_init_s=init_s,
+         engine_init_stages=init_stages, setup_peak_device_bytes=setup_peak,
+         mbp_s=L / dt / 1e6, last_stats=stats, buckets=buckets, peak_device_bytes=peak,
+         spot_windows_exact=2, bucket0_card_layout=layout, cli_query_s=cli_s,
+         cli_stages_s=cli_stages, exact_cli_bytes=True)
     return store
 
 
@@ -976,6 +1065,7 @@ def main() -> int:
     device = torch.device("cuda")
     card = phase_env()
     phase_build()
+    phase_entry(device)
     kernel_err = phase_kernels(device)
     with tempfile.TemporaryDirectory() as tmp:
         launches, head, head_v2, store, mbp_s = phase_headline(device, tmp)

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from memo_tpu_torch.utils.logging import get_logger
-from memo_tpu_torch.utils.profiling import GLOBAL_TIMES, trace_context
+from memo_tpu_torch.utils.profiling import GLOBAL_TIMES, stage_timer, trace_context
 
 log = get_logger(__name__)
 
@@ -374,7 +374,7 @@ def _run_regions(args, regions, mesh) -> list:
 
 
 def cmd_query(args) -> int:
-    from memo_tpu_torch.query.output import write_conservation, write_membership
+    from memo_tpu_torch.query.output import format_conservation, format_membership
     from memo_tpu_torch.query.engine import QueryEngine, parse_region
     from memo_tpu_torch.utils.device import resolve_device
 
@@ -383,14 +383,21 @@ def cmd_query(args) -> int:
     device = resolve_device(args.device)
     if args.regions_file:
         return _query_regions(args, device)
-    store = load_store(args.index, args.num_docs, args.membership, force=args.force)
-    engine = QueryEngine(store, backend=args.backend, device=device)
+    with stage_timer("query.load_store"):
+        store = load_store(args.index, args.num_docs, args.membership, force=args.force)
+    with stage_timer("query.engine_setup"):
+        engine = QueryEngine(store, backend=args.backend, device=device)
     record, qs, qe = parse_region(args.region)
     with trace_context(args.profile):
-        if args.membership:
-            write_membership(engine.membership(record, qs, qe, args.k), args.out_file)
-        else:
-            write_conservation(engine.conservation(record, qs, qe, args.k), args.out_file)
+        with stage_timer("query.query"):
+            if args.membership:
+                res = engine.membership(record, qs, qe, args.k)
+            else:
+                res = engine.conservation(record, qs, qe, args.k)
+        with stage_timer("query.format"):
+            data = format_membership(res) if args.membership else format_conservation(res)
+        with stage_timer("query.write"), open(args.out_file, "wb") as fh:
+            fh.write(data)
     if args.stats:
         print(f"stats: {engine.last_stats.as_dict()}", file=sys.stderr)
     return 0

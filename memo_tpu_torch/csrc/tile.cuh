@@ -13,7 +13,7 @@
 
 constexpr int kMaxChunks = 8;  // 32-position chunks of the widest tile (256)
 
-// The placed store (memo_tpu_torch/query/engine.py::PlacedStore): n_rows
+// The placed store (memo_tpu_torch/index/placement.py::PlacedStore): n_rows
 // int32 rows in start order and, permuted, in end order.
 struct Store {
   const int32_t* start;

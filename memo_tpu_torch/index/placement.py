@@ -1,0 +1,225 @@
+"""Placement of an IntervalStore on a device, with its query layout built there.
+
+memo_tpu builds the fused query's layout on the host (``QueryLayout.build``:
+two ``np.lexsort`` permutations, their gathers and the composite keys) and
+then uploads the gathered arrays. Here the store's columns go up once and
+the permutations are stable ``torch.argsort``s of one composite int64 key
+each, so the sorts and gathers run where the placed store lives; the host
+gets back only what it reads for each window (the range search over
+``end_sorted`` and :meth:`QueryLayout.prefix_counts`' keys).
+
+Each composite key orders rows exactly as the lexsort it replaces, ties in
+row order, whatever order the store is in: with ``span`` above every
+coordinate's distance from the smallest, ``seg * span + (value - lo)`` sorts
+by segment, then by value. ``QueryLayout.build`` stays the plain version the
+tests hold this to.
+
+The stratified engine splits the uploaded columns into length buckets on
+the device as well (:func:`split_by_length`), places each bucket from its
+rows there and copies its sub-store back for the host's searches
+(:func:`host_store`).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from memo_tpu_torch.index.store import IntervalStore, QueryLayout
+from memo_tpu_torch.utils.profiling import stage_timer
+
+
+class PlacedStore(NamedTuple):
+    """The store on the device: int32 rows in start order and in end order,
+    each followed by sentinel pad rows (order -1, never live)."""
+
+    start: torch.Tensor
+    end: torch.Tensor
+    order: torch.Tensor
+    end_s: torch.Tensor
+    start_by_end: torch.Tensor
+    order_by_end: torch.Tensor
+
+
+@dataclass
+class HostLayout:
+    """The part of :class:`QueryLayout` the host reads for each window: the
+    per-record end order for the range search, and the composite column
+    keys (with their stride, offsets and monotone flag) for the prefix."""
+
+    end_sorted: np.ndarray  # int64[M]
+    col_offsets: np.ndarray  # int64[R*C + 1]
+    monotone: bool
+    key_stride: int
+    s_keys: np.ndarray  # int64[M]; empty for an empty store or orders outside [0, C)
+    e_keys: np.ndarray  # int64[M]; likewise
+
+    # Reads only monotone, key_stride, s_keys and e_keys.
+    prefix_counts = QueryLayout.prefix_counts
+
+
+@contextlib.contextmanager
+def _stage(name: str, device: torch.device):
+    """A stage timer (``utils.profiling.GLOBAL_TIMES``) that waits for the
+    device before it stops."""
+    with stage_timer(name):
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+
+def _check_keys_fit(n_segments: int, span: int) -> None:
+    if n_segments * span >= 1 << 63:
+        raise OverflowError(
+            f"composite sort keys of {n_segments} segments x {span} positions overflow int64"
+        )
+
+
+class Columns(NamedTuple):
+    """A store's columns on the device, in the store's row order."""
+
+    rec: torch.Tensor  # int32
+    start: torch.Tensor  # int64
+    end: torch.Tensor  # int64
+    order: torch.Tensor  # int32
+
+
+def upload_columns(store: IntervalStore, device) -> Columns:
+    """The store's columns on ``device``, copied once."""
+    device = torch.device(device)
+    with _stage("place.upload", device):
+        return Columns(*(torch.from_numpy(a).to(device)
+                         for a in (store.rec_id, store.start, store.end, store.order)))
+
+
+def place_store_and_layout(store: IntervalStore, device, pad: int) -> tuple[PlacedStore, HostLayout]:
+    """:func:`place_columns` of the store's columns, uploaded once."""
+    return place_columns(upload_columns(store, device), store.num_records, store.n_docs, pad)
+
+
+def place_columns(cols: Columns, num_records: int, n_docs: int,
+                  pad: int) -> tuple[PlacedStore, HostLayout]:
+    """A store, from its columns on the device, as six int32 tensors there
+    with ``pad`` sentinel rows each (a slice of up to ``pad`` rows from any
+    row stays inside the tensor), and the host's share of its query layout.
+    Equal, array for array, to ``QueryLayout.build``; raises where the
+    composite keys would overflow."""
+    start, end, order = cols.start, cols.end, cols.order
+    device = start.device
+    n, R, C = start.numel(), num_records, n_docs
+    with _stage("place.sort_gather", device):
+        # memo_tpu's key stride (it must exceed every coordinate: ends reach
+        # 2x a record's length); ``span`` also covers negative coordinates.
+        hi = int(torch.maximum(start.max(), end.max())) if n else -1
+        lo = min(int(torch.minimum(start.min(), end.min())), 0) if n else 0
+        stride, span = hi + 2, hi + 2 - lo
+        in_range = bool(((order >= 0) & (order < C)).all()) if n else True
+        _check_keys_fit(R * C if in_range else R, span)
+        rec = cols.rec.to(torch.int64)
+        perm_e = torch.argsort(rec * span + (end - lo), stable=True)
+        end_sorted, start_by_end, order_by_end = end[perm_e], start[perm_e], order[perm_e]
+        del perm_e
+        if in_range:
+            seg = rec * C + order
+            counts = torch.bincount(seg, minlength=R * C)
+            perm_c = torch.argsort(seg * span + (start - lo), stable=True)
+            seg = seg[perm_c]
+            s_by_col, e_by_col = start[perm_c], end[perm_c]
+            del perm_c
+            # Ends must be nondecreasing within each (record, order) segment;
+            # a segment's first row is exempt.
+            monotone = bool(((e_by_col[1:] >= e_by_col[:-1]) | (seg[1:] != seg[:-1])).all())
+            col_offsets = torch.zeros(R * C + 1, dtype=torch.int64, device=device)
+            col_offsets[1:] = torch.cumsum(counts, 0)
+            keys = (seg * stride + s_by_col, seg * stride + e_by_col) if n else None
+            del seg, s_by_col, e_by_col
+        else:  # a foreign store with orders outside [0, C): the scan path only
+            monotone, keys = False, None
+            col_offsets = torch.zeros(R * C + 1, dtype=torch.int64, device=device)
+        del rec
+
+    with _stage("place.pad", device):
+
+        def padded(src: torch.Tensor, fill: int) -> torch.Tensor:
+            out = torch.full((n + pad,), fill, dtype=torch.int32, device=device)
+            out[:n] = src
+            return out
+
+        placed = PlacedStore(
+            padded(start, 0),
+            padded(end, 0),
+            padded(order, -1),
+            padded(end_sorted, 0),
+            padded(start_by_end, 0),
+            padded(order_by_end, -1),
+        )
+        del start_by_end, order_by_end
+
+    with _stage("place.copy_back", device):
+        empty = np.zeros(0, np.int64)
+        host = HostLayout(
+            end_sorted=end_sorted.cpu().numpy(),
+            col_offsets=col_offsets.cpu().numpy(),
+            monotone=monotone,
+            key_stride=stride if keys is not None else 1,
+            s_keys=keys[0].cpu().numpy() if keys is not None else empty,
+            e_keys=keys[1].cpu().numpy() if keys is not None else empty,
+        )
+    return placed, host
+
+
+def short_share(cols: Columns, below: int) -> float:
+    """The share of rows shorter than ``below`` (memo_tpu's stratify gate,
+    ``np.mean(end - start < below)``, to the same float)."""
+    return int(((cols.end - cols.start) < below).sum()) / cols.start.numel()
+
+
+def split_by_length(cols: Columns, edges) -> list[tuple[int, Columns]]:
+    """The nonempty length buckets of the rows, on the device: bucket ``b``
+    holds the rows whose ``end - start`` has ``b`` of ``edges`` at or below
+    it (``np.searchsorted(edges, length, side="right")``), in store order."""
+    device = cols.start.device
+    with _stage("engine.bucket_split", device):
+        length = cols.end - cols.start
+        b_id = torch.zeros(length.shape, dtype=torch.int8, device=device)
+        for edge in edges:
+            b_id += length >= edge
+        del length
+        out = []
+        for b in range(len(edges) + 1):
+            rows = torch.nonzero(b_id == b).squeeze(1)
+            if rows.numel():
+                out.append((b, Columns(*(c[rows] for c in cols))))
+    return out
+
+
+def host_store(cols: Columns, like: IntervalStore) -> IntervalStore:
+    """The IntervalStore of ``cols``, rows of ``like``'s records, copied back
+    to the host; its record offsets and longest interval per record
+    (``IntervalStore``'s own definitions) are computed on the device."""
+    device = cols.start.device
+    R = like.num_records
+    with _stage("engine.bucket_copy_back", device):
+        counts = torch.bincount(cols.rec.to(torch.int64), minlength=R)
+        offsets = torch.zeros(counts.numel() + 1, dtype=torch.int64, device=device)
+        offsets[1:] = torch.cumsum(counts, 0)
+        # Record r's rows are rows offsets[r]:offsets[r+1]; an empty record's longest is 0.
+        seg = torch.repeat_interleave(torch.arange(R, device=device), counts[:R])
+        longest = torch.zeros(R, dtype=torch.int64, device=device).scatter_reduce_(
+            0, seg, (cols.end - cols.start)[: seg.numel()], "amax", include_self=False)
+        return IntervalStore(
+            record_names=like.record_names,
+            record_lens=like.record_lens,
+            n_docs=like.n_docs,
+            kind=like.kind,
+            rec_id=cols.rec.cpu().numpy(),
+            start=cols.start.cpu().numpy(),
+            end=cols.end.cpu().numpy(),
+            order=cols.order.cpu().numpy(),
+            rec_offsets=offsets.cpu().numpy(),
+            max_interval_len=longest.cpu().numpy(),
+        )

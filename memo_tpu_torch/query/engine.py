@@ -1,7 +1,9 @@
 """Query orchestration on PyTorch: interval store -> device tensors ->
 conservation/membership.
 
-Counterpart of :mod:`memo_tpu.query.engine`, with the same contracts:
+Counterpart of :mod:`memo_tpu.query.engine`, with the same contracts. The
+store's columns go to the device once, and its length buckets and query
+layout are built there (:mod:`memo_tpu_torch.index.placement`); then
 
 1. host-side binary search for the candidate row ranges of a window,
 2. a device step per (window, interval bucket): the fused CUDA kernel
@@ -21,18 +23,29 @@ bounds the working set of one step (the fused kernels do not read it).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
-from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from memo_tpu_torch.index.placement import (
+    Columns,
+    PlacedStore,
+    host_store,
+    place_columns,
+    place_store_and_layout,
+    short_share,
+    split_by_length,
+    upload_columns,
+)
 from memo_tpu_torch.index.store import IntervalStore
 from memo_tpu_torch.ops import query_ops as Q
 from memo_tpu_torch.ops.fused_query import fused_query_rows, window_args
 from memo_tpu_torch.ops.fused_query_v2 import ROW_SLACK, fused_query_v2_rows
 from memo_tpu_torch.utils.device import resolve_device
+from memo_tpu_torch.utils.profiling import stage_timer
 
 BACKENDS = ("fused", "torch", "numpy")
 KERNEL_VERSIONS = ("v1", "v2")  # fused kernel generations, as memo_tpu names them
@@ -63,37 +76,11 @@ def parse_region(region: str) -> tuple[str, int, int]:
     return record, int(start_s), int(end_s)
 
 
-class PlacedStore(NamedTuple):
-    """The store on the device: int32 rows in start order and in end order,
-    each followed by sentinel pad rows (order -1, never live)."""
-
-    start: torch.Tensor
-    end: torch.Tensor
-    order: torch.Tensor
-    end_s: torch.Tensor
-    start_by_end: torch.Tensor
-    order_by_end: torch.Tensor
-
-
 def place_store(store: IntervalStore, device, pad: int) -> PlacedStore:
-    """Copy an IntervalStore and its QueryLayout to ``device`` as six int32
-    tensors with ``pad`` sentinel rows each, so that a slice of up to ``pad``
-    rows from any row of the store stays inside the tensor."""
-    lay = store.query_layout()
-
-    def dev(a: np.ndarray, fill: int) -> torch.Tensor:
-        out = torch.full((a.shape[0] + pad,), fill, dtype=torch.int32, device=device)
-        out[: a.shape[0]] = torch.from_numpy(a.astype(np.int32))
-        return out
-
-    return PlacedStore(
-        dev(store.start, 0),
-        dev(store.end, 0),
-        dev(store.order, -1),
-        dev(lay.end_sorted, 0),
-        dev(lay.start_by_end, 0),
-        dev(lay.order_by_end, -1),
-    )
+    """An IntervalStore on ``device`` as six int32 tensors with ``pad``
+    sentinel rows each, its end order sorted there
+    (:func:`~memo_tpu_torch.index.placement.place_store_and_layout`)."""
+    return place_store_and_layout(store, device, pad)[0]
 
 
 class QueryEngine:
@@ -105,23 +92,27 @@ class QueryEngine:
       - "numpy": host fallback / cross-check
       - "auto": "fused"
 
-    ``device`` is "cuda" or "cpu"; "cuda" raises where no GPU exists.
-    ``device_output=True`` returns tensors on the device instead of numpy
-    arrays. ``kernel_version`` picks the fused kernel: "v1"
-    (``csrc/fused_query.cu``) or "v2" (``csrc/fused_query_v2.cu``), else
-    ``$MEMO_TPU_PALLAS_KERNEL``, else "v1", as in memo_tpu.
+    The positional parameters are memo_tpu's, in its order; ``device``
+    (keyword only) is "cuda" or "cpu", and "cuda" raises where no GPU
+    exists. The fused and torch backends place the store and build its
+    query layout on ``device``. ``device_output=True`` returns tensors on
+    the device instead of numpy arrays. ``kernel_version`` picks the fused
+    kernel: "v1" (``csrc/fused_query.cu``) or "v2"
+    (``csrc/fused_query_v2.cu``), else ``$MEMO_TPU_PALLAS_KERNEL``, else
+    "v1", as in memo_tpu.
     """
 
     def __init__(
         self,
         store: IntervalStore,
         backend: str = "auto",
-        device="cuda",
         chunk_positions: int | None = None,
         max_intervals_per_chunk: int | None = None,
         device_output: bool = False,
-        stratify: bool | str = "auto",
         kernel_version: str | None = None,
+        stratify: bool | str = "auto",
+        *,
+        device="cuda",
     ):
         if store.kind not in ("conservation", "membership"):
             raise ValueError(f"bad store kind {store.kind!r}")
@@ -153,56 +144,42 @@ class QueryEngine:
         # interval only marks when len < k-1, so a mostly-long store splits
         # into length buckets and a query skips buckets that cannot mark.
         self._children: list[tuple[int, QueryEngine]] | None = None
-        if stratify == "auto":
-            stratify = (
-                backend in ("torch", "fused")
-                and store.num_intervals >= (1 << 20)
-                and float(np.mean((store.end - store.start) < 30)) < 0.5
-            )
-        if stratify and backend in ("torch", "fused"):
-            self._init_stratified(store)
+        if backend == "numpy":
             return
-        if backend != "numpy":
-            # v2 reads rows in 16-byte copies, up to ROW_SLACK rows past a range.
-            pad = max(min(self.max_intervals, _next_pow2(max(store.num_intervals, 1))),
-                      ROW_SLACK + 1)
-            self._d = place_store(store, self.device, pad)
-            self._layout = store.query_layout()
+        cols = upload_columns(store, self.device)
+        if stratify == "auto":
+            with stage_timer("engine.stratify_gate"):
+                stratify = store.num_intervals >= (1 << 20) and short_share(cols, 30) < 0.5
+        if stratify:
+            buckets = split_by_length(cols, self.STRATA_EDGES)
+            del cols  # each bucket holds its own rows on the device
+            self._init_stratified(store, buckets)
+        else:
+            self._place(cols)
 
     # Upper length bounds (exclusive) of the buckets: at k=31 only bucket 0
     # can mark (memo_tpu engine.py:187-191).
     STRATA_EDGES = (32, 128, 512, 2048)
 
-    def _init_stratified(self, store: IntervalStore) -> None:
-        ln = np.asarray(store.end - store.start)
-        b_id = np.searchsorted(np.asarray(self.STRATA_EDGES, np.int64), ln, side="right")
+    def _place(self, cols: Columns) -> None:
+        # v2 reads rows in 16-byte copies, up to ROW_SLACK rows past a range.
+        pad = max(min(self.max_intervals, _next_pow2(max(cols.start.numel(), 1))), ROW_SLACK + 1)
+        self._d, self._layout = place_columns(cols, self.store.num_records, self.n_docs, pad)
+
+    def _init_stratified(self, store: IntervalStore, buckets: list[tuple[int, Columns]]) -> None:
+        """One child engine per nonempty length bucket, over the bucket's
+        sub-store (copied back to the host) and placed from the bucket's rows
+        on the device; each child has the parent's settings, as in memo_tpu,
+        and leaves its output on the device."""
         children: list[tuple[int, QueryEngine]] = []
-        for b in range(len(self.STRATA_EDGES) + 1):
-            rows = np.flatnonzero(b_id == b)
-            if rows.size == 0:
-                continue
-            sub = IntervalStore(
-                record_names=store.record_names,
-                record_lens=store.record_lens,
-                n_docs=store.n_docs,
-                kind=store.kind,
-                rec_id=store.rec_id[rows],  # stable subset: (rec, start) order kept
-                start=store.start[rows],
-                end=store.end[rows],
-                order=store.order[rows],
-            )
-            lb = 0 if b == 0 else self.STRATA_EDGES[b - 1]
-            child = QueryEngine(
-                sub,
-                backend=self.backend,
-                device=self.device,
-                chunk_positions=self.chunk_positions,
-                max_intervals_per_chunk=self.max_intervals,
-                device_output=True,
-                stratify=False,
-                kernel_version=self.kernel_version,
-            )
-            children.append((lb, child))
+        while buckets:  # popped, so each bucket's device columns go once it is placed
+            b, sub_cols = buckets.pop(0)
+            child = copy.copy(self)
+            child.store = host_store(sub_cols, store)
+            child.device_output = True
+            child.last_stats = QueryStats()
+            child._place(sub_cols)
+            children.append((0 if b == 0 else self.STRATA_EDGES[b - 1], child))
         self._children = children
 
     def _query_stratified(self, record, qs, qe, k, membership):

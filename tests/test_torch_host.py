@@ -89,6 +89,8 @@ CHILD = textwrap.dedent(
         assert cli.main(argv) == 0, argv
     import memo_tpu_torch.parallel.dryrun as dryrun
     assert dryrun.main(["--device", "cpu"]) == 0
+    import memo_tpu_torch.entry as entry
+    assert entry.main(["--device", "cpu"]) == 0
     loaded = sorted(m for m in sys.modules if any(m == f or m.startswith(f + ".") for f in FORBIDDEN))
     print("LOADED=" + json.dumps(loaded))
     """
