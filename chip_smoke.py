@@ -26,7 +26,12 @@ timed with both kernels; a membership store; and the multi-device layer
 <device count>`` in an NCCL process group, where the dry run, the CLI's
 ``--regions-file --mesh 1,<n>`` with three strategies and the n=90 store
 through every strategy run and are timed beside the in-process 1 x 1
-layout. Every output is checked
+layout; and last (phase 12) the chromosome-scale index of SCALE_r05.json
+(128 Mbp x 90 haplotypes, ~430M intervals, built here by streaming
+synth_ms's anchors): eight 2 Mbp windows with each kernel, resident over
+the whole record (conservation and membership, one launch per bucket),
+and the CLI's ``-r`` and ``--regions-file`` (auto, resolved to resident,
+and batched). Every output is checked
 exactly against the reference loop below (memo_query.py's per-interval slice
 writes), the port's single-window outputs, the other kernel or the port's
 numpy engine. Each function's device time is printed at every cell beside
@@ -83,6 +88,15 @@ PROFILE_TRIES = 3
 MESH_REPS = 3  # timed runs of each strategy on the mesh, after one checked run
 MESH_TIMEOUT_S = 300  # the torchrun of phase 10, start to end
 MESH_CHILD = "--mesh-child"  # argv[1] of the ranks phase 10 starts
+# The chromosome-scale index (phase 12): SCALE_r05.json's configuration, a
+# 128 Mbp pivot at HPRC width (90 haplotypes, 432,249,312 intervals there),
+# from synth_ms's anchors at the gap that gives its density.
+CHROM_LEN, CHROM_DOCS, CHROM_GAP = 128_000_000, 90, 1100
+CHROM_INTERVALS = 432_249_312  # SCALE_r05.json "intervals"
+CHROM_CHUNK = 1 << 22  # MS rows generated and extracted at a time
+CHROM_WINDOWS, CHROM_WINDOW = 8, 1 << 21  # SCALE_r05's eight 2 Mbp windows
+CHROM_REPS = 5
+SPOT = 1 << 15  # spot windows checked against the reference loop
 
 
 def check(cond: bool, what: str) -> None:
@@ -242,6 +256,74 @@ def build_large_store(rng):
 
     ms = synth_ms(rng, LARGE_PIVOT_LEN, LARGE_N_DOCS - 1, K, gap=25)
     return store_from_ms([ms], ["chr1"], [LARGE_PIVOT_LEN], LARGE_N_DOCS, "conservation")
+
+
+def build_chromosome_store(rng, length: int = CHROM_LEN, n_docs: int = CHROM_DOCS,
+                           gap: int = CHROM_GAP, device="cuda", chunk: int = CHROM_CHUNK):
+    """The chromosome-scale store: ``store_from_ms([synth_ms(rng, length,
+    n_docs - 1, K, gap)])``, equal to it row for row, without the MS matrix
+    (128M x 89 int32 is 45.6 GB). Each column keeps synth_ms's anchors, drawn
+    in its order; a row chunk's MS is, per column, the suffix minimum of
+    (value + position) over the anchors at or right of each position, less
+    the position, capped at the record's end. The chunks are computed on
+    ``device``, their rows sorted there (the conservation store's order
+    MEMs), and streamed in order through the port's
+    ``StreamingOverlapExtractor``, as ``builder.store_from_doc_columns``
+    feeds it; the next chunk is computed while the host extracts one."""
+    from memo_tpu_torch.index.intervals import StreamingOverlapExtractor
+    from memo_tpu_torch.index.store import IntervalStore
+
+    device = torch.device(device)
+    n_cols = n_docs - 1
+    n_anchor = max(length // gap, 1)
+    pos = np.empty((n_cols, n_anchor), np.int32)
+    top = np.empty((n_cols, n_anchor + 1), np.int32)  # value + position; a sentinel last
+    top[:, -1] = 1 << 30
+    for c in range(n_cols):  # synth_ms's draws, column by column
+        p = rng.choice(length, n_anchor, replace=False)
+        v = rng.integers(8, 120, n_anchor)
+        order = np.argsort(p)
+        pos[c], top[c, :-1] = p[order], p[order] + v[order]
+    pos_t = torch.from_numpy(pos).to(device)
+    suffix_min = torch.from_numpy(top).to(device).flip(1).cummin(1).values.flip(1).contiguous()
+    del pos, top
+    pinned = device.type == "cuda"
+    bufs = [torch.empty((chunk, n_cols), dtype=torch.int32, pin_memory=pinned) for _ in range(2)]
+
+    def launch(i: int):
+        """Chunk i's rows, sorted descending, into its host buffer."""
+        lo = i * chunk
+        p = torch.arange(lo, min(lo + chunk, length), dtype=torch.int32, device=device)
+        nxt = torch.searchsorted(pos_t, p.expand(n_cols, -1).contiguous(), out_int32=True)
+        ms = torch.minimum(suffix_min.gather(1, nxt.long()) - p, length - p)
+        rows = ms.t().sort(dim=1, descending=True).values
+        buf = bufs[i % 2][: p.numel()]
+        buf.copy_(rows, non_blocking=pinned)
+        done = torch.cuda.Event() if pinned else None
+        if pinned:
+            done.record()
+        return buf, done
+
+    extractor = StreamingOverlapExtractor(n_cols, length, order_sort=False)  # rows come sorted
+    parts = []
+    n_chunks = -(-length // chunk)
+    pending = launch(0)
+    for i in range(n_chunks):
+        buf, done = pending
+        if i + 1 < n_chunks:
+            pending = launch(i + 1)
+        if done is not None:
+            done.synchronize()
+        s, e, o = extractor.feed(buf.numpy())
+        parts.append((s, e, o.astype(np.int32)))
+    s, e, o = extractor.finish()
+    parts.append((s, e, o.astype(np.int32)))
+    del bufs, pos_t, suffix_min
+    starts, ends, orders = (np.concatenate(col) for col in zip(*parts))
+    del parts
+    return IntervalStore(record_names=["chr1"], record_lens=[length], n_docs=n_docs,
+                         kind="conservation", rec_id=np.zeros(starts.size, np.int32),
+                         start=starts, end=ends, order=orders)
 
 
 def reference_membership_np(store, qs: int, qe: int, k: int) -> np.ndarray:
@@ -802,8 +884,9 @@ def phase_full_width(device, large_store) -> dict:
 
 def phase_cli_regions(device, tmp: str, singles: list[np.ndarray], torch_mbp_s: float) -> int:
     """``query --regions-file`` with the 16 batch windows at the headline,
-    through strategies auto (resident here), batched, batched with v2 and
-    position: every file byte-identical across the runs and to
+    through strategies auto (resident here, one v1 launch for the whole
+    record), batched, batched with v2 and position: every file
+    byte-identical across the runs and to
     write_conservation of the single-window outputs. Returns the v2 run's
     launches."""
     from memo_tpu_torch import cli
@@ -824,7 +907,7 @@ def phase_cli_regions(device, tmp: str, singles: list[np.ndarray], torch_mbp_s: 
     runs = {}
     try:
         for name, strategy, version, expect in (
-            ("auto", "auto", None, (0, 0)),
+            ("auto", "auto", None, (1, 0)),  # resident: one v1 launch for the record
             ("batched", "batched", None, (1, 0)),
             ("batched_v2", "batched", "v2", (0, 1)),
             ("position", "position", None, (0, 0)),
@@ -880,7 +963,9 @@ def mesh_walls(store, mesh, singles: list[np.ndarray]) -> dict[str, float]:
     ResidentShardedQuery on ``mesh``: each strategy once, checked exact
     against the single-window outputs, then the median wall of MESH_REPS
     more, each from construction (the host gather, or the placement) to the
-    last window on the host."""
+    last window on the host; and resident's placement and its dispatch
+    (from a placed store to the last window on the host, and to the last
+    window left on the device) apart."""
     from memo_tpu_torch.parallel import ResidentShardedQuery, ShardedQuery
 
     wins = batch_windows(PIVOT_LEN)
@@ -903,6 +988,29 @@ def mesh_walls(store, mesh, singles: list[np.ndarray]) -> dict[str, float]:
             sync(mesh.device)
             times.append(time.perf_counter() - t0)
         walls[f"{name}_ms"] = statistics.median(times) * 1e3
+    # Resident's parts: the placement; the windows of its first (k, mode),
+    # on the host; and the same with the windows left on the device, as
+    # phase 7 times batched.
+    times = {"resident_place_ms": [], "resident_dispatch_ms": [],
+             "resident_device_dispatch_ms": []}
+    for _ in range(MESH_REPS):
+        for device_output in (False, True):
+            sync(mesh.device)
+            t0 = time.perf_counter()
+            rq = ResidentShardedQuery(store, mesh, record="chr1", device_output=device_output)
+            sync(mesh.device)
+            t1 = time.perf_counter()
+            outs = rq.conservation_windows(wins, K)
+            sync(mesh.device)
+            t2 = time.perf_counter()
+            if device_output:
+                times["resident_device_dispatch_ms"].append(t2 - t1)
+                check(all(np.array_equal(o.cpu().numpy(), one) for o, one in zip(outs, singles)),
+                      f"mesh {mesh.shape} resident windows on the device == single")
+            else:
+                times["resident_place_ms"].append(t1 - t0)
+                times["resident_dispatch_ms"].append(t2 - t1)
+    walls.update({name: statistics.median(t) * 1e3 for name, t in times.items()})
     return walls
 
 
@@ -1053,6 +1161,237 @@ def mesh_child(tmp: str) -> int:
     return 0
 
 
+def chromosome_windows() -> list[tuple[int, int]]:
+    """SCALE_r05's eight 2 Mbp windows: starts at linspace(0, L - 2^21, 8)."""
+    starts = np.linspace(0, CHROM_LEN - CHROM_WINDOW, CHROM_WINDOWS).astype(np.int64)
+    return [(int(qs), int(qs) + CHROM_WINDOW) for qs in starts]
+
+
+def host_memory() -> dict:
+    """This process's peak resident set and the machine's memory, in bytes."""
+    import resource
+
+    with open("/proc/meminfo") as fh:
+        total = next(int(line.split()[1]) for line in fh if line.startswith("MemTotal:"))
+    return {"peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+            "mem_total_bytes": total * 1024}
+
+
+def function_ms(engine, record: str, windows, k: int, version: str, membership: bool) -> dict:
+    """The v1 or v2 function on ``windows`` of one bucket's engine, by CUDA
+    events, with its bound (12 bytes a candidate row and the output), for
+    inputs whose plain version would not fit on the card: the caller checks
+    the outputs."""
+    from memo_tpu_torch.ops.fused_query import window_args
+
+    fn = kernel_functions()[version]
+    ranges, prefix, L = v1_inputs(engine, record, windows, k)
+    args = window_args(ranges, prefix, engine.device)
+    C = engine.n_docs
+    ms = kernel_ms(lambda: fn(engine._d, *args, k=k, L=L, C=C, n_docs=C, membership=membership),
+                   reps=3)
+    rows = int((ranges[:, 1] - ranges[:, 0]).sum() + (ranges[:, 3] - ranges[:, 2]).sum())
+    out_bytes = len(windows) * L * (C if membership else 4)
+    bound, bound_by = bound_ms(rows * 12 + out_bytes, len(windows) * L * C + rows)
+    return {"version": version, "windows": len(windows), "L": L, "candidate_rows": rows,
+            "ms": ms, "bound_ms": bound, "bound_by": bound_by, "bound_share": bound / ms}
+
+
+def resident_whole_record(store, device, spots) -> tuple[dict, np.ndarray]:
+    """ResidentShardedQuery over the whole record on one device: placement,
+    conservation_full and membership_full at K, each timed, peak device
+    memory; each kernel function's time on the dispatch's windows; the
+    conservation at ``spots`` and the membership at the last spot (past 2^31
+    output elements at C=90 beyond 23.9M positions) against the reference
+    loops, and the whole record's conservation == the first unmarked column
+    of its membership. Returns the timings and launches, and the whole
+    conservation on the host."""
+    from memo_tpu_torch.ops.fused_query import fused_query_rows
+    from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2_rows
+    from memo_tpu_torch.parallel import ResidentShardedQuery
+
+    n = store.n_docs
+    torch.cuda.reset_peak_memory_stats()
+    fused_query_rows.launches = fused_query_v2_rows.launches = 0
+    t0 = time.perf_counter()
+    rq = ResidentShardedQuery(store, device, k_max=1024)
+    sync(device)
+    place_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    cons = rq.conservation_full(K)
+    sync(device)
+    cons_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    memb = rq.membership_full(K)
+    sync(device)
+    memb_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"v1": fused_query_rows.launches, "v2": fused_query_v2_rows.launches}
+    check(tuple(cons.shape) == (CHROM_LEN,) and tuple(memb.shape) == (CHROM_LEN, n),
+          f"resident whole-record shapes {tuple(cons.shape)} {tuple(memb.shape)}")
+    check(rq.dispatch_count == 2 and launches["v1"] > 0, f"resident dispatches: {launches}")
+    for qs, qe in spots:
+        check(np.array_equal(cons[qs:qe].cpu().numpy(), reference_query_np(store, qs, qe, K)),
+              f"resident conservation spot {qs}-{qe} == reference loop")
+    qs, qe = spots[-1]
+    check(qs * n >= 1 << 31, "the membership spot lies past 2^31 output elements")
+    check(np.array_equal(memb[qs:qe].cpu().numpy(), reference_membership_np(store, qs, qe, K)),
+          f"resident membership spot {qs}-{qe} == reference loop")
+    cols = torch.arange(n, dtype=torch.int32, device=device)
+    for lo in range(0, CHROM_LEN, 1 << 24):  # in pieces: a [B, C] int32 plane would be 46 GB
+        m = memb[lo : lo + (1 << 24)]
+        first = torch.where(m == 0, cols, n).amin(dim=1)
+        check(torch.equal(first, cons[lo : lo + (1 << 24)]),
+              f"resident conservation == first unmarked column of membership at {lo}")
+    del memb
+    child = next(c for lb, c in (rq.engine._children or [(0, rq.engine)]) if lb < K - 1)
+    L = rq.engine.chunk_positions
+    wins = [(qs, min(qs + L, CHROM_LEN)) for qs in range(0, CHROM_LEN, L)]
+    functions = {f"{v}_{mode}": function_ms(child, "chr1", wins, K, v, mode == "membership")
+                 for v in ("v1", "v2") for mode in ("conservation", "membership")}
+    stats = rq.stats()
+    cons = cons.cpu().numpy()
+    del rq
+    torch.cuda.empty_cache()
+    return {"place_s": place_s, "setup_peak_device_bytes": setup_peak,
+            "conservation_dispatch_s": cons_s, "membership_dispatch_s": memb_s,
+            "peak_device_bytes": peak, "launches": launches, "stats": stats,
+            "functions": functions, "spots_exact": len(spots),
+            "membership_spot_past_2_31": True, "conservation_eq_membership": True}, cons
+
+
+def phase_chromosome(device, tmp: str):
+    """SCALE_r05's configuration on one card: the 128 Mbp x 90 store, built
+    here; the eight 2 Mbp windows through the stratified engine with v1 and
+    with v2 (set-up stages and peak memory, walls, each function's time,
+    spot windows past 100M against the reference loop); resident over the
+    whole record (conservation and membership, one kernel launch per bucket);
+    the CLI's ``-r`` on one window (stages, bytes) and ``--regions-file``
+    with ``auto`` (resolved to resident) and ``batched``, byte-identical.
+    Returns the kernel records and each kernel's launches."""
+    from memo_tpu_torch import cli
+    from memo_tpu_torch.ops.fused_query import fused_query_rows
+    from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2_rows
+    from memo_tpu_torch.query.engine import QueryEngine
+    from memo_tpu_torch.query.output import format_conservation
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    store = build_chromosome_store(np.random.default_rng(SEED))
+    build_s = time.perf_counter() - t0
+    host = host_memory()
+    n_rows = store.num_intervals
+    check(abs(n_rows - CHROM_INTERVALS) <= CHROM_INTERVALS // 10,
+          f"chromosome store: {n_rows} intervals, SCALE_r05's {CHROM_INTERVALS} +-10%")
+    lengths = store.end - store.start
+    edges = QueryEngine.STRATA_EDGES
+    by_bucket = np.bincount(np.searchsorted(edges, lengths, side="right"), minlength=len(edges) + 1)
+    long_rows = int((lengths >= 1023).sum())
+    del lengths
+    npz = os.path.join(tmp, "chrom.npz")
+    t0 = time.perf_counter()
+    store.save(npz, compressed=False)
+    save_s = time.perf_counter() - t0
+
+    wins = chromosome_windows()
+    spots = [(wins[1][0] + 54_321, wins[1][0] + 54_321 + SPOT),
+             (wins[6][0] + 777_777, wins[6][0] + 777_777 + SPOT)]
+    check(spots[-1][0] > 100_000_000, "a spot window lies past position 100M")
+    launches = {"v1": 0, "v2": 0}
+    engines, outs = {}, None
+    for version in ("v1", "v2"):
+        torch.cuda.reset_peak_memory_stats()
+        fused_query_rows.launches = fused_query_v2_rows.launches = 0
+        eng, init_s, stages = timed_stages(lambda: QueryEngine(
+            store, backend="fused", device=device, chunk_positions=CHROM_WINDOW,
+            device_output=True, kernel_version=version))
+        setup_peak = torch.cuda.max_memory_allocated()
+        check(eng._children is not None, "the chromosome store is stratified")
+        got = [eng.conservation("chr1", qs, qe, K).cpu().numpy() for qs, qe in wins]
+        for qs, qe in spots:
+            i = next(j for j, (ws, we) in enumerate(wins) if ws <= qs and qe <= we)
+            check(np.array_equal(got[i][qs - wins[i][0]:qe - wins[i][0]],
+                                 reference_query_np(store, qs, qe, K)),
+                  f"chromosome {version} spot {qs}-{qe} == reference loop")
+        if outs is None:
+            outs = got
+        else:
+            check(all(np.array_equal(a, b) for a, b in zip(outs, got)), "v2 windows == v1 windows")
+        walls, rows = [], []
+        for qs, qe in wins:
+            walls.append(wall_median_s(lambda: eng.conservation("chr1", qs, qe, K), device,
+                                       reps=CHROM_REPS))
+            rows.append(eng.last_stats.candidate_intervals)
+        launches[version] += (fused_query_rows.launches if version == "v1"
+                              else fused_query_v2_rows.launches)
+        child = eng._children[0][1]  # the only bucket that marks at K
+        functions = [time_function(child, "chr1", [w], K, version) for w in wins]
+        engines[version] = {"engine_init_s": init_s, "engine_init_stages": stages,
+                            "setup_peak_device_bytes": setup_peak,
+                            "buckets": [(lb, c.store.num_intervals) for lb, c in eng._children],
+                            "window_wall_ms": [w * 1e3 for w in walls],
+                            "window_mbp_s": [CHROM_WINDOW / w / 1e6 for w in walls],
+                            "candidate_rows": rows, "functions": functions}
+        del eng, child
+        torch.cuda.empty_cache()
+
+    resident, cons = resident_whole_record(store, device, spots)
+    launches["v1"] += resident["launches"]["v1"]
+    for (qs, qe), out in zip(wins, outs):
+        check(np.array_equal(cons[qs:qe], out), f"resident window {qs}-{qe} == the engine's")
+    del store, cons
+
+    q = 3  # the CLI -r window
+    cli_out = os.path.join(tmp, "chrom_cons.txt")
+    fused_query_rows.launches = 0
+    rc, cli_s, cli_stages = timed_stages(lambda: cli.main(
+        ["query", "-b", npz, "-k", str(K), "-r", f"chr1:{wins[q][0]}-{wins[q][1]}", "-o", cli_out,
+         "--device", device.type]))
+    check(rc == 0 and fused_query_rows.launches > 0, "chromosome CLI -r ran the v1 kernel")
+    launches["v1"] += fused_query_rows.launches
+    with open(cli_out, "rb") as fh:
+        check(fh.read() == format_conservation(outs[q]), "chromosome CLI -r bytes == the engine's")
+    regions = os.path.join(tmp, "chrom_regions.txt")
+    with open(regions, "w") as fh:
+        fh.writelines(f"chr1:{qs}-{qe}\n" for qs, qe in wins)
+    records: list[str] = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: records.append(rec.getMessage())
+    cli.log.addHandler(handler)
+    regions_s = {}
+    try:
+        for strategy in ("auto", "batched"):
+            fused_query_rows.launches = 0
+            t0 = time.perf_counter()
+            rc = cli.main(["query", "-b", npz, "-k", str(K), "--regions-file", regions, "-o",
+                           os.path.join(tmp, f"chrom_{strategy}"), "--strategy", strategy,
+                           "--device", device.type])
+            regions_s[strategy] = time.perf_counter() - t0
+            check(rc == 0 and fused_query_rows.launches > 0,
+                  f"chromosome --regions-file {strategy} ran the v1 kernel")
+            launches["v1"] += fused_query_rows.launches
+    finally:
+        cli.log.removeHandler(handler)
+    check("--strategy auto resolved to 'resident'" in records, f"auto resolved to resident: {records}")
+    for (qs, qe), out in zip(wins, outs):
+        name = f"chr1_{qs}_{qe}.txt"
+        with open(os.path.join(tmp, f"chrom_auto.{name}"), "rb") as a, \
+                open(os.path.join(tmp, f"chrom_batched.{name}"), "rb") as b:
+            got = a.read()
+            check(got == b.read() and got == format_conservation(out),
+                  f"--regions-file auto == batched == the engine's bytes, {name}")
+    os.remove(npz)
+    emit("phase12_chromosome", L=CHROM_LEN, n_docs=CHROM_DOCS, k=K, gap=CHROM_GAP,
+         intervals=n_rows, scale_r05_intervals=CHROM_INTERVALS, bucket_rows=by_bucket.tolist(),
+         rows_ge_k_max=long_rows, store_build_s=build_s, store_save_s=save_s, **host,
+         windows=wins, spot_windows=spots, engines=engines, resident=resident,
+         cli_r_window=list(wins[q]), cli_query_s=cli_s, cli_stages_s=cli_stages,
+         cli_bytes_equal=True, regions_cli_s=regions_s, auto_resolved="resident",
+         regions_byte_identical=True, launches=launches)
+    return {v: engines[v]["functions"][q] for v in ("v1", "v2")}, launches
+
+
 FUNCTION_KEYS = ("C", "L", "windows", "candidate_rows", "tile", "ms", "plain_ms", "bytes",
                  "bound_ms", "bound_share", "kernels_us")
 
@@ -1077,11 +1416,14 @@ def main() -> int:
         del large
         phase_membership(device)
         phase_mesh(tmp, singles)
+        chrom, chrom_launches = phase_chromosome(device, tmp)
     cells = {"v1": {"headline": head, "batch": batch["v1"]},
              "v2": {"headline": head_v2, "batch": batch["v2"]}}
     for name in ("n90", "n160", "dense_small"):
         cells["v1"][name] = wide[name]["kernel_v1"]
         cells["v2"][name] = wide[name]["kernel_v2"]
+    for version in ("v1", "v2"):
+        cells[version]["chromosome"] = chrom[version]
     for version in ("v1", "v2"):
         emit(f"{version}_function", card=card, **{name: {key: cell[key] for key in FUNCTION_KEYS}
                                                   for name, cell in cells[version].items()})
@@ -1090,7 +1432,7 @@ def main() -> int:
         "route": "cuda",
         "source": "memo_tpu_torch/csrc/fused_query.cu",
         "replaces": "memo_tpu/ops/pallas_query.py:236",
-        "launches": launches,
+        "launches": launches + chrom_launches["v1"],
         "max_abs_err": max(kernel_err["v1"], *(c["max_abs_err"] for c in cells["v1"].values())),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -1102,7 +1444,7 @@ def main() -> int:
         "route": "cuda",
         "source": "memo_tpu_torch/csrc/fused_query_v2.cu",
         "replaces": "memo_tpu/ops/pallas_query_v2.py:301",
-        "launches": v2_launches,
+        "launches": v2_launches + chrom_launches["v2"],
         "max_abs_err": max(kernel_err["v2"], *(c["max_abs_err"] for c in cells["v2"].values())),
         "ms": head_v2["ms"],
         "plain_ms": head_v2["plain_ms"],

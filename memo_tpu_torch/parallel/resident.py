@@ -10,9 +10,19 @@ length >= k_max - 1, which never mark at any k this placement serves. So
 each device holds about 1/(dp*sp) of the index. With ``record=`` every dp
 rank holds slab s of the one record, as memo_tpu replicates it over dp.
 
-A query at a new (k, mode) is one dispatch on every rank: the coverage of
-its own slabs from its own rows (no halo: the k-1 shadow reach is in the row
-ranges), then all-gathers over ``sp`` and ``dp`` into memo_tpu's layout
+Where memo_tpu computes a slab's coverage with the diff-array program, each
+rank here holds its rows as a :class:`~memo_tpu_torch.query.engine.QueryEngine`
+on the fused backend (placed once, its length buckets and query layout
+built on the device) and answers a slab as windows of at most
+``chunk_positions`` of one record: one launch of the fused kernel per
+length bucket for the whole slab. The device's work is the placed rows and
+the output; no [B, C] count plane is built. The slab's positions past its
+record's end are filled with the unmarked value and sliced off before any
+caller sees them.
+
+A query at a new (k, mode) is one dispatch on every rank: its own slabs
+from its own rows (no halo: the k-1 shadow reach is in the row ranges),
+then all-gathers over ``sp`` and ``dp`` into memo_tpu's layout
 ([n_batch, dp, sp*B(, C)], or [sp*B(, C)] for ``record=``), so every rank
 holds every record's output. Every window is a slice of it.
 """
@@ -22,12 +32,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from memo_tpu_torch.ops.query_ops import (
-    conservation_from_marks,
-    coverage_marks,
-    membership_from_marks,
-)
+from memo_tpu_torch.index.store import IntervalStore
 from memo_tpu_torch.parallel.sharded import _round_up, as_mesh
+from memo_tpu_torch.query.engine import QueryEngine
 
 
 class ResidentShardedQuery:
@@ -88,45 +95,53 @@ class ResidentShardedQuery:
             if seg.stop > seg.start and int((store.end[seg] - store.start[seg]).min()) < 0:
                 raise ValueError("store has end < start rows; cannot shard by coordinate")
 
-        # Every rank finds every slab's rows on the host (binary searches), so
-        # that the padded width M is memo_tpu's; it uploads only its own.
-        all_rows = []  # [record][slab] -> index array into the store
-        for name, r in zip(self.records, rec_idx):
-            rec_end = int(store.rec_offsets[r + 1])
-            rows_per_slab = []
-            for s in range(n_sp):
-                lo, hi = store.window_bounds(
-                    name, s * self.B, min((s + 1) * self.B, self._rec_lens[name]), self.k_max
-                )
-                hi = min(hi, rec_end)
-                idx = np.arange(lo, hi)
-                if hi > lo:
-                    ln = store.end[lo:hi] - store.start[lo:hi]
-                    idx = idx[ln < self.k_max - 1]  # exact: these rows never mark
-                rows_per_slab.append(idx)
-            all_rows.append(rows_per_slab)
-        M = _round_up(max(1, max(len(ix) for b in all_rows for ix in b)), 8)
-        self.rows_per_shard = M
+        # Every rank finds every slab's rows on the host (binary searches and
+        # the length filter), so that the padded width M is memo_tpu's; it
+        # places only its own.
         d, s = self.mesh.coord("dp"), self.mesh.coord("sp")
         self._s = s
         if self._multi:
             self.n_batch = (len(self.records) + self.n_dp - 1) // self.n_dp
-            mine = [all_rows[i][s] if i < len(all_rows) else np.arange(0)
-                    for i in range(d, self.n_batch * self.n_dp, self.n_dp)]
+            # This rank's batch slots: records d, d + dp, ...; None for an empty slot.
+            self._mine = [self.records[i] if i < len(self.records) else None
+                          for i in range(d, self.n_batch * self.n_dp, self.n_dp)]
         else:
             self.n_batch = 1
-            mine = [all_rows[0][s]]
-        self.local_rows = sum(len(ix) for ix in mine)  # store rows this rank holds
-        starts = np.zeros((len(mine), M), np.int32)
-        ends = np.zeros((len(mine), M), np.int32)
-        orders = np.full((len(mine), M), -1, np.int32)  # order<0 rows are dropped
-        for b, ix in enumerate(mine):
-            starts[b, :len(ix)] = store.start[ix]
-            ends[b, :len(ix)] = store.end[ix]
-            orders[b, :len(ix)] = store.order[ix]
-        self._d_start, self._d_end, self._d_order = (
-            torch.from_numpy(a).to(self.device) for a in (starts, ends, orders)
+            self._mine = [self.records[0]]
+        widest = 0
+        mine = {}  # record index -> (lo, hi, keep) of this rank's slab
+        for name, r in zip(self.records, rec_idx):
+            rec_end = int(store.rec_offsets[r + 1])
+            for slab in range(n_sp):
+                lo, hi = store.window_bounds(
+                    name, slab * self.B, min((slab + 1) * self.B, self._rec_lens[name]), self.k_max
+                )
+                hi = max(min(hi, rec_end), lo)
+                # Rows of length >= k_max - 1 never mark at any k <= k_max.
+                keep = (store.end[lo:hi] - store.start[lo:hi]) < self.k_max - 1
+                widest = max(widest, int(keep.sum()))
+                if slab == s and name in self._mine:
+                    mine[r] = (lo, hi, keep)
+        self.rows_per_shard = _round_up(max(1, widest), 8)
+        parts = [mine[r] for r in sorted(mine)]  # in store order
+
+        def rows(col: str) -> np.ndarray:
+            a = getattr(store, col)
+            taken = [a[lo:hi][keep] for lo, hi, keep in parts] or [a[:0]]
+            return taken[0] if len(taken) == 1 else np.concatenate(taken)  # one record: no copy
+
+        sub = IntervalStore(
+            record_names=list(store.record_names),
+            record_lens=store.record_lens,
+            n_docs=store.n_docs,
+            kind=store.kind,
+            rec_id=rows("rec_id"),
+            start=rows("start"),
+            end=rows("end"),
+            order=rows("order"),
         )
+        self.local_rows = sub.num_intervals  # store rows this rank holds
+        self.engine = QueryEngine(sub, backend="fused", device_output=True, device=self.device)
         # Whole-record outputs memoized per (k, mode); a bounded LRU, so a k
         # sweep cannot accumulate stale device memory.
         self._full_cache: dict[tuple[int, bool], torch.Tensor] = {}
@@ -197,8 +212,7 @@ class ResidentShardedQuery:
 
     def _full(self, k: int, membership: bool) -> torch.Tensor:
         """Whole-placement output, [n_batch, dp, sp*B(, C)] or [sp*B(, C)]:
-        this rank's [n_batch, B(, C)] slab outputs (each row of its placement
-        is one window of the coverage op, at qs = the slab's first position),
+        this rank's [n_batch, B(, C)] slab outputs (:meth:`_slabs`),
         all-gathered over sp, then over dp."""
         if not 1 <= k <= self.k_max:
             raise ValueError(f"k={k} outside this store's placement (k_max={self.k_max})")
@@ -207,12 +221,7 @@ class ResidentShardedQuery:
         if hit is not None:
             self._full_cache[key] = hit  # refresh LRU position
             return hit
-        marks = coverage_marks(self._d_start, self._d_end, self._d_order, self._s * self.B, k,
-                               L=self.B, C=self.n_docs)
-        if membership:
-            out = membership_from_marks(marks)
-        else:
-            out = conservation_from_marks(marks, self.n_docs)
+        out = self._slabs(k, membership)
         tail = tuple(out.shape[2:])
         out = self.mesh.all_gather(out, "sp").transpose(0, 1)  # [n_batch, sp, B(, C)]
         out = out.reshape((self.n_batch, self.n_sp * self.B) + tail)
@@ -224,4 +233,25 @@ class ResidentShardedQuery:
         if len(self._full_cache) >= self._full_cache_cap:
             self._full_cache.pop(next(iter(self._full_cache)))
         self._full_cache[key] = out
+        return out
+
+    def _slabs(self, k: int, membership: bool) -> torch.Tensor:
+        """This rank's [n_batch, B(, C)] slab outputs: for each batch slot,
+        positions [s*B, (s+1)*B) of its record from the engine's batch of
+        windows of at most ``chunk_positions`` (one launch per length
+        bucket); positions past the record's end, and empty slots, hold the
+        unmarked value (conservation n_docs, membership 1)."""
+        n, B = self.n_docs, self.B
+        if membership:
+            out = torch.ones((self.n_batch, B, n), dtype=torch.int8, device=self.device)
+        else:
+            out = torch.full((self.n_batch, B), n, dtype=torch.int32, device=self.device)
+        lo = self._s * B
+        step = self.engine.chunk_positions
+        run = self.engine.membership_batch if membership else self.engine.conservation_batch
+        for b, name in enumerate(self._mine):
+            hi = min(lo + B, self._rec_lens[name]) if name is not None else lo
+            windows = [(qs, min(qs + step, hi)) for qs in range(lo, hi, step)]
+            for (qs, qe), got in zip(windows, run(name, windows, k)):
+                out[b, qs - lo : qe - lo] = got
         return out

@@ -82,8 +82,9 @@ def _worker(rank: int, world: int, data: pathlib.Path) -> None:
                     for i, out in enumerate(getattr(rq2, f"{mode}_windows")(
                             _record_windows(length), k, record=name)):
                         outs[f"{lay}/resident_records/{mode}/{k}/{name}/{i}"] = out
-        rows[lay] = {"record": [rq.local_rows, rq._d_start.numel(), rq.rows_per_shard],
-                     "records": [rq2.local_rows, rq2._d_start.numel(), rq2.rows_per_shard],
+        rows[lay] = {"record": [rq.local_rows, rq.engine.store.num_intervals, rq.rows_per_shard],
+                     "records": [rq2.local_rows, rq2.engine.store.num_intervals,
+                                 rq2.rows_per_shard],
                      "dispatches": [rq.dispatch_count, rq2.dispatch_count]}
     if world == 4:
         rows["dryrun"] = dryrun_multichip(make_mesh(2, 2, device_type="cpu"))
@@ -222,9 +223,10 @@ def test_every_rank_matches_numpy_and_memo_tpu_mesh(worlds, stores, world, layou
 @pytest.mark.parametrize("world,layout", CASES, ids=[f"w{w}-{d}x{s}" for w, (d, s) in CASES])
 def test_each_resident_rank_holds_only_its_slab(worlds, stores, world, layout):
     """Rank (d, s) places slab s of the records in dp slot d (less the rows
-    too long to mark): its live row count is that, its tensors hold
-    n_batch x M rows, not the whole placement's dp x sp x n_batch x M, and
-    one dispatch served each (k, mode)."""
+    too long to mark): its live row count is that, its engine holds exactly
+    those rows, not the whole placement's, M is memo_tpu's padded width
+    (the widest slab of any record, rounded up to 8), and one dispatch
+    served each (k, mode)."""
     store, multi, _ = stores
     dp, sp = layout
     names = list(MULTI_LENS)
@@ -238,14 +240,16 @@ def test_each_resident_rank_holds_only_its_slab(worlds, stores, world, layout):
 
     B1 = -(-int(store.record_lens[0]) // sp)
     Bm = -(-max(MULTI_LENS.values()) // sp)
+    M1 = -(-max(slab_rows(store, "chr1", s, B1) for s in range(sp)) // 8) * 8
+    Mm = -(-max(slab_rows(multi, name, s, Bm) for name in names for s in range(sp)) // 8) * 8
     for rank, (_, rows) in enumerate(worlds[world]):
         d, s = divmod(rank, sp)
         local, placed, M = rows[f"{dp}x{sp}"]["record"]
-        assert local == slab_rows(store, "chr1", s, B1) and placed == M
+        assert local == slab_rows(store, "chr1", s, B1) and placed == local and M == M1
         local, placed, M = rows[f"{dp}x{sp}"]["records"]
         mine = [names[i] for i in range(d, n_batch * dp, dp) if i < len(names)]
         assert local == sum(slab_rows(multi, name, s, Bm) for name in mine)
-        assert placed == n_batch * M
+        assert placed == local and M == Mm
         assert rows[f"{dp}x{sp}"]["dispatches"] == [len(MODES) * len(KS)] * 2
 
 

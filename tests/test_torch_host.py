@@ -21,6 +21,7 @@ import pytest
 import bench
 import chip_smoke
 from memo_tpu import cli as ref_cli
+from memo_tpu.index.builder import store_from_ms as ref_store_from_ms
 from memo_tpu.index.store import IntervalStore as RefStore
 from memo_tpu.query.engine import parse_region as ref_parse_region
 from memo_tpu_torch.index.builder import store_from_ms
@@ -231,6 +232,37 @@ def test_smoke_builders_match_bench(monkeypatch):
     for args in ((1 << 12, 9, 31, 25), (1 << 11, 20, 31, 30)):
         np.testing.assert_array_equal(chip_smoke.synth_ms(np.random.default_rng(3), *args),
                                       bench.synth_ms(np.random.default_rng(3), *args))
+
+
+@pytest.mark.parametrize("length,n_docs,gap,chunk", [
+    (300_000, 90, 1100, 1 << 16),  # the chromosome's width and gap, 5 chunks
+    (40_000, 16, 25, 4096),  # dense anchors
+    (100_001, 5, 300, 30_000),  # a ragged last chunk
+])
+def test_chromosome_builder_streams_synth_ms(length, n_docs, gap, chunk):
+    """chip_smoke.build_chromosome_store, which never holds the MS matrix,
+    gives memo_tpu's store_from_ms of synth_ms's matrix for one seed."""
+    mine = chip_smoke.build_chromosome_store(np.random.default_rng(5), length=length,
+                                             n_docs=n_docs, gap=gap, device="cpu", chunk=chunk)
+    ms = chip_smoke.synth_ms(np.random.default_rng(5), length, n_docs - 1, 31, gap=gap)
+    want = ref_store_from_ms([ms], ["chr1"], [length], n_docs, "conservation")
+    assert isinstance(mine, IntervalStore) and mine.num_intervals > 0
+    for key in ("start", "end", "order", "rec_id", "rec_offsets", "max_interval_len"):
+        got, exp = getattr(mine, key), getattr(want, key)
+        assert got.dtype == exp.dtype, key
+        np.testing.assert_array_equal(got, exp, err_msg=key)
+
+
+def test_chromosome_gap_gives_scale_r05_density():
+    """At 1 Mbp the store's intervals a position, scaled to 128 Mbp, land
+    within 10% of SCALE_r05.json's 432,249,312."""
+    length = 1_000_000
+    store = chip_smoke.build_chromosome_store(np.random.default_rng(chip_smoke.SEED),
+                                              length=length, device="cpu")
+    scaled = store.num_intervals * chip_smoke.CHROM_LEN / length
+    assert abs(scaled - chip_smoke.CHROM_INTERVALS) <= chip_smoke.CHROM_INTERVALS / 10
+    wins = chip_smoke.chromosome_windows()
+    assert len(wins) == 8 and wins[0] == (0, 1 << 21) and wins[-1][1] == chip_smoke.CHROM_LEN
 
 
 def test_smoke_reference_loops_match_bench():
