@@ -33,8 +33,8 @@ the whole record (conservation and membership, one launch per bucket),
 and the CLI's ``-r`` and ``--regions-file`` (auto, resolved to resident,
 and batched). Every output is checked
 exactly against the reference loop below (memo_query.py's per-interval slice
-writes), the port's single-window outputs, the other kernel or the port's
-numpy engine. Each function's device time is printed at every cell beside
+writes), the port's single-window outputs, the other kernel, the kernels'
+plain version or the port's numpy engine. Each function's device time is printed at every cell beside
 its bound (lines v1_function and v2_function). Each phase prints one line;
 the last line is ``{"ok": true, "device": {...}}``. Any failure raises, so
 the script exits non-zero and prints no result. It exits non-zero at once
@@ -1177,11 +1177,40 @@ def host_memory() -> dict:
             "mem_total_bytes": total * 1024}
 
 
+def whole_record_errors(engine, record: str, windows, k: int, membership: bool,
+                        resident_out) -> dict[str, int]:
+    """Each kernel function once on ``windows`` of one bucket's engine (the
+    launch resident makes over the whole record), and resident's own output
+    (positions of ``record``), held window by window against the plain
+    version of that window alone, which fits on the card where the whole
+    launch's would not. Returns each one's error (it must be 0)."""
+    from memo_tpu_torch.ops.fused_query import fused_query_rows_reference, window_args
+
+    C = engine.n_docs
+    ranges, prefix, L = v1_inputs(engine, record, windows, k)
+    args = window_args(ranges, prefix, engine.device)
+    outs = {name: fn(engine._d, *args, k=k, L=L, C=C, n_docs=C, membership=membership)
+            for name, fn in kernel_functions().items()}
+    outs["resident"] = resident_out
+    errors = dict.fromkeys(outs, 0)
+    for i, (qs, qe) in enumerate(windows):
+        one, one_prefix, n = v1_inputs(engine, record, [(qs, qe)], k)
+        want = fused_query_rows_reference(engine._d, *window_args(one, one_prefix, engine.device),
+                                          k=k, L=n, C=C, n_docs=C, membership=membership)[0]
+        for name, out in outs.items():
+            got = out[qs:qe] if name == "resident" else out[i, :n]
+            err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+            errors[name] = max(errors[name], err)
+            check(err == 0, f"{name} over the whole record != plain at {qs}-{qe}, "
+                            f"membership={membership}: error {err}")
+    return errors
+
+
 def function_ms(engine, record: str, windows, k: int, version: str, membership: bool) -> dict:
     """The v1 or v2 function on ``windows`` of one bucket's engine, by CUDA
     events, with its bound (12 bytes a candidate row and the output), for
-    inputs whose plain version would not fit on the card: the caller checks
-    the outputs."""
+    inputs whose plain version would not fit on the card:
+    :func:`whole_record_errors` checks the outputs at this shape first."""
     from memo_tpu_torch.ops.fused_query import window_args
 
     fn = kernel_functions()[version]
@@ -1203,9 +1232,10 @@ def resident_whole_record(store, device, spots) -> tuple[dict, np.ndarray]:
     memory; each kernel function's time on the dispatch's windows; the
     conservation at ``spots`` and the membership at the last spot (past 2^31
     output elements at C=90 beyond 23.9M positions) against the reference
-    loops, and the whole record's conservation == the first unmarked column
-    of its membership. Returns the timings and launches, and the whole
-    conservation on the host."""
+    loops; both kernel functions' launches over the record's windows, and
+    resident's outputs, against the plain version window by window
+    (:func:`whole_record_errors`). Returns the timings and launches, and the
+    whole conservation on the host."""
     from memo_tpu_torch.ops.fused_query import fused_query_rows
     from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2_rows
     from memo_tpu_torch.parallel import ResidentShardedQuery
@@ -1238,17 +1268,17 @@ def resident_whole_record(store, device, spots) -> tuple[dict, np.ndarray]:
     check(qs * n >= 1 << 31, "the membership spot lies past 2^31 output elements")
     check(np.array_equal(memb[qs:qe].cpu().numpy(), reference_membership_np(store, qs, qe, K)),
           f"resident membership spot {qs}-{qe} == reference loop")
-    cols = torch.arange(n, dtype=torch.int32, device=device)
-    for lo in range(0, CHROM_LEN, 1 << 24):  # in pieces: a [B, C] int32 plane would be 46 GB
-        m = memb[lo : lo + (1 << 24)]
-        first = torch.where(m == 0, cols, n).amin(dim=1)
-        check(torch.equal(first, cons[lo : lo + (1 << 24)]),
-              f"resident conservation == first unmarked column of membership at {lo}")
-    del memb
-    child = next(c for lb, c in (rq.engine._children or [(0, rq.engine)]) if lb < K - 1)
+    # Only bucket 0 marks at K, so its launch over the record's windows is
+    # resident's whole output.
+    live = [c for lb, c in (rq.engine._children or [(0, rq.engine)]) if lb < K - 1]
+    check(len(live) == 1, f"one bucket marks at k={K}: {len(live)}")
     L = rq.engine.chunk_positions
     wins = [(qs, min(qs + L, CHROM_LEN)) for qs in range(0, CHROM_LEN, L)]
-    functions = {f"{v}_{mode}": function_ms(child, "chr1", wins, K, v, mode == "membership")
+    errors = {mode: whole_record_errors(live[0], "chr1", wins, K, mode == "membership", out)
+              for mode, out in (("conservation", cons), ("membership", memb))}
+    del memb
+    torch.cuda.empty_cache()
+    functions = {f"{v}_{mode}": function_ms(live[0], "chr1", wins, K, v, mode == "membership")
                  for v in ("v1", "v2") for mode in ("conservation", "membership")}
     stats = rq.stats()
     cons = cons.cpu().numpy()
@@ -1258,7 +1288,8 @@ def resident_whole_record(store, device, spots) -> tuple[dict, np.ndarray]:
             "conservation_dispatch_s": cons_s, "membership_dispatch_s": memb_s,
             "peak_device_bytes": peak, "launches": launches, "stats": stats,
             "functions": functions, "spots_exact": len(spots),
-            "membership_spot_past_2_31": True, "conservation_eq_membership": True}, cons
+            "membership_spot_past_2_31": True, "whole_record_windows": len(wins),
+            "whole_record_max_abs_err": errors}, cons
 
 
 def phase_chromosome(device, tmp: str):
@@ -1269,7 +1300,8 @@ def phase_chromosome(device, tmp: str):
     whole record (conservation and membership, one kernel launch per bucket);
     the CLI's ``-r`` on one window (stages, bytes) and ``--regions-file``
     with ``auto`` (resolved to resident) and ``batched``, byte-identical.
-    Returns the kernel records and each kernel's launches."""
+    Returns the kernel records, each kernel's launches and its error over
+    the whole record."""
     from memo_tpu_torch import cli
     from memo_tpu_torch.ops.fused_query import fused_query_rows
     from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2_rows
@@ -1389,7 +1421,9 @@ def phase_chromosome(device, tmp: str):
          cli_r_window=list(wins[q]), cli_query_s=cli_s, cli_stages_s=cli_stages,
          cli_bytes_equal=True, regions_cli_s=regions_s, auto_resolved="resident",
          regions_byte_identical=True, launches=launches)
-    return {v: engines[v]["functions"][q] for v in ("v1", "v2")}, launches
+    whole = resident["whole_record_max_abs_err"].values()
+    return ({v: engines[v]["functions"][q] for v in ("v1", "v2")}, launches,
+            {v: max(errors[v] for errors in whole) for v in ("v1", "v2")})
 
 
 FUNCTION_KEYS = ("C", "L", "windows", "candidate_rows", "tile", "ms", "plain_ms", "bytes",
@@ -1416,7 +1450,7 @@ def main() -> int:
         del large
         phase_membership(device)
         phase_mesh(tmp, singles)
-        chrom, chrom_launches = phase_chromosome(device, tmp)
+        chrom, chrom_launches, chrom_err = phase_chromosome(device, tmp)
     cells = {"v1": {"headline": head, "batch": batch["v1"]},
              "v2": {"headline": head_v2, "batch": batch["v2"]}}
     for name in ("n90", "n160", "dense_small"):
@@ -1433,7 +1467,8 @@ def main() -> int:
         "source": "memo_tpu_torch/csrc/fused_query.cu",
         "replaces": "memo_tpu/ops/pallas_query.py:236",
         "launches": launches + chrom_launches["v1"],
-        "max_abs_err": max(kernel_err["v1"], *(c["max_abs_err"] for c in cells["v1"].values())),
+        "max_abs_err": max(kernel_err["v1"], chrom_err["v1"],
+                           *(c["max_abs_err"] for c in cells["v1"].values())),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
@@ -1445,7 +1480,8 @@ def main() -> int:
         "source": "memo_tpu_torch/csrc/fused_query_v2.cu",
         "replaces": "memo_tpu/ops/pallas_query_v2.py:301",
         "launches": v2_launches + chrom_launches["v2"],
-        "max_abs_err": max(kernel_err["v2"], *(c["max_abs_err"] for c in cells["v2"].values())),
+        "max_abs_err": max(kernel_err["v2"], chrom_err["v2"],
+                           *(c["max_abs_err"] for c in cells["v2"].values())),
         "ms": head_v2["ms"],
         "plain_ms": head_v2["plain_ms"],
         "bound_ms": head_v2["bound_ms"],

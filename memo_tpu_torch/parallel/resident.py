@@ -11,13 +11,15 @@ each device holds about 1/(dp*sp) of the index. With ``record=`` every dp
 rank holds slab s of the one record, as memo_tpu replicates it over dp.
 
 Where memo_tpu computes a slab's coverage with the diff-array program, each
-rank here holds its rows as a :class:`~memo_tpu_torch.query.engine.QueryEngine`
-on the fused backend (placed once, its length buckets and query layout
-built on the device) and answers a slab as windows of at most
+rank here uploads its slabs' rows, drops the long ones on the device and
+holds the rest as a :class:`~memo_tpu_torch.query.engine.QueryEngine` on
+the fused backend (placed once, its length buckets and query layout built
+on the device). It answers a slab as windows of at most
 ``chunk_positions`` of one record: one launch of the fused kernel per
-length bucket for the whole slab. The device's work is the placed rows and
-the output; no [B, C] count plane is built. The slab's positions past its
-record's end are filled with the unmarked value and sliced off before any
+length bucket for the whole slab, whose [windows, L(, C)] output, read as
+consecutive positions, is the slab. The device's work is the placed rows
+and the output; no [B, C] count plane is built. The slab's positions past
+its record's end hold the unmarked value and are sliced off before any
 caller sees them.
 
 A query at a new (k, mode) is one dispatch on every rank: its own slabs
@@ -29,12 +31,37 @@ holds every record's output. Every window is a slice of it.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from memo_tpu_torch.index.placement import Columns
 from memo_tpu_torch.index.store import IntervalStore
 from memo_tpu_torch.parallel.sharded import _round_up, as_mesh
 from memo_tpu_torch.query.engine import QueryEngine
+
+
+class _RowsEngine(QueryEngine):
+    """The fused engine over the store rows ``parts`` ([lo, hi) ranges in
+    store order) less those of length >= k_max - 1, which never mark at
+    any k <= k_max; its outputs are left on the device."""
+
+    def __init__(self, store: IntervalStore, parts: list[tuple[int, int]], k_max: int, device):
+        self._parts, self._k_max = parts, k_max
+        super().__init__(store, backend="fused", device_output=True, device=device)
+
+    def _upload(self, store: IntervalStore) -> Columns:
+        """The rows, uploaded as slices of the store's columns and filtered
+        on the device; only the engine's set-up holds them."""
+        def upload(a: np.ndarray) -> torch.Tensor:
+            got = [torch.from_numpy(a[lo:hi]).to(self.device) for lo, hi in self._parts or [(0, 0)]]
+            return got[0] if len(got) == 1 else torch.cat(got)
+
+        cols = Columns(upload(store.rec_id), upload(store.start), upload(store.end),
+                       upload(store.order))
+        keep = (cols.end - cols.start) < self._k_max - 1
+        return Columns(*(c[keep] for c in cols))
 
 
 class ResidentShardedQuery:
@@ -92,12 +119,9 @@ class ResidentShardedQuery:
         # store satisfies.
         for r in rec_idx:
             seg = slice(int(store.rec_offsets[r]), int(store.rec_offsets[r + 1]))
-            if seg.stop > seg.start and int((store.end[seg] - store.start[seg]).min()) < 0:
+            if (store.end[seg] < store.start[seg]).any():
                 raise ValueError("store has end < start rows; cannot shard by coordinate")
 
-        # Every rank finds every slab's rows on the host (binary searches and
-        # the length filter), so that the padded width M is memo_tpu's; it
-        # places only its own.
         d, s = self.mesh.coord("dp"), self.mesh.coord("sp")
         self._s = s
         if self._multi:
@@ -108,47 +132,45 @@ class ResidentShardedQuery:
         else:
             self.n_batch = 1
             self._mine = [self.records[0]]
-        widest = 0
-        mine = {}  # record index -> (lo, hi, keep) of this rank's slab
-        for name, r in zip(self.records, rec_idx):
-            rec_end = int(store.rec_offsets[r + 1])
-            for slab in range(n_sp):
-                lo, hi = store.window_bounds(
-                    name, slab * self.B, min((slab + 1) * self.B, self._rec_lens[name]), self.k_max
-                )
-                hi = max(min(hi, rec_end), lo)
-                # Rows of length >= k_max - 1 never mark at any k <= k_max.
-                keep = (store.end[lo:hi] - store.start[lo:hi]) < self.k_max - 1
-                widest = max(widest, int(keep.sum()))
-                if slab == s and name in self._mine:
-                    mine[r] = (lo, hi, keep)
-        self.rows_per_shard = _round_up(max(1, widest), 8)
-        parts = [mine[r] for r in sorted(mine)]  # in store order
-
-        def rows(col: str) -> np.ndarray:
-            a = getattr(store, col)
-            taken = [a[lo:hi][keep] for lo, hi, keep in parts] or [a[:0]]
-            return taken[0] if len(taken) == 1 else np.concatenate(taken)  # one record: no copy
-
-        sub = IntervalStore(
-            record_names=list(store.record_names),
-            record_lens=store.record_lens,
-            n_docs=store.n_docs,
-            kind=store.kind,
-            rec_id=rows("rec_id"),
-            start=rows("start"),
-            end=rows("end"),
-            order=rows("order"),
-        )
-        self.local_rows = sub.num_intervals  # store rows this rank holds
-        self.engine = QueryEngine(sub, backend="fused", device_output=True, device=self.device)
+        mine = sorted(store.record_index(name) for name in self._mine if name is not None)
+        self.engine = _RowsEngine(store, [self._slab_rows(r, s) for r in mine], self.k_max,
+                                  self.device)
+        self.local_rows = sum(c.store.num_intervals for _, c in self.engine._children or
+                              [(0, self.engine)])  # store rows this rank holds
         # Whole-record outputs memoized per (k, mode); a bounded LRU, so a k
         # sweep cannot accumulate stale device memory.
         self._full_cache: dict[tuple[int, bool], torch.Tensor] = {}
         self._full_cache_cap = 4
         self.dispatch_count = 0  # == number of distinct (k, mode) computed
 
+    def _slab_rows(self, r: int, slab: int) -> tuple[int, int]:
+        """Store rows [lo, hi) that slab ``slab`` of record ``r`` may read:
+        those whose coordinates reach it at any k <= k_max."""
+        store, name = self.store, self.store.record_names[r]
+        lo, hi = store.window_bounds(
+            name, slab * self.B, min((slab + 1) * self.B, int(store.record_lens[r])), self.k_max)
+        return lo, max(min(hi, int(store.rec_offsets[r + 1])), lo)
+
+    @functools.cached_property
+    def rows_per_shard(self) -> int:
+        """memo_tpu's padded row width M: the most rows any rank keeps for
+        one slab, rounded up to 8. Nominal here (the ranks place their rows
+        in the engine's buckets, not in an [n_batch, M] array); computed on
+        first use, from every slab's rows on the host."""
+        widest = 0
+        for name in self.records:
+            r = self.store.record_index(name)
+            for slab in range(self.n_sp):
+                lo, hi = self._slab_rows(r, slab)
+                lengths = self.store.end[lo:hi] - self.store.start[lo:hi]
+                widest = max(widest, int(np.count_nonzero(lengths < self.k_max - 1)))
+        return _round_up(max(1, widest), 8)
+
     def stats(self) -> dict:
+        """memo_tpu's keys (``resident_bytes_per_shard`` is its nominal
+        rows_per_shard * 12 * n_batch), and the port's own: the rows this
+        rank holds and the bytes of their placement on the device."""
+        placed = [c._d for _, c in self.engine._children or [(0, self.engine)]]
         return {
             "record": self.record,
             "records": self.records,
@@ -159,6 +181,7 @@ class ResidentShardedQuery:
             "rows_per_shard": self.rows_per_shard,
             "resident_bytes_per_shard": self.rows_per_shard * 12 * self.n_batch,
             "local_rows": self.local_rows,
+            "placed_bytes": sum(t.numel() * t.element_size() for d in placed for t in d),
             "k_max": self.k_max,
         }
 
@@ -236,22 +259,30 @@ class ResidentShardedQuery:
         return out
 
     def _slabs(self, k: int, membership: bool) -> torch.Tensor:
-        """This rank's [n_batch, B(, C)] slab outputs: for each batch slot,
-        positions [s*B, (s+1)*B) of its record from the engine's batch of
-        windows of at most ``chunk_positions`` (one launch per length
-        bucket); positions past the record's end, and empty slots, hold the
-        unmarked value (conservation n_docs, membership 1)."""
-        n, B = self.n_docs, self.B
-        if membership:
-            out = torch.ones((self.n_batch, B, n), dtype=torch.int8, device=self.device)
-        else:
-            out = torch.full((self.n_batch, B), n, dtype=torch.int32, device=self.device)
+        """This rank's [n_batch, B(, C)] slab outputs (:meth:`_slab`)."""
+        slabs = [self._slab(name, k, membership) for name in self._mine]
+        return slabs[0][None] if len(slabs) == 1 else torch.stack(slabs)
+
+    def _slab(self, name: str | None, k: int, membership: bool) -> torch.Tensor:
+        """Positions [s*B, (s+1)*B) of record ``name``, [B(, C)]: the
+        engine's batch of windows of at most ``chunk_positions`` (one launch
+        per length bucket), read as consecutive positions. Positions past
+        the record's end, and an empty slot (None), hold the unmarked value
+        (conservation n_docs, membership 1)."""
+        eng, B = self.engine, self.B
         lo = self._s * B
-        step = self.engine.chunk_positions
-        run = self.engine.membership_batch if membership else self.engine.conservation_batch
-        for b, name in enumerate(self._mine):
-            hi = min(lo + B, self._rec_lens[name]) if name is not None else lo
-            windows = [(qs, min(qs + step, hi)) for qs in range(lo, hi, step)]
-            for (qs, qe), got in zip(windows, run(name, windows, k)):
-                out[b, qs - lo : qe - lo] = got
+        hi = min(lo + B, self._rec_lens[name]) if name is not None else lo
+        step = eng.chunk_positions
+        windows = [(qs, min(qs + step, hi)) for qs in range(lo, hi, step)]
+        out = eng._batch_tensor(name, windows, k, membership) if windows else None
+        if out is not None:
+            out = out.reshape((-1,) + tuple(out.shape[2:]))
+        elif windows:  # a window's candidates over the engine's cap: per window
+            out = torch.cat(eng._query_batch_windows(name, windows, k, membership))
+        else:
+            out = eng._unmarked((0,), membership)
+        if out.shape[0] < B:
+            out = torch.cat([out, eng._unmarked((B - out.shape[0],), membership)])
+        out = out[:B]
+        out[hi - lo :] = 1 if membership else self.n_docs
         return out

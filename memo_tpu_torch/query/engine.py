@@ -146,16 +146,26 @@ class QueryEngine:
         self._children: list[tuple[int, QueryEngine]] | None = None
         if backend == "numpy":
             return
-        cols = upload_columns(store, self.device)
+        cols = self._upload(store)
         if stratify == "auto":
             with stage_timer("engine.stratify_gate"):
-                stratify = store.num_intervals >= (1 << 20) and short_share(cols, 30) < 0.5
+                stratify = cols.start.numel() >= (1 << 20) and short_share(cols, 30) < 0.5
         if stratify:
             buckets = split_by_length(cols, self.STRATA_EDGES)
             del cols  # each bucket holds its own rows on the device
             self._init_stratified(store, buckets)
         else:
+            if cols.start.numel() != store.num_intervals:  # a subset: see _upload
+                self.store = host_store(cols, store)
             self._place(cols)
+
+    def _upload(self, store: IntervalStore) -> Columns:
+        """The rows this engine places, on the device: the whole store. A
+        subclass may return a subset of its rows (in store order) already
+        there; the engine's host store is then that subset copied back, or,
+        where it stratifies, ``store`` for its records, each bucket's child
+        holding its own rows."""
+        return upload_columns(store, self.device)
 
     # Upper length bounds (exclusive) of the buckets: at k=31 only bucket 0
     # can mark (memo_tpu engine.py:187-191).
@@ -198,14 +208,14 @@ class QueryEngine:
             acc = out if acc is None else torch.minimum(acc, out)
         self.last_stats = stats
         if acc is None:  # k too small for any stored interval: nothing marks
-            acc = self._unmarked(L, membership)
+            acc = self._unmarked((L,), membership)
         return acc if self.device_output else acc.cpu().numpy()
 
-    def _unmarked(self, L: int, membership: bool) -> torch.Tensor:
-        """The output of a window where nothing marks."""
+    def _unmarked(self, shape: tuple[int, ...], membership: bool) -> torch.Tensor:
+        """The output of positions ``shape`` where nothing marks."""
         if membership:
-            return torch.ones((L, self.n_docs), dtype=torch.int8, device=self.device)
-        return torch.full((L,), self.n_docs, dtype=torch.int32, device=self.device)
+            return torch.ones(shape + (self.n_docs,), dtype=torch.int8, device=self.device)
+        return torch.full(shape, self.n_docs, dtype=torch.int32, device=self.device)
 
     # ------------------------------------------------------------------ public
     def conservation(self, record: str, qs: int, qe: int, k: int):
@@ -285,17 +295,74 @@ class QueryEngine:
             raise ValueError(f"k must be >= 1, got {k}")
         if not windows:
             return []
-        if self._children is not None:
-            return self._query_batch_stratified(record, windows, k, membership)
+        out = self._batch_tensor(record, windows, k, membership)
+        if out is None:
+            return self._query_batch_windows(record, windows, k, membership)
+        if not self.device_output:
+            out = out.cpu().numpy()
+        return [out[i, : qe - qs] for i, (qs, qe) in enumerate(windows)]
+
+    def _batch_tensor(self, record, windows, k, membership) -> torch.Tensor | None:
+        """The batch of ``windows`` (checked, nonempty) as one device tensor
+        [Q, L(, C)], L the longest window, from one launch of the kernel per
+        length bucket that can mark (bucket outputs min-combined as in
+        :meth:`_query_stratified`): row i's first ``qe - qs`` positions are
+        window i's output (exact: a window's row is what the single-window
+        kernel computes over [qs, qs + L)). None where the batch runs per
+        window: another backend, windows longer than ``chunk_positions`` or
+        all empty, or candidate sets over the bucket cap."""
+        if self._children is None:
+            plan = self._batch_plan(record, windows, k)
+            return None if plan is None else self._run_batch(plan, windows, k, membership)
+        live = [child for lb, child in self._children if lb < k - 1]
+        plans = [child._batch_plan(record, windows, k) for child in live]
+        if any(plan is None for plan in plans):
+            return None
+        stats = QueryStats(positions=sum(qe - qs for qs, qe in windows))
+        acc = None
+        for child, plan in zip(live, plans):
+            out = child._run_batch(plan, windows, k, membership)
+            stats.candidate_intervals += child.last_stats.candidate_intervals
+            stats.chunks += child.last_stats.chunks
+            acc = out if acc is None else torch.minimum(acc, out, out=acc)
+        self.last_stats = stats
+        if acc is None:  # k too small for any stored interval: nothing marks
+            acc = self._unmarked((len(windows), max(qe - qs for qs, qe in windows)), membership)
+        return acc
+
+    def _batch_plan(self, record, windows, k):
+        """(ranges, prefix, L, counts) of one launch over ``windows``, or
+        None where the batch runs per window."""
         L = max(qe - qs for qs, qe in windows)
         # A batch of empty windows has nothing to launch.
-        fallback = self.backend != "fused" or not 0 < L <= self.chunk_positions
-        if not fallback:
-            params = [self._window_params(record, qs, qs + L, k) for qs, _ in windows]
-            counts = [max(p[1] - p[0], p[3] - p[2]) for p in params]
-            fallback = max(counts) > self.max_intervals
-        if fallback:
-            outs, stats = [], QueryStats()
+        if self.backend != "fused" or not 0 < L <= self.chunk_positions:
+            return None
+        params = [self._window_params(record, qs, qs + L, k) for qs, _ in windows]
+        counts = [max(p[1] - p[0], p[3] - p[2]) for p in params]
+        if max(counts) > self.max_intervals:
+            return None
+        ranges = np.array([p[:4] + (qs,) for p, (qs, _) in zip(params, windows)], np.int64)
+        return ranges, np.stack([p[4] for p in params]), L, counts
+
+    def _run_batch(self, plan, windows, k, membership) -> torch.Tensor:
+        # memo_tpu pads the window count to a power of two to bound the
+        # programs XLA compiles; nothing here compiles per shape, so the
+        # batch keeps its own count.
+        ranges, prefix, L, counts = plan
+        out = self._run_kernel(ranges, prefix, k, L, membership)
+        self.last_stats = QueryStats(
+            candidate_intervals=sum(counts),
+            chunks=len(windows),
+            positions=sum(qe - qs for qs, qe in windows),
+        )
+        return out
+
+    def _query_batch_windows(self, record, windows, k, membership) -> list:
+        """The batch where it does not run as one launch: per window, or
+        per bucket (min-combined as in :meth:`_query_stratified`)."""
+        stats = QueryStats()
+        if self._children is None:
+            outs = []
             for qs, qe in windows:
                 outs.append(self._query(record, qs, qe, k, membership))
                 stats.candidate_intervals += self.last_stats.candidate_intervals
@@ -303,23 +370,7 @@ class QueryEngine:
                 stats.positions += self.last_stats.positions
             self.last_stats = stats
             return outs
-        # memo_tpu pads the window count to a power of two to bound the
-        # programs XLA compiles; nothing here compiles per shape, so the
-        # batch keeps its own count.
-        ranges = np.array([p[:4] + (qs,) for p, (qs, _) in zip(params, windows)], np.int64)
-        out = self._run_kernel(ranges, np.stack([p[4] for p in params]), k, L, membership)
-        self.last_stats = QueryStats(
-            candidate_intervals=sum(counts),
-            chunks=len(windows),
-            positions=sum(qe - qs for qs, qe in windows),
-        )
-        if not self.device_output:
-            out = out.cpu().numpy()
-        return [out[i, : qe - qs] for i, (qs, qe) in enumerate(windows)]
-
-    def _query_batch_stratified(self, record, windows, k, membership) -> list:
-        """Per-bucket batches, min-combined as in :meth:`_query_stratified`."""
-        stats = QueryStats(positions=sum(qe - qs for qs, qe in windows))
+        stats.positions = sum(qe - qs for qs, qe in windows)
         accs = None
         for lb, child in self._children:
             if lb >= k - 1:
@@ -330,7 +381,7 @@ class QueryEngine:
             accs = outs if accs is None else [torch.minimum(a, o) for a, o in zip(accs, outs)]
         self.last_stats = stats
         if accs is None:  # k too small for any stored interval: nothing marks
-            accs = [self._unmarked(qe - qs, membership) for qs, qe in windows]
+            accs = [self._unmarked((qe - qs,), membership) for qs, qe in windows]
         return accs if self.device_output else [a.cpu().numpy() for a in accs]
 
     def _finish(self, out: torch.Tensor):

@@ -16,10 +16,13 @@ import torch
 from memo_tpu.index.builder import store_from_ms
 from memo_tpu.parallel import ResidentShardedQuery as JaxResident
 from memo_tpu.parallel import make_mesh
+from memo_tpu.index.store import IntervalStore as JaxStore
 from memo_tpu.query.engine import QueryEngine as JaxEngine
+from memo_tpu_torch.index.placement import Columns
 from memo_tpu_torch.ops import query_ops
 from memo_tpu_torch.parallel import ResidentShardedQuery
 from memo_tpu_torch.query import engine as engine_mod
+from memo_tpu_torch.query.engine import QueryEngine
 
 K_MAX = 64
 REC_LEN = 700
@@ -190,6 +193,78 @@ def test_cached_dispatch_launches_nothing(stores, kernel_calls):
     assert kernel_calls["v1"] == 5 and len(rq._full_cache) == 4
     rq.conservation(0, 10, 9)  # evicted: computed again
     assert kernel_calls["v1"] == 6 and rq.dispatch_count == 6
+
+
+class _SubsetEngine(QueryEngine):
+    """A fused engine over given rows of the store, as resident's ranks
+    build theirs."""
+
+    def __init__(self, store, rows, **kwargs):
+        self._given = rows
+        super().__init__(store, backend="fused", device="cpu", device_output=True, **kwargs)
+
+    def _upload(self, store):
+        return self._given
+
+
+@pytest.mark.parametrize("stratify", [False, True], ids=["whole", "stratified"])
+@pytest.mark.parametrize("kind", ["conservation", "membership"])
+def test_engine_over_a_subset_of_rows(stores, no_count_plane, kernel_calls, stratify, kind):
+    """An engine placed from a subset of the store's rows already on the
+    device answers as the numpy engine over that sub-store, whole or in
+    length buckets (several of which mark at k=60: their batch outputs are
+    min-combined as one tensor); unstratified, its host store is the subset."""
+    store = stores[kind]
+    keep = np.flatnonzero((store.end - store.start) % 3 != 0)
+    cols = (store.rec_id, store.start, store.end, store.order)
+    sub = JaxStore(record_names=store.record_names, record_lens=store.record_lens,
+                   n_docs=store.n_docs, kind=kind, rec_id=cols[0][keep], start=cols[1][keep],
+                   end=cols[2][keep], order=cols[3][keep])
+    eng = _SubsetEngine(store, Columns(*(torch.from_numpy(a[keep]) for a in cols)),
+                        stratify=stratify)
+    oracle = JaxEngine(sub, backend="numpy")
+    assert (eng._children is not None) == stratify
+    if stratify:
+        assert sum(c.store.num_intervals for _, c in eng._children) == keep.size
+        assert len([lb for lb, _ in eng._children if lb < 60 - 1]) > 1
+    else:
+        for name in ("rec_id", "start", "end", "order", "rec_offsets", "max_interval_len"):
+            np.testing.assert_array_equal(getattr(eng.store, name), getattr(sub, name))
+    for k in (1, 5, 31, 60):
+        launches = sum(kernel_calls.values())
+        outs = getattr(eng, f"{kind}_batch")("chr0", WINDOWS, k)
+        live = sum(lb < k - 1 for lb, _ in eng._children) if stratify else 1
+        assert sum(kernel_calls.values()) == launches + live
+        for (qs, qe), got in zip(WINDOWS, outs):
+            np.testing.assert_array_equal(got.numpy(), getattr(oracle, kind)("chr0", qs, qe, k))
+
+
+@pytest.mark.parametrize("kind", ["conservation", "membership"])
+def test_slab_is_the_batch_output(stores, monkeypatch, kind):
+    """The whole-record output of ``record=`` on one rank is the engine's
+    batch tensor itself, read as positions: no second copy of it."""
+    batches = []
+    batch_tensor = QueryEngine._batch_tensor
+
+    def kept(self, *args):
+        batches.append(batch_tensor(self, *args))
+        return batches[-1]
+
+    monkeypatch.setattr(QueryEngine, "_batch_tensor", kept)
+    rq = ResidentShardedQuery(stores[kind], "cpu", k_max=K_MAX, device_output=True)
+    full = getattr(rq, f"{kind}_full")(31)
+    assert len(batches) == 1 and full.data_ptr() == batches[0].data_ptr()
+
+
+def test_rows_per_shard_is_computed_on_first_use(stores):
+    """rows_per_shard (memo_tpu's nominal width) costs the placement
+    nothing; stats() reports it beside the bytes the rank really placed."""
+    rq = ResidentShardedQuery(stores["multi"], "cpu", records=list(MULTI), k_max=K_MAX)
+    assert "rows_per_shard" not in vars(rq)
+    stats = rq.stats()
+    assert "rows_per_shard" in vars(rq) and stats["rows_per_shard"] == rq.rows_per_shard
+    assert stats["placed_bytes"] == sum(t.numel() * 4 for t in rq.engine._d)
+    assert stats["placed_bytes"] >= rq.local_rows * 6 * 4
 
 
 @pytest.fixture
