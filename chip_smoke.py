@@ -1,44 +1,53 @@
 """Smoke run of memo_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA device
+    python3 chip_smoke.py --setup-cells DIR   # the set-up cells alone (an A/B of two trees)
 
 Builds the CUDA kernels from ``memo_tpu_torch/csrc`` (v1 ``fused_query_rows``
-and v2 ``fused_query_v2_rows``, both reading the placed store's rows), holds
-each against their plain PyTorch version on random stores with edge cases,
-one and three windows per launch, runs the twin of ``__graft_entry__.entry()``
-(phase 11), and drives the query paths: the single-window path through the
-CLI at the headline size (2 Mbp pivot, 16 genomes, k=31), its wall split
-into stages (store load, engine set-up, query, format, write), the engine's
-set-up split into stages (upload, the gate, the bucket split and the
-sub-stores' copy back, the card's sorts and gathers, sentinel padding, the
-layout's copy back) and the query layout it built on the
-card held to the numpy build array for array, with the device operations of one query of each kernel
-counted exactly by capturing it into a CUDA graph (the parameter copy and
-three kernels for v1, one for v2) and timed by torch.profiler; the
-batched-windows path (16 staggered 1 Mbp windows, one launch, v1 and v2,
-graphs counted the same way) through the engine and through the CLI's
-``--regions-file`` with every strategy; the HPRC-width store (90 genomes,
-~75M intervals; set-up stages and peak memory, bucket 0's card layout ==
-numpy, a CLI ``-r`` query of its index split into stages), a 160-genome store and dense_small (tools/kernel_lab.py's
-256 Kbp, 90-genome store) through the stratified engine with v2, bucket 0
-timed with both kernels; a membership store; and the multi-device layer
-(phase 10): this script run again under ``torchrun --nproc-per-node
-<device count>`` in an NCCL process group, where the dry run, the CLI's
-``--regions-file --mesh 1,<n>`` with three strategies and the n=90 store
-through every strategy run and are timed beside the in-process 1 x 1
-layout; and last (phase 12) the chromosome-scale index of SCALE_r05.json
-(128 Mbp x 90 haplotypes, ~430M intervals, built here by streaming
-synth_ms's anchors): eight 2 Mbp windows with each kernel, resident over
-the whole record (conservation and membership, one launch per bucket),
-and the CLI's ``-r`` and ``--regions-file`` (auto, resolved to resident,
-and batched). Every output is checked
-exactly against the reference loop below (memo_query.py's per-interval slice
+and v2 ``fused_query_v2_rows``, both reading the placed store's rows, and
+``window_params``, which finds their parameters on the card), holds each
+against its plain PyTorch version on random stores with edge cases, one and
+three windows per launch (the window parameters also against the numpy
+searches, at every launch this script makes), runs the twin of
+``__graft_entry__.entry()`` (phase 11), and drives the query paths: the
+single-window path through the CLI at the headline size (2 Mbp pivot, 16
+genomes, k=31), its wall split into stages (store load, engine set-up,
+query, format, write), the engine's set-up split into stages (upload, the
+gate, the bucket split, the card's sorts and gathers, sentinel padding) and
+the query layout it built and keeps on the card held to the numpy build
+array for array; the device operations of one query of each kernel counted
+exactly by capturing its window-parameter step (a copy up and one kernel)
+and its kernel function (three kernels for v1, one for v2) into CUDA
+graphs, the read of the candidate counts between them (one copy down)
+listed by torch.profiler; the batched-windows path (16 staggered 1 Mbp
+windows, one launch, v1 and v2, counted the same way) through the engine
+and through the CLI's ``--regions-file`` with every strategy; the
+HPRC-width store (90 genomes, ~75M intervals; set-up stages and memory,
+bucket 0's card layout and window parameters == numpy, a CLI ``-r`` query
+of its index split into stages), a 160-genome store and dense_small
+(tools/kernel_lab.py's 256 Kbp, 90-genome store) through the stratified
+engine with v2, bucket 0 timed with both kernels; a membership store; and
+the multi-device layer (phase 10): this script run again under ``torchrun
+--nproc-per-node <device count>`` in an NCCL process group, where the dry
+run, the CLI's ``--regions-file --mesh 1,<n>`` with three strategies and
+the n=90 store through every strategy run and are timed beside the
+in-process 1 x 1 layout; and last (phase 12) the chromosome-scale index of
+SCALE_r05.json (128 Mbp x 90 haplotypes, ~430M intervals, built here by
+streaming synth_ms's anchors): the window parameters of its shortest and
+longest rows == numpy (eight 2 Mbp windows, windows at and past the
+record's end and past 100M, k in 1/21/31/101), eight 2 Mbp windows with
+each kernel (set-up stages, host RSS, set-up peak and steady device
+bytes), resident over the whole record (conservation and membership, one
+launch per bucket), and the CLI's ``-r`` and ``--regions-file`` (auto,
+resolved to resident, and batched). Every output is checked exactly
+against the reference loop below (memo_query.py's per-interval slice
 writes), the port's single-window outputs, the other kernel, the kernels'
-plain version or the port's numpy engine. Each function's device time is printed at every cell beside
-its bound (lines v1_function and v2_function). Each phase prints one line;
-the last line is ``{"ok": true, "device": {...}}``. Any failure raises, so
-the script exits non-zero and prints no result. It exits non-zero at once
-where no CUDA device is available.
+plain version or the port's numpy engine. Each function's device time is
+printed at every cell beside its bound (lines v1_function, v2_function and
+window_function). Each phase prints one line; the last line is ``{"ok":
+true, "device": {...}}``. Any failure raises, so the script exits non-zero
+and prints no result. It exits non-zero at once where no CUDA device is
+available.
 
 The stores are synthetic and made from a seed here, on the port's own index
 builder; nothing of the JAX package is imported.
@@ -56,6 +65,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -77,17 +87,22 @@ WIDE_DOCS, WIDE_LEN = 160, 1 << 19
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores, for int32 ALU work
 EDGE_REC_LEN = 200_000  # records of the random stores that phase 2 checks v1 on
-# The device operations of one v1 query or batch, by name: the parameter
-# upload and the three kernels of csrc/fused_query.cu.
-V1_OPS = ("Memcpy HtoD", "rows_net_kernel", "tile_scan_kernel", "rows_apply_kernel")
-V1_GRAPH = {"memcpy": 1, "kernel": 3}  # the same, as CUDA graph nodes
-V2_OPS = ("Memcpy HtoD", "fused_query_v2_kernel")  # a v2 query: the upload and one kernel
-V2_GRAPH = {"memcpy": 1, "kernel": 1}
+# The device operations of one query or batch, as CUDA graph nodes. The
+# window-parameter step (query/window.py): one copy of the window starts up
+# and csrc/window_params.cu's kernel; then the read of its candidate counts,
+# one copy down, which a graph cannot hold (the profiler lists it); then
+# the kernel function: v1's three kernels (csrc/fused_query.cu) or v2's one.
+WINDOW_GRAPH = {"memcpy": 1, "kernel": 1}
+V1_KERNELS = ("rows_net_kernel", "tile_scan_kernel", "rows_apply_kernel")
+V2_KERNELS = ("fused_query_v2_kernel",)
+V1_GRAPH, V2_GRAPH = {"kernel": 3}, {"kernel": 1}  # the kernel functions
+STEP_OPS = ("Memcpy HtoD", "window_params_kernel", "Memcpy DtoH")  # profiler names
 DENSE_LEN, DENSE_DOCS = 1 << 18, 90  # dense_small: tools/kernel_lab.py's 256 Kbp, C=90 store
 PROFILE_TRIES = 3
 MESH_REPS = 3  # timed runs of each strategy on the mesh, after one checked run
 MESH_TIMEOUT_S = 300  # the torchrun of phase 10, start to end
 MESH_CHILD = "--mesh-child"  # argv[1] of the ranks phase 10 starts
+SETUP_CELLS = "--setup-cells"  # argv[1]: the set-up cells alone, for an A/B of two trees
 # The chromosome-scale index (phase 12): SCALE_r05.json's configuration, a
 # 128 Mbp pivot at HPRC width (90 haplotypes, 432,249,312 intervals there),
 # from synth_ms's anchors at the gap that gives its density.
@@ -128,9 +143,9 @@ def kernel_ms(fn, reps: int = KERNEL_REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def wall_median_s(fn, device: torch.device, reps: int = WALL_REPS) -> float:
-    """Median host-clock seconds of ``fn`` with the device synchronised
-    before and after each call, after one warm-up call."""
+def walls_s(fn, device: torch.device, reps: int = WALL_REPS) -> list[float]:
+    """Host-clock seconds of ``reps`` calls of ``fn``, the device
+    synchronised before and after each call, after one warm-up call."""
     fn()
     sync(device)
     walls = []
@@ -140,7 +155,18 @@ def wall_median_s(fn, device: torch.device, reps: int = WALL_REPS) -> float:
         fn()
         sync(device)
         walls.append(time.perf_counter() - t0)
-    return statistics.median(walls)
+    return walls
+
+
+def wall_median_s(fn, device: torch.device, reps: int = WALL_REPS) -> float:
+    """Median of :func:`walls_s`."""
+    return statistics.median(walls_s(fn, device, reps))
+
+
+def spread_ms(walls: list[float]) -> dict:
+    """Median, least and most of host-clock walls, in ms."""
+    return {"median": statistics.median(walls) * 1e3, "min": min(walls) * 1e3,
+            "max": max(walls) * 1e3, "n": len(walls)}
 
 
 def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
@@ -173,32 +199,76 @@ def timed_stages(run):
     return result, wall, dict(GLOBAL_TIMES.times)
 
 
-def layout_check(engine, store) -> dict:
-    """The engine's placed rows and host layout, built on the card, against
-    the numpy ``QueryLayout.build`` of its store, array for array (and in
-    dtype for what the host keeps); returns the numpy build's seconds."""
-    from memo_tpu_torch.index.placement import PlacedStore
-    from memo_tpu_torch.index.store import QueryLayout
+_PLAIN = weakref.WeakKeyDictionary()  # engine -> (its rows on the host, their numpy layout)
 
-    t0 = time.perf_counter()
-    want = QueryLayout.build(store)
-    numpy_s = time.perf_counter() - t0
-    host, n = engine._layout, store.num_intervals
-    for name in ("end_sorted", "col_offsets", "s_keys", "e_keys"):
-        got, exp = getattr(host, name), getattr(want, name)
+
+def plain_of(engine):
+    """The engine's placed rows copied back from the card (here, inside a
+    check, and nowhere in the port) as an ``IntervalStore`` over its
+    records, whose own record offsets and longest intervals must equal the
+    card's, and its numpy ``QueryLayout.build``; made once per engine."""
+    from memo_tpu_torch.index.store import IntervalStore, QueryLayout
+
+    if engine not in _PLAIN:
+        lay, parent = engine._layout, engine.store
+        n = lay.num_rows
+        start, end, order = (t[:n].cpu().numpy() for t in engine._d[:3])
+        rows = IntervalStore(record_names=parent.record_names, record_lens=parent.record_lens,
+                             n_docs=parent.n_docs, kind=parent.kind,
+                             rec_id=np.repeat(np.arange(parent.num_records, dtype=np.int32),
+                                              np.diff(lay.rec_offsets)),
+                             start=start.astype(np.int64), end=end.astype(np.int64), order=order)
+        check(np.array_equal(rows.rec_offsets, lay.rec_offsets)
+              and np.array_equal(rows.max_interval_len, lay.longest),
+              "card record offsets and longest intervals == IntervalStore's")
+        t0 = time.perf_counter()
+        layout = QueryLayout.build(rows)
+        _PLAIN[engine] = rows, layout, time.perf_counter() - t0
+    return _PLAIN[engine]
+
+
+def layout_check(engine, store=None) -> dict:
+    """The engine's placed rows and device layout, built on the card and
+    copied back here, against the numpy ``QueryLayout.build`` of its rows
+    (``store``'s, where given: they must be the engine's), array for array
+    and in dtype; returns the numpy build's seconds."""
+    from memo_tpu_torch.index.placement import PlacedStore
+
+    rows, want, numpy_s = plain_of(engine)
+    lay, n = engine._layout, rows.num_intervals
+    if store is not None:
+        check(all(np.array_equal(getattr(rows, a), getattr(store, a))
+                  for a in ("rec_id", "start", "end", "order")), "the engine placed the store's rows")
+    for name in ("col_offsets", "s_keys", "e_keys"):
+        got, exp = getattr(lay, name).cpu().numpy(), getattr(want, name)
         check(got.dtype == exp.dtype and np.array_equal(got, exp), f"card layout {name} == numpy")
-    check((host.monotone, host.key_stride) == (want.monotone, want.key_stride),
+    check((lay.monotone, lay.key_stride) == (want.monotone, want.key_stride),
           "card layout monotone and key stride == numpy")
     seg = np.repeat(np.arange(len(want.col_offsets) - 1), np.diff(want.col_offsets))
-    check(np.array_equal(host.s_keys - seg * host.key_stride, want.s_by_col)
-          and np.array_equal(host.e_keys - seg * host.key_stride, want.e_by_col),
+    s_keys, e_keys = lay.s_keys.cpu().numpy(), lay.e_keys.cpu().numpy()
+    check(np.array_equal(s_keys - seg * lay.key_stride, want.s_by_col)
+          and np.array_equal(e_keys - seg * lay.key_stride, want.e_by_col),
           "card layout by-column starts and ends == numpy")
-    rows = (store.start, store.end, store.order, want.end_sorted, want.start_by_end,
+    rows = (rows.start, rows.end, rows.order, want.end_sorted, want.start_by_end,
             want.order_by_end)
     for name, t, exp, fill in zip(PlacedStore._fields, engine._d, rows, (0, 0, -1, 0, 0, -1)):
         check(t.dtype == torch.int32 and np.array_equal(t[:n].cpu().numpy(), exp.astype(np.int32))
               and bool((t[n:] == fill).all()), f"placed {name} == numpy, sentinel pads")
-    return {"rows": n, "monotone": host.monotone, "equal": True, "numpy_build_s": numpy_s}
+    return {"rows": n, "monotone": lay.monotone, "equal": True, "numpy_build_s": numpy_s}
+
+
+def params_check(engine, record: str, window_sets, ks=(1, 21, 31, 101)) -> dict:
+    """The device window parameters (``query/window.py``) of each set of
+    windows of ``record`` (one launch's, at its longest length), at each k,
+    against the numpy plain version on the engine's rows: params, prefix
+    and candidate counts, exactly."""
+    cases = 0
+    for windows in window_sets:
+        for k in ks:
+            v1_inputs(engine, record, windows, k)
+            cases += 1
+    return {"launches": cases, "windows": sum(map(len, window_sets)) * len(ks), "k": list(ks),
+            "equal": True}
 
 
 # ------------------------------------------------- stores and reference loops
@@ -445,24 +515,48 @@ def phase_entry(device) -> None:
     emit("phase11_entry", shape=list(out.shape), dtype=str(out.dtype), exact_vs_numpy=True)
 
 
+WINDOW_CHECKS = {"cases": 0, "windows": 0, "max_abs_err": 0}  # the window kernel against its plain version
+
+
 def v1_inputs(engine, record: str, windows, k: int):
-    """(mlo, mhi, plo, phi, qs) rows, prefixes and the common length L of
-    ``windows``, from the engine's host search (every window at the longest
-    length, as conservation_batch runs them)."""
+    """The parameters int32[Q, 5] (mlo, mhi, plo, phi, qs), the prefix
+    int32[Q, C] and the candidate counts [2, Q] of ``windows``, found on the
+    card by the window kernel as the engine finds them (every window at the
+    longest length L, as conservation_batch runs them), checked exactly
+    against its plain version on the same tensors and against the numpy
+    searches on the engine's rows; and L."""
+    from memo_tpu_torch.query.window import window_params_numpy, window_params_reference
+
     L = max(qe - qs for qs, qe in windows)
-    params = [engine._window_params(record, qs, qs + L, k) for qs, _ in windows]
-    ranges = np.array([p[:4] + (qs,) for p, (qs, _) in zip(params, windows)], np.int64)
-    return ranges, np.stack([p[4] for p in params]), L
+    starts = [qs for qs, _ in windows]
+    wp = engine._window_params(record, starts, L, k)
+    r = engine.store.record_index(record)
+    plain = window_params_reference(engine._d, engine._layout, r, starts, L, k)
+    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(wp, plain))
+    WINDOW_CHECKS["cases"] += 1
+    WINDOW_CHECKS["windows"] += len(windows)
+    WINDOW_CHECKS["max_abs_err"] = max(WINDOW_CHECKS["max_abs_err"], err)
+    where = f"window parameters C={engine.n_docs} k={k} {record} L={L} {windows[:3]}"
+    check(err == 0, f"{where}: the window kernel != its plain version")
+    rows, layout, _ = plain_of(engine)
+    params, prefix = window_params_numpy(rows, layout, r, starts, L, k)
+    check(wp.params.dtype == wp.prefix.dtype == torch.int32, f"{where}: int32")
+    check(np.array_equal(wp.params.cpu().numpy(), params), f"{where}: params == numpy")
+    check(np.array_equal(wp.prefix.cpu().numpy(), prefix), f"{where}: prefix == numpy")
+    check(np.array_equal(wp.counts.cpu().numpy(), np.stack([params[:, 1] - params[:, 0],
+                                                             params[:, 3] - params[:, 2]])),
+          f"{where}: counts == numpy")
+    return wp, L
 
 
 def kernel_case(engine, record, windows, k, membership, kernels) -> dict[str, int]:
     """Each of ``kernels`` (name -> a function with fused_query_rows'
     signature) against the plain version on the same device tensors; returns
     each one's error (it must be 0)."""
-    from memo_tpu_torch.ops.fused_query import fused_query_rows_reference, window_args
+    from memo_tpu_torch.ops.fused_query import fused_query_rows_reference
 
-    ranges, prefix, L = v1_inputs(engine, record, windows, k)
-    args = window_args(ranges, prefix, engine.device)
+    wp, L = v1_inputs(engine, record, windows, k)
+    args = wp.params, wp.prefix
     C = engine.n_docs
     want = fused_query_rows_reference(engine._d, *args, k=k, L=L, C=C, n_docs=C,
                                       membership=membership)
@@ -521,16 +615,17 @@ def phase_kernels(device) -> dict[str, int]:
 
 def time_function(engine, record: str, windows, k: int, version: str = "v1") -> dict:
     """The v1 (fused_query_rows) or v2 (fused_query_v2_rows) function on
-    ``windows``, from the uploaded parameters: exact against its plain
-    version; device times of it, of its plain version and of the parameter
-    upload, and of its kernels (profiler). Its bound from this input's row
-    counts: 12 bytes a candidate row, read once, plus the output."""
-    from memo_tpu_torch.ops.fused_query import fused_query_rows_reference, rows_tile, window_args
+    ``windows``, from the parameters found on the card: exact against its
+    plain version; device times of it, of its plain version and of the
+    window-parameter step, and of its kernels (profiler). Its bound from this
+    input's row counts: 12 bytes a candidate row, read once, plus the
+    output."""
+    from memo_tpu_torch.ops.fused_query import fused_query_rows_reference, rows_tile
     from memo_tpu_torch.ops.fused_query_v2 import v2_constants
 
     fn = kernel_functions()[version]
-    ranges, prefix, L = v1_inputs(engine, record, windows, k)
-    args = window_args(ranges, prefix, engine.device)
+    wp, L = v1_inputs(engine, record, windows, k)
+    args = wp.params, wp.prefix
     C = engine.n_docs
     n_win = len(windows)
     err = kernel_case(engine, record, windows, k, False, {version: fn})[version]
@@ -541,26 +636,67 @@ def time_function(engine, record: str, windows, k: int, version: str = "v1") -> 
     ms = kernel_ms(run)
     plain = kernel_ms(lambda: fused_query_rows_reference(engine._d, *args, k=k, L=L, C=C,
                                                          n_docs=C, membership=False), reps=5)
-    upload = kernel_ms(lambda: window_args(ranges, prefix, engine.device))
-    rows = int((ranges[:, 1] - ranges[:, 0]).sum() + (ranges[:, 3] - ranges[:, 2]).sum())
-    n_bytes = rows * 12 + n_win * L * 4 + ranges.size * 4 + prefix.size * 4
+    starts = [qs for qs, _ in windows]
+    step = kernel_ms(lambda: engine._window_params(record, starts, L, k))
+    rows = int(wp.counts.sum())
+    n_bytes = rows * 12 + n_win * L * 4 + wp.params.numel() * 4 + wp.prefix.numel() * 4
     n_ops = n_win * L * C + rows  # one scan add per (position, column), one atomic per row
     bound, bound_by = bound_ms(n_bytes, n_ops)
-    ops = device_ops(run, V1_OPS[1:] if version == "v1" else V2_OPS[1:])  # the kernels alone
+    ops = device_ops(run, V1_KERNELS if version == "v1" else V2_KERNELS)  # the kernels alone
     return {"version": version, "C": C, "L": L, "windows": n_win, "candidate_rows": rows,
             "tile": rows_tile(C) if version == "v1" else v2_constants(C)[0],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain, "upload_ms": upload,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain, "window_params_ms": step,
             "bytes": n_bytes, "ops": n_ops, "bound_ms": bound, "bound_by": bound_by,
             "bound_share": bound / ms, "kernels_us": ops}
 
 
-def device_ops(fn, expect: tuple[str, ...]) -> list[tuple[str, float]]:
+def time_window_params(engine, record: str, windows, k: int) -> dict:
+    """The window kernel (csrc/window_params.cu) on ``windows``, one
+    launch's: exact against its plain version (:func:`v1_inputs`); device
+    times of the wrapper (the copy of the starts and the kernel) and of its
+    plain version by CUDA events over back-to-back calls, of the kernel
+    alone by the profiler, and the step's wall with the read of its counts.
+    Its bound: what the searches must read (log2 of the rows or keys
+    searched: 4 bytes a row, 8 a key; a scan reads the record's rows once)
+    and the output, against the memory rate; a comparison a word read."""
+    from memo_tpu_torch.query.window import window_params_reference
+
+    v1_inputs(engine, record, windows, k)
+    lay, r = engine._layout, engine.store.record_index(record)
+    L = max(qe - qs for qs, qe in windows)
+    starts = [qs for qs, _ in windows]
+
+    def step():
+        return engine._window_params(record, starts, L, k)
+
+    ms = kernel_ms(step)
+    plain = kernel_ms(lambda: window_params_reference(engine._d, lay, r, starts, L, k))
+    ops = device_ops(step, ("Memcpy HtoD", "window_params_kernel"))
+    # None where the profiler's traces all missed the kernel: not measured.
+    kernel_us = next((us for name, us in ops if "window_params_kernel" in name), None)
+    wall = spread_ms(walls_s(lambda: step().counts.tolist(), engine.device))
+    n_win, C = len(windows), engine.n_docs
+    rec_rows = int(lay.rec_offsets[r + 1] - lay.rec_offsets[r])
+    depth_rows, depth_keys = rec_rows.bit_length() or 1, lay.s_keys.numel().bit_length() or 1
+    words = 4 * depth_rows * 4
+    words += 2 * (C - 1) * depth_keys * 8 if lay.monotone else rec_rows * 12
+    n_bytes = n_win * (words + 8 + (7 + C) * 4)
+    n_ops = n_win * (4 * depth_rows + (2 * (C - 1) * depth_keys if lay.monotone else rec_rows))
+    bound, bound_by = bound_ms(n_bytes, n_ops)
+    return {"windows": n_win, "C": C, "record_rows": rec_rows, "monotone": lay.monotone,
+            "ms": ms, "plain_ms": plain, "kernel_us": kernel_us,
+            "device_op_list": ops, "wall_with_count_read_ms": wall, "bytes": n_bytes, "ops": n_ops,
+            "bound_ms": bound, "bound_by": bound_by, "bound_share": bound / ms}
+
+
+def device_ops(fn, expect: tuple[str, ...], count: int | None = None) -> list[tuple[str, float]]:
     """The device operations (kernels, copies, memsets) of one call of
     ``fn``, with their device microseconds, from torch.profiler, in the
-    order they ran. Every name must hold one of ``expect``; a trace that
-    lacks one of them is taken again (the profiler has been seen to drop a
-    kernel on that machine), up to PROFILE_TRIES times, and the last is
-    returned. The count that decides is :func:`graph_ops`'."""
+    order they ran. Every name must hold one of ``expect``; a trace of
+    other than ``count`` operations (one of each of ``expect`` by default)
+    is taken again (the profiler has been seen to drop a kernel on that
+    machine), up to PROFILE_TRIES times, and the last is returned. The
+    counts that decide are :func:`graph_ops`'."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -575,7 +711,7 @@ def device_ops(fn, expect: tuple[str, ...]) -> list[tuple[str, float]]:
         ops = [(name, us) for _, name, us in ops]
         check(all(any(e in name for e in expect) for name, _ in ops),
               f"only {expect} on the device, got {ops}")
-        if len(ops) == len(expect):
+        if len(ops) == (len(expect) if count is None else count):
             break
     return ops
 
@@ -621,11 +757,40 @@ def graph_ops(fn) -> dict[str, int]:
     return counts
 
 
+def query_graphs(engine, record: str, windows, k: int) -> dict:
+    """The device operations of one query of ``windows`` (one launch): the
+    window-parameter step and the kernel function each captured into a
+    CUDA graph and counted by node type (exactly; the read of the counts
+    between them cannot be captured), and the whole query, that read
+    included, listed by torch.profiler."""
+    kernels = V1_KERNELS if engine.kernel_version == "v1" else V2_KERNELS
+    want_fn = V1_GRAPH if engine.kernel_version == "v1" else V2_GRAPH
+    L = max(qe - qs for qs, qe in windows)
+    starts = [qs for qs, _ in windows]
+    step = graph_ops(lambda: engine._window_params(record, starts, L, k))
+    check(step == WINDOW_GRAPH, f"the window-parameter step of {len(windows)} window(s) is "
+                                f"{WINDOW_GRAPH}: {step}")
+    wp = engine._window_params(record, starts, L, k)
+    fn = kernel_functions()[engine.kernel_version]
+    C = engine.n_docs
+    function = graph_ops(lambda: fn(engine._d, wp.params, wp.prefix, k=k, L=L, C=C, n_docs=C,
+                                    membership=False))
+    check(function == want_fn, f"the {engine.kernel_version} function is {want_fn}: {function}")
+    query = ((lambda: engine.conservation(record, *windows[0], k)) if len(windows) == 1
+             else (lambda: engine.conservation_batch(record, windows, k)))
+    ops = device_ops(query, STEP_OPS + kernels, sum(step.values()) + 1 + len(kernels))
+    copies = [sum(kind in name for name, _ in ops) for kind in ("Memcpy HtoD", "Memcpy DtoH")]
+    check(copies == [1, 1], f"one copy up and one down a query: {copies} in {ops}")
+    return {"step_graph": step, "function_graph": function,
+            "device_ops": sum(step.values()) + 1 + sum(function.values()), "device_op_list": ops}
+
+
 def phase_headline(device, tmp: str):
     from memo_tpu_torch import cli
     from memo_tpu_torch.ops.fused_query import fused_query_rows
     from memo_tpu_torch.query.engine import QueryEngine
     from memo_tpu_torch.query.output import format_conservation
+    from memo_tpu_torch.query.window import window_params
 
     L = PIVOT_LEN
     t0 = time.perf_counter()
@@ -635,13 +800,14 @@ def phase_headline(device, tmp: str):
     out = os.path.join(tmp, "cons.txt")
     store.save(npz)
 
-    fused_query_rows.launches = 0
+    fused_query_rows.launches = window_params.launches = 0
     rc, cli_s, cli_stages = timed_stages(lambda: cli.main(
         ["query", "-b", npz, "-k", str(K), "-r", f"chr1:0-{L}", "-o", out,
          "--device", device.type, "--stats"]))
-    launches = fused_query_rows.launches
+    launches = {"v1": fused_query_rows.launches, "window": window_params.launches}
     check(rc == 0, "CLI query exit code")
-    check(launches > 0, "the CLI query launched the v1 kernel")
+    check(launches["v1"] > 0 and launches["window"] > 0,
+          f"the CLI query launched the window and v1 kernels: {launches}")
 
     windows = [(w, min(w + WINDOW, L)) for w in range(0, L, WINDOW)]
     t0 = time.perf_counter()
@@ -662,30 +828,30 @@ def phase_headline(device, tmp: str):
     fused, init_s, init_stages = timed_stages(
         lambda: QueryEngine(store, backend="fused", device=device, chunk_positions=L))
     setup_peak = torch.cuda.max_memory_allocated()
+    steady = torch.cuda.memory_allocated()
     layout = layout_check(fused, store)
+    wins = batch_windows(PIVOT_LEN)
+    params = params_check(fused, "chr1", [[(0, L)], wins] + [[w] for w in wins])
     oracle = QueryEngine(store, backend="numpy", device="cpu")
     for k in (21, 51, 101):
         check(np.array_equal(fused.conservation("chr1", 0, L, k), oracle.conservation("chr1", 0, L, k)),
               f"fused == numpy engine at k={k}")
 
-    # The device operations of one headline query (result left on the device).
+    # The device operations of one headline query (result left on the device),
+    # and its wall.
     resident = QueryEngine(store, backend="fused", device=device, chunk_positions=L,
                            device_output=True)
-    query = lambda: resident.conservation("chr1", 0, L, K)  # noqa: E731
-    graph = graph_ops(query)
-    check(graph == V1_GRAPH, f"one headline query is one copy and three kernels: {graph}")
-    ops = device_ops(query, V1_OPS)
+    ops = query_graphs(resident, "chr1", [(0, L)], K)
+    query_wall = spread_ms(walls_s(lambda: resident.conservation("chr1", 0, L, K), device))
     resident_v2 = QueryEngine(store, backend="fused", device=device, chunk_positions=L,
                               device_output=True, kernel_version="v2")
-    graph_v2 = graph_ops(lambda: resident_v2.conservation("chr1", 0, L, K))
-    check(graph_v2 == V2_GRAPH, f"one headline v2 query is one copy and one kernel: {graph_v2}")
+    ops_v2 = query_graphs(resident_v2, "chr1", [(0, L)], K)
     del resident_v2
 
-    # Layer breakdown of one query: host range search and prefix, parameter
-    # upload and the v1 function (device time), result copy and formatting.
-    t0 = time.perf_counter()
-    fused._window_params("chr1", 0, L, K)
-    host_ms = (time.perf_counter() - t0) * 1e3
+    # Layer breakdown of one query: the window-parameter step (device time,
+    # and wall with the read of its counts), the v1 function (device time),
+    # formatting.
+    window_fn = time_window_params(fused, "chr1", [(0, L)], K)
     kern = time_function(fused, "chr1", [(0, L)], K)
     kern_v2 = time_function(fused, "chr1", [(0, L)], K, "v2")
     res = fused.conservation("chr1", 0, L, K)
@@ -695,14 +861,15 @@ def phase_headline(device, tmp: str):
     emit("phase3_headline", intervals=store.num_intervals, n_docs=store.n_docs, L=L, k=K,
          store_build_s=build_s, cli_query_s=cli_s, cli_stages_s=cli_stages, launches=launches,
          exact_cli_bytes=True, engine_init_s=init_s, engine_init_stages=init_stages,
-         setup_peak_device_bytes=setup_peak, card_layout=layout,
-         reference_loop_s=ref_s, mbp_s=mbp_s, k_sweep_exact=[21, 51, 101],
-         device_ops=sum(graph.values()), graph_nodes=graph, device_op_list=ops,
-         graph_nodes_v2=graph_v2,
-         layers_ms={"host_ranges_prefix": host_ms, "upload": kern["upload_ms"],
+         setup_peak_device_bytes=setup_peak, steady_device_bytes=steady, card_layout=layout,
+         window_params_vs_numpy=params,
+         reference_loop_s=ref_s, mbp_s=mbp_s, query_wall_ms=query_wall,
+         k_sweep_exact=[21, 51, 101], query_ops=ops, query_ops_v2=ops_v2,
+         layers_ms={"window_params": window_fn["ms"],
+                    "window_params_with_count_read": window_fn["wall_with_count_read_ms"]["median"],
                     "v1_function": kern["ms"], "format_output": format_ms},
-         kernel=kern, kernel_v2=kern_v2)
-    return launches, kern, kern_v2, store, mbp_s
+         window_kernel=window_fn, kernel=kern, kernel_v2=kern_v2)
+    return launches, kern, kern_v2, window_fn, store, mbp_s
 
 
 def batch_windows(pivot_len: int) -> list[tuple[int, int]]:
@@ -726,7 +893,7 @@ def phase_batched(device, store):
     sub = min(1 << 14, BATCH_LEN)
     ref = reference_query_np(store, wins[3][0], wins[3][0] + sub, K)
     fields, singles, kerns = {}, None, {}
-    for version, ops_names, want_graph in (("v1", V1_OPS, V1_GRAPH), ("v2", V2_OPS, V2_GRAPH)):
+    for version in ("v1", "v2"):
         eng = QueryEngine(store, backend="fused", device=device, chunk_positions=PIVOT_LEN,
                           device_output=True, stratify=False, kernel_version=version)
         fused_query_rows.launches = fused_query_v2_rows.launches = 0
@@ -744,17 +911,15 @@ def phase_batched(device, store):
         check(np.array_equal(outs[3][:sub].cpu().numpy(), ref), f"{version} window 3 == reference loop")
         batch_s = wall_median_s(lambda: eng.conservation_batch("chr1", wins, K), device)
         single_s = wall_median_s(lambda: eng.conservation("chr1", *wins[0], K), device)
-        batch = lambda: eng.conservation_batch("chr1", wins, K)  # noqa: E731
-        graph = graph_ops(batch)
-        check(graph == want_graph, f"one {version} batch is {want_graph}: {graph}")
+        ops = query_graphs(eng, "chr1", wins, K)
         kerns[version] = time_function(eng, "chr1", wins, K, version)
+        if version == "v1":
+            kerns["window"] = time_window_params(eng, "chr1", wins, K)
         fields[version] = {"launches": launches[version], "batch_wall_ms": batch_s * 1e3,
                            "per_window_ms": batch_s * 1e3 / len(wins),
                            "single_window_ms": single_s * 1e3,
                            "batch_mbp_s": len(wins) * BATCH_LEN / batch_s / 1e6,
-                           "device_ops": sum(graph.values()), "graph_nodes": graph,
-                           "device_op_list": device_ops(batch, ops_names),
-                           "kernel": kerns[version]}
+                           "query_ops": ops, "kernel": kerns[version]}
         if version == "v1":
             singles = [o.cpu().numpy() for o in single]
         del eng
@@ -786,9 +951,12 @@ def phase_hprc(device, tmp: str):
         store, backend="fused", device=device, chunk_positions=L,
         max_intervals_per_chunk=1 << 25, device_output=True))
     setup_peak = torch.cuda.max_memory_allocated()
+    steady = torch.cuda.memory_allocated()
     check(eng._children is not None, "HPRC-width store is stratified")
     bucket0 = eng._children[0][1]
-    layout = layout_check(bucket0, bucket0.store)
+    layout = layout_check(bucket0)
+    spots = [(WINDOW, WINDOW + (1 << 15)), (L - (1 << 15) - 7, L - 7)]
+    params = params_check(bucket0, "chr1", [[(0, L)], spots, batch_windows(L)])
     dt = wall_median_s(lambda: eng.conservation("chr1", 0, L, K), device, reps=HPRC_REPS)
     out = eng.conservation("chr1", 0, L, K).cpu().numpy()
     stats = eng.last_stats.as_dict()
@@ -797,7 +965,7 @@ def phase_hprc(device, tmp: str):
         sub = (sub_qs, sub_qs + (1 << 15))
         check(np.array_equal(out[sub[0]:sub[1]], reference_query_np(store, *sub, K)),
               f"HPRC spot window {sub}")
-    buckets = [(lb, child.store.num_intervals) for lb, child in eng._children]
+    buckets = [(lb, child._layout.num_rows) for lb, child in eng._children]
     del eng, bucket0
     torch.cuda.empty_cache()
     cli_out = os.path.join(tmp, "hprc_cons.txt")
@@ -810,7 +978,7 @@ def phase_hprc(device, tmp: str):
     emit("phase4_hprc", intervals=store.num_intervals, n_docs=store.n_docs, L=L, k=K,
          store_build_s=build_s, store_save_s=save_s, engine_init_s=init_s,
          engine_init_stages=init_stages, setup_peak_device_bytes=setup_peak,
-         mbp_s=L / dt / 1e6, last_stats=stats, buckets=buckets, peak_device_bytes=peak,
+         steady_device_bytes=steady, bucket0_window_params_vs_numpy=params, mbp_s=L / dt / 1e6, last_stats=stats, buckets=buckets, peak_device_bytes=peak,
          spot_windows_exact=2, bucket0_card_layout=layout, cli_query_s=cli_s,
          cli_stages_s=cli_stages, exact_cli_bytes=True)
     return store
@@ -1167,6 +1335,12 @@ def chromosome_windows() -> list[tuple[int, int]]:
     return [(int(qs), int(qs) + CHROM_WINDOW) for qs in starts]
 
 
+def rss_bytes() -> int:
+    """This process's resident set now, in bytes."""
+    with open("/proc/self/status") as fh:
+        return next(int(line.split()[1]) for line in fh if line.startswith("VmRSS:")) * 1024
+
+
 def host_memory() -> dict:
     """This process's peak resident set and the machine's memory, in bytes."""
     import resource
@@ -1184,19 +1358,19 @@ def whole_record_errors(engine, record: str, windows, k: int, membership: bool,
     (positions of ``record``), held window by window against the plain
     version of that window alone, which fits on the card where the whole
     launch's would not. Returns each one's error (it must be 0)."""
-    from memo_tpu_torch.ops.fused_query import fused_query_rows_reference, window_args
+    from memo_tpu_torch.ops.fused_query import fused_query_rows_reference
 
     C = engine.n_docs
-    ranges, prefix, L = v1_inputs(engine, record, windows, k)
-    args = window_args(ranges, prefix, engine.device)
-    outs = {name: fn(engine._d, *args, k=k, L=L, C=C, n_docs=C, membership=membership)
+    wp, L = v1_inputs(engine, record, windows, k)
+    outs = {name: fn(engine._d, wp.params, wp.prefix, k=k, L=L, C=C, n_docs=C,
+                     membership=membership)
             for name, fn in kernel_functions().items()}
     outs["resident"] = resident_out
     errors = dict.fromkeys(outs, 0)
     for i, (qs, qe) in enumerate(windows):
-        one, one_prefix, n = v1_inputs(engine, record, [(qs, qe)], k)
-        want = fused_query_rows_reference(engine._d, *window_args(one, one_prefix, engine.device),
-                                          k=k, L=n, C=C, n_docs=C, membership=membership)[0]
+        one, n = v1_inputs(engine, record, [(qs, qe)], k)
+        want = fused_query_rows_reference(engine._d, one.params, one.prefix, k=k, L=n, C=C,
+                                          n_docs=C, membership=membership)[0]
         for name, out in outs.items():
             got = out[qs:qe] if name == "resident" else out[i, :n]
             err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
@@ -1211,15 +1385,12 @@ def function_ms(engine, record: str, windows, k: int, version: str, membership: 
     events, with its bound (12 bytes a candidate row and the output), for
     inputs whose plain version would not fit on the card:
     :func:`whole_record_errors` checks the outputs at this shape first."""
-    from memo_tpu_torch.ops.fused_query import window_args
-
     fn = kernel_functions()[version]
-    ranges, prefix, L = v1_inputs(engine, record, windows, k)
-    args = window_args(ranges, prefix, engine.device)
+    wp, L = v1_inputs(engine, record, windows, k)
     C = engine.n_docs
-    ms = kernel_ms(lambda: fn(engine._d, *args, k=k, L=L, C=C, n_docs=C, membership=membership),
-                   reps=3)
-    rows = int((ranges[:, 1] - ranges[:, 0]).sum() + (ranges[:, 3] - ranges[:, 2]).sum())
+    ms = kernel_ms(lambda: fn(engine._d, wp.params, wp.prefix, k=k, L=L, C=C, n_docs=C,
+                              membership=membership), reps=3)
+    rows = int(wp.counts.sum())
     out_bytes = len(windows) * L * (C if membership else 4)
     bound, bound_by = bound_ms(rows * 12 + out_bytes, len(windows) * L * C + rows)
     return {"version": version, "windows": len(windows), "L": L, "candidate_rows": rows,
@@ -1239,15 +1410,18 @@ def resident_whole_record(store, device, spots) -> tuple[dict, np.ndarray]:
     from memo_tpu_torch.ops.fused_query import fused_query_rows
     from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2_rows
     from memo_tpu_torch.parallel import ResidentShardedQuery
+    from memo_tpu_torch.query.window import window_params
 
     n = store.n_docs
     torch.cuda.reset_peak_memory_stats()
-    fused_query_rows.launches = fused_query_v2_rows.launches = 0
+    fused_query_rows.launches = fused_query_v2_rows.launches = window_params.launches = 0
     t0 = time.perf_counter()
     rq = ResidentShardedQuery(store, device, k_max=1024)
     sync(device)
     place_s = time.perf_counter() - t0
     setup_peak = torch.cuda.max_memory_allocated()
+    steady = torch.cuda.memory_allocated()
+    rss = rss_bytes()
     t0 = time.perf_counter()
     cons = rq.conservation_full(K)
     sync(device)
@@ -1257,7 +1431,8 @@ def resident_whole_record(store, device, spots) -> tuple[dict, np.ndarray]:
     sync(device)
     memb_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    launches = {"v1": fused_query_rows.launches, "v2": fused_query_v2_rows.launches}
+    launches = {"v1": fused_query_rows.launches, "v2": fused_query_v2_rows.launches,
+                "window": window_params.launches}
     check(tuple(cons.shape) == (CHROM_LEN,) and tuple(memb.shape) == (CHROM_LEN, n),
           f"resident whole-record shapes {tuple(cons.shape)} {tuple(memb.shape)}")
     check(rq.dispatch_count == 2 and launches["v1"] > 0, f"resident dispatches: {launches}")
@@ -1285,6 +1460,7 @@ def resident_whole_record(store, device, spots) -> tuple[dict, np.ndarray]:
     del rq
     torch.cuda.empty_cache()
     return {"place_s": place_s, "setup_peak_device_bytes": setup_peak,
+            "steady_device_bytes": steady, "rss_after_setup_bytes": rss,
             "conservation_dispatch_s": cons_s, "membership_dispatch_s": memb_s,
             "peak_device_bytes": peak, "launches": launches, "stats": stats,
             "functions": functions, "spots_exact": len(spots),
@@ -1307,6 +1483,7 @@ def phase_chromosome(device, tmp: str):
     from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2_rows
     from memo_tpu_torch.query.engine import QueryEngine
     from memo_tpu_torch.query.output import format_conservation
+    from memo_tpu_torch.query.window import window_params
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1330,7 +1507,10 @@ def phase_chromosome(device, tmp: str):
     spots = [(wins[1][0] + 54_321, wins[1][0] + 54_321 + SPOT),
              (wins[6][0] + 777_777, wins[6][0] + 777_777 + SPOT)]
     check(spots[-1][0] > 100_000_000, "a spot window lies past position 100M")
-    launches = {"v1": 0, "v2": 0}
+    # Windows at the record's end and past it.
+    edges = [(CHROM_LEN - 1000, CHROM_LEN), (CHROM_LEN - 7, CHROM_LEN + 5000),
+             (CHROM_LEN, CHROM_LEN + 64), (CHROM_LEN + 100_000, CHROM_LEN + 100_001)]
+    launches = {"v1": 0, "v2": 0, "window": 0}
     engines, outs = {}, None
     for version in ("v1", "v2"):
         torch.cuda.reset_peak_memory_stats()
@@ -1339,7 +1519,15 @@ def phase_chromosome(device, tmp: str):
             store, backend="fused", device=device, chunk_positions=CHROM_WINDOW,
             device_output=True, kernel_version=version))
         setup_peak = torch.cuda.max_memory_allocated()
+        steady = torch.cuda.memory_allocated()
+        rss = rss_bytes()
         check(eng._children is not None, "the chromosome store is stratified")
+        if version == "v1":  # the card's window parameters of the shortest and longest rows
+            params = {lb: params_check(c, "chr1", [wins] + [[w] for w in wins + edges + spots])
+                      for lb, c in (eng._children[0], eng._children[-1])}
+            for _, c in eng._children:
+                _PLAIN.pop(c, None)
+        window_params.launches = 0
         got = [eng.conservation("chr1", qs, qe, K).cpu().numpy() for qs, qe in wins]
         for qs, qe in spots:
             i = next(j for j, (ws, we) in enumerate(wins) if ws <= qs and qe <= we)
@@ -1357,11 +1545,15 @@ def phase_chromosome(device, tmp: str):
             rows.append(eng.last_stats.candidate_intervals)
         launches[version] += (fused_query_rows.launches if version == "v1"
                               else fused_query_v2_rows.launches)
+        launches["window"] += window_params.launches
         child = eng._children[0][1]  # the only bucket that marks at K
         functions = [time_function(child, "chr1", [w], K, version) for w in wins]
+        if version == "v1":
+            window_fn = time_window_params(child, "chr1", [wins[3]], K)
         engines[version] = {"engine_init_s": init_s, "engine_init_stages": stages,
                             "setup_peak_device_bytes": setup_peak,
-                            "buckets": [(lb, c.store.num_intervals) for lb, c in eng._children],
+                            "steady_device_bytes": steady, "rss_after_setup_bytes": rss,
+                            "buckets": [(lb, c._layout.num_rows) for lb, c in eng._children],
                             "window_wall_ms": [w * 1e3 for w in walls],
                             "window_mbp_s": [CHROM_WINDOW / w / 1e6 for w in walls],
                             "candidate_rows": rows, "functions": functions}
@@ -1370,18 +1562,21 @@ def phase_chromosome(device, tmp: str):
 
     resident, cons = resident_whole_record(store, device, spots)
     launches["v1"] += resident["launches"]["v1"]
+    launches["window"] += resident["launches"]["window"]
     for (qs, qe), out in zip(wins, outs):
         check(np.array_equal(cons[qs:qe], out), f"resident window {qs}-{qe} == the engine's")
     del store, cons
 
     q = 3  # the CLI -r window
     cli_out = os.path.join(tmp, "chrom_cons.txt")
-    fused_query_rows.launches = 0
+    fused_query_rows.launches = window_params.launches = 0
     rc, cli_s, cli_stages = timed_stages(lambda: cli.main(
         ["query", "-b", npz, "-k", str(K), "-r", f"chr1:{wins[q][0]}-{wins[q][1]}", "-o", cli_out,
          "--device", device.type]))
-    check(rc == 0 and fused_query_rows.launches > 0, "chromosome CLI -r ran the v1 kernel")
+    check(rc == 0 and fused_query_rows.launches > 0 and window_params.launches > 0,
+          "chromosome CLI -r ran the window and v1 kernels")
     launches["v1"] += fused_query_rows.launches
+    launches["window"] += window_params.launches
     with open(cli_out, "rb") as fh:
         check(fh.read() == format_conservation(outs[q]), "chromosome CLI -r bytes == the engine's")
     regions = os.path.join(tmp, "chrom_regions.txt")
@@ -1394,7 +1589,7 @@ def phase_chromosome(device, tmp: str):
     regions_s = {}
     try:
         for strategy in ("auto", "batched"):
-            fused_query_rows.launches = 0
+            fused_query_rows.launches = window_params.launches = 0
             t0 = time.perf_counter()
             rc = cli.main(["query", "-b", npz, "-k", str(K), "--regions-file", regions, "-o",
                            os.path.join(tmp, f"chrom_{strategy}"), "--strategy", strategy,
@@ -1403,6 +1598,7 @@ def phase_chromosome(device, tmp: str):
             check(rc == 0 and fused_query_rows.launches > 0,
                   f"chromosome --regions-file {strategy} ran the v1 kernel")
             launches["v1"] += fused_query_rows.launches
+            launches["window"] += window_params.launches
     finally:
         cli.log.removeHandler(handler)
     check("--strategy auto resolved to 'resident'" in records, f"auto resolved to resident: {records}")
@@ -1417,15 +1613,78 @@ def phase_chromosome(device, tmp: str):
     emit("phase12_chromosome", L=CHROM_LEN, n_docs=CHROM_DOCS, k=K, gap=CHROM_GAP,
          intervals=n_rows, scale_r05_intervals=CHROM_INTERVALS, bucket_rows=by_bucket.tolist(),
          rows_ge_k_max=long_rows, store_build_s=build_s, store_save_s=save_s, **host,
-         windows=wins, spot_windows=spots, engines=engines, resident=resident,
+         windows=wins, spot_windows=spots, edge_windows=edges, window_params_vs_numpy=params,
+         engines=engines, resident=resident,
          cli_r_window=list(wins[q]), cli_query_s=cli_s, cli_stages_s=cli_stages,
          cli_bytes_equal=True, regions_cli_s=regions_s, auto_resolved="resident",
-         regions_byte_identical=True, launches=launches)
+         regions_byte_identical=True, launches=launches, window_kernel=window_fn)
     whole = resident["whole_record_max_abs_err"].values()
-    return ({v: engines[v]["functions"][q] for v in ("v1", "v2")}, launches,
+    return ({v: engines[v]["functions"][q] for v in ("v1", "v2")} | {"window": window_fn}, launches,
             {v: max(errors[v] for errors in whole) for v in ("v1", "v2")})
 
 
+def setup_cells(tmp: str) -> int:
+    """The set-up cells, measured on the ``memo_tpu_torch`` beside this
+    file (so a copy of this script in another tree measures that tree's):
+    the headline single-window query wall (fused, result on the card,
+    median of WALL_REPS with its spread); and at the chromosome scale, its
+    store loaded from ``tmp``/chrom.npz (built from the seed and saved there
+    by the first run), the stratified engine's set-up with its stages, host
+    RSS before and after it, set-up peak and steady device bytes;
+    ResidentShardedQuery's placement, the same; and the CLI ``-r`` of
+    window 3 with its stages. Prints one line, ``setup_cells {...}``."""
+    from memo_tpu_torch import cli
+    from memo_tpu_torch.index.store import IntervalStore
+    from memo_tpu_torch.parallel import ResidentShardedQuery
+    from memo_tpu_torch.query.engine import QueryEngine
+
+    device = torch.device("cuda")
+    card = gpu_name_and_power()
+    store = build_store(np.random.default_rng(SEED))
+    eng = QueryEngine(store, backend="fused", device=device, chunk_positions=PIVOT_LEN,
+                      device_output=True)
+    headline = spread_ms(walls_s(lambda: eng.conservation("chr1", 0, PIVOT_LEN, K), device))
+    del eng, store
+    torch.cuda.empty_cache()
+
+    npz = os.path.join(tmp, "chrom.npz")
+    if not os.path.exists(npz):
+        os.makedirs(tmp, exist_ok=True)
+        build_chromosome_store(np.random.default_rng(SEED)).save(npz, compressed=False)
+    t0 = time.perf_counter()
+    store = IntervalStore.load(npz)
+    load_s = time.perf_counter() - t0
+
+    def measured(make) -> dict:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rss0 = rss_bytes()
+        obj, wall, stages = timed_stages(lambda: (make(), sync(device))[0])
+        out = {"s": wall, "stages": stages, "setup_peak_device_bytes":
+               torch.cuda.max_memory_allocated(), "steady_device_bytes":
+               torch.cuda.memory_allocated(), "rss_before_bytes": rss0,
+               "rss_after_setup_bytes": rss_bytes()}
+        del obj
+        return out
+
+    engine = measured(lambda: QueryEngine(store, backend="fused", device=device,
+                                          chunk_positions=CHROM_WINDOW, device_output=True))
+    resident = measured(lambda: ResidentShardedQuery(store, device, k_max=1024))
+    del store
+    torch.cuda.empty_cache()
+    qs, qe = chromosome_windows()[3]
+    rc, cli_s, cli_stages = timed_stages(lambda: cli.main(
+        ["query", "-b", npz, "-k", str(K), "-r", f"chr1:{qs}-{qe}", "-o",
+         os.path.join(tmp, "cli_r.txt"), "--device", "cuda"]))
+    check(rc == 0, "setup cells: CLI -r exit code")
+    emit("setup_cells", card=card, tree=os.path.dirname(os.path.abspath(__file__)),
+         headline_query_wall_ms=headline, chrom_load_s=load_s, engine=engine,
+         resident=resident, cli_r_s=cli_s, cli_r_stages=cli_stages)
+    return 0
+
+
+WINDOW_KEYS = ("windows", "C", "record_rows", "ms", "plain_ms", "kernel_us",
+               "wall_with_count_read_ms", "bytes", "bound_ms", "bound_share")
 FUNCTION_KEYS = ("C", "L", "windows", "candidate_rows", "tile", "ms", "plain_ms", "bytes",
                  "bound_ms", "bound_share", "kernels_us")
 
@@ -1441,7 +1700,7 @@ def main() -> int:
     phase_entry(device)
     kernel_err = phase_kernels(device)
     with tempfile.TemporaryDirectory() as tmp:
-        launches, head, head_v2, store, mbp_s = phase_headline(device, tmp)
+        launches, head, head_v2, head_window, store, mbp_s = phase_headline(device, tmp)
         singles, batch = phase_batched(device, store)
         del store
         v2_launches = phase_cli_regions(device, tmp, singles, mbp_s["torch"])
@@ -1461,12 +1720,15 @@ def main() -> int:
     for version in ("v1", "v2"):
         emit(f"{version}_function", card=card, **{name: {key: cell[key] for key in FUNCTION_KEYS}
                                                   for name, cell in cells[version].items()})
+    windows = {"headline": head_window, "batch": batch["window"], "chromosome": chrom["window"]}
+    emit("window_function", card=card, checks=WINDOW_CHECKS,
+         **{name: {key: cell[key] for key in WINDOW_KEYS} for name, cell in windows.items()})
     print(json.dumps({"kernels": [{
         "name": "fused_query_rows",
         "route": "cuda",
         "source": "memo_tpu_torch/csrc/fused_query.cu",
         "replaces": "memo_tpu/ops/pallas_query.py:236",
-        "launches": launches + chrom_launches["v1"],
+        "launches": launches["v1"] + chrom_launches["v1"],
         "max_abs_err": max(kernel_err["v1"], chrom_err["v1"],
                            *(c["max_abs_err"] for c in cells["v1"].values())),
         "ms": head["ms"],
@@ -1487,6 +1749,19 @@ def main() -> int:
         "bound_ms": head_v2["bound_ms"],
         "bound_by": head_v2["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "window_params",
+        "route": "cuda",
+        "source": "memo_tpu_torch/csrc/window_params.cu",
+        # No TPU kernel: memo_tpu searches the host (engine.py:385-400).
+        "replaces": "memo_tpu/query/engine.py:385",
+        "launches": launches["window"] + chrom_launches["window"],
+        "max_abs_err": WINDOW_CHECKS["max_abs_err"],
+        "ms": head_window["ms"],
+        "plain_ms": head_window["plain_ms"],
+        "bound_ms": head_window["bound_ms"],
+        "bound_by": head_window["bound_by"],
+        "library_ms": None,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1498,4 +1773,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [MESH_CHILD]:
         raise SystemExit(mesh_child(sys.argv[2]))
+    if sys.argv[1:2] == [SETUP_CELLS]:
+        raise SystemExit(setup_cells(sys.argv[2]))
     raise SystemExit(main())

@@ -7,7 +7,7 @@
 // dead ones) and its kernel body (_make_kernel, :100, handed to
 // pl.pallas_call at :328). Same contract: window q is [qs, qs + L) at k, with
 // candidate rows [mlo, mhi) in start order and [plo, phi) in end order
-// (memo_tpu_torch/query/engine.py::_window_params finds them on the host);
+// (memo_tpu_torch/query/window.py::window_params finds them on the card);
 // row i of a range is an event when it is live, end - start < k - 1 and
 // 0 <= order < C:
 //

@@ -4,9 +4,11 @@ memo_tpu builds the fused query's layout on the host (``QueryLayout.build``:
 two ``np.lexsort`` permutations, their gathers and the composite keys) and
 then uploads the gathered arrays. Here the store's columns go up once and
 the permutations are stable ``torch.argsort``s of one composite int64 key
-each, so the sorts and gathers run where the placed store lives; the host
-gets back only what it reads for each window (the range search over
-``end_sorted`` and :meth:`QueryLayout.prefix_counts`' keys).
+each, so the sorts and gathers run where the placed store lives, and the
+layout stays there (:class:`DeviceLayout`): the window search
+(``query/window.py``) reads the placed rows and the column keys on the
+device, and only R-sized arrays (record offsets, longest interval per
+record) come back to the host.
 
 Each composite key orders rows exactly as the lexsort it replaces, ties in
 row order, whatever order the store is in: with ``span`` above every
@@ -15,9 +17,8 @@ by segment, then by value. ``QueryLayout.build`` stays the plain version the
 tests hold this to.
 
 The stratified engine splits the uploaded columns into length buckets on
-the device as well (:func:`split_by_length`), places each bucket from its
-rows there and copies its sub-store back for the host's searches
-(:func:`host_store`).
+the device as well (:func:`split_by_length`) and places each bucket from its
+rows there.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from memo_tpu_torch.index.store import IntervalStore, QueryLayout
+from memo_tpu_torch.index.store import IntervalStore
 from memo_tpu_torch.utils.profiling import stage_timer
 
 
@@ -46,20 +47,25 @@ class PlacedStore(NamedTuple):
 
 
 @dataclass
-class HostLayout:
-    """The part of :class:`QueryLayout` the host reads for each window: the
-    per-record end order for the range search, and the composite column
-    keys (with their stride, offsets and monotone flag) for the prefix."""
+class DeviceLayout:
+    """The rest of :class:`QueryLayout` that the window search reads, beside
+    the placed rows: on the device, the composite column keys ``seg *
+    key_stride + value`` of the (record, order) segments and their offsets;
+    on the host, the placed rows' record offsets and each record's longest
+    interval (R-sized)."""
 
-    end_sorted: np.ndarray  # int64[M]
-    col_offsets: np.ndarray  # int64[R*C + 1]
-    monotone: bool
+    col_offsets: torch.Tensor  # int64[R*C + 1]
+    s_keys: torch.Tensor  # int64[M]; empty for an empty store or orders outside [0, C)
+    e_keys: torch.Tensor  # int64[M]; likewise
     key_stride: int
-    s_keys: np.ndarray  # int64[M]; empty for an empty store or orders outside [0, C)
-    e_keys: np.ndarray  # int64[M]; likewise
+    monotone: bool
+    n_docs: int
+    rec_offsets: np.ndarray  # int64[R + 1]: record r's rows are rec_offsets[r]:rec_offsets[r+1]
+    longest: np.ndarray  # int64[R]: the longest end - start of record r's rows, 0 where none
+    num_rows: int
 
-    # Reads only monotone, key_stride, s_keys and e_keys.
-    prefix_counts = QueryLayout.prefix_counts
+    def device_tensors(self) -> tuple[torch.Tensor, ...]:
+        return self.col_offsets, self.s_keys, self.e_keys
 
 
 @contextlib.contextmanager
@@ -79,6 +85,16 @@ def _check_keys_fit(n_segments: int, span: int) -> None:
         )
 
 
+I32 = torch.iinfo(torch.int32)
+
+
+def _check_int32(lo: int, hi: int) -> None:
+    """The placed rows are int32; the window search also needs every
+    coordinate above int32's least value (``query/window.py``)."""
+    if lo <= I32.min or hi > I32.max:
+        raise OverflowError(f"coordinates {lo}..{hi} do not fit the device's int32 rows")
+
+
 class Columns(NamedTuple):
     """A store's columns on the device, in the store's row order."""
 
@@ -96,18 +112,21 @@ def upload_columns(store: IntervalStore, device) -> Columns:
                          for a in (store.rec_id, store.start, store.end, store.order)))
 
 
-def place_store_and_layout(store: IntervalStore, device, pad: int) -> tuple[PlacedStore, HostLayout]:
+def place_store_and_layout(store: IntervalStore, device,
+                           pad: int) -> tuple[PlacedStore, DeviceLayout]:
     """:func:`place_columns` of the store's columns, uploaded once."""
     return place_columns(upload_columns(store, device), store.num_records, store.n_docs, pad)
 
 
 def place_columns(cols: Columns, num_records: int, n_docs: int,
-                  pad: int) -> tuple[PlacedStore, HostLayout]:
-    """A store, from its columns on the device, as six int32 tensors there
-    with ``pad`` sentinel rows each (a slice of up to ``pad`` rows from any
-    row stays inside the tensor), and the host's share of its query layout.
-    Equal, array for array, to ``QueryLayout.build``; raises where the
-    composite keys would overflow."""
+                  pad: int) -> tuple[PlacedStore, DeviceLayout]:
+    """A store, from its columns on the device (rows of each record
+    contiguous, in the store's order), as six int32 tensors there with
+    ``pad`` sentinel rows each (a slice of up to ``pad`` rows from any row
+    stays inside the tensor), and the rest of its query layout. Equal, array
+    for array, to ``QueryLayout.build`` and to ``IntervalStore``'s record
+    offsets and longest intervals; raises where the composite keys would
+    overflow or a coordinate does not fit int32."""
     start, end, order = cols.start, cols.end, cols.order
     device = start.device
     n, R, C = start.numel(), num_records, n_docs
@@ -115,11 +134,19 @@ def place_columns(cols: Columns, num_records: int, n_docs: int,
         # memo_tpu's key stride (it must exceed every coordinate: ends reach
         # 2x a record's length); ``span`` also covers negative coordinates.
         hi = int(torch.maximum(start.max(), end.max())) if n else -1
-        lo = min(int(torch.minimum(start.min(), end.min())), 0) if n else 0
+        least = int(torch.minimum(start.min(), end.min())) if n else 0
+        lo = min(least, 0)
         stride, span = hi + 2, hi + 2 - lo
         in_range = bool(((order >= 0) & (order < C)).all()) if n else True
         _check_keys_fit(R * C if in_range else R, span)
+        _check_int32(least, hi)
         rec = cols.rec.to(torch.int64)
+        # IntervalStore's record offsets and longest interval per record.
+        rec_counts = torch.bincount(rec, minlength=R)[:R]
+        rec_offsets = torch.zeros(R + 1, dtype=torch.int64, device=device)
+        rec_offsets[1:] = torch.cumsum(rec_counts, 0)
+        longest = torch.zeros(R, dtype=torch.int64, device=device).scatter_reduce_(
+            0, rec, end - start, "amax", include_self=False)
         perm_e = torch.argsort(rec * span + (end - lo), stable=True)
         end_sorted, start_by_end, order_by_end = end[perm_e], start[perm_e], order[perm_e]
         del perm_e
@@ -141,6 +168,9 @@ def place_columns(cols: Columns, num_records: int, n_docs: int,
             monotone, keys = False, None
             col_offsets = torch.zeros(R * C + 1, dtype=torch.int64, device=device)
         del rec
+        if keys is None:  # QueryLayout.build's stride and keys where it keeps none
+            stride = 1
+            keys = (torch.zeros(0, dtype=torch.int64, device=device),) * 2
 
     with _stage("place.pad", device):
 
@@ -157,19 +187,20 @@ def place_columns(cols: Columns, num_records: int, n_docs: int,
             padded(start_by_end, 0),
             padded(order_by_end, -1),
         )
-        del start_by_end, order_by_end
+        del end_sorted, start_by_end, order_by_end
 
-    with _stage("place.copy_back", device):
-        empty = np.zeros(0, np.int64)
-        host = HostLayout(
-            end_sorted=end_sorted.cpu().numpy(),
-            col_offsets=col_offsets.cpu().numpy(),
-            monotone=monotone,
-            key_stride=stride if keys is not None else 1,
-            s_keys=keys[0].cpu().numpy() if keys is not None else empty,
-            e_keys=keys[1].cpu().numpy() if keys is not None else empty,
-        )
-    return placed, host
+    layout = DeviceLayout(
+        col_offsets=col_offsets,
+        s_keys=keys[0],
+        e_keys=keys[1],
+        key_stride=stride,
+        monotone=monotone,
+        n_docs=C,
+        rec_offsets=rec_offsets.cpu().numpy(),
+        longest=longest.cpu().numpy(),
+        num_rows=n,
+    )
+    return placed, layout
 
 
 def short_share(cols: Columns, below: int) -> float:
@@ -195,31 +226,3 @@ def split_by_length(cols: Columns, edges) -> list[tuple[int, Columns]]:
             if rows.numel():
                 out.append((b, Columns(*(c[rows] for c in cols))))
     return out
-
-
-def host_store(cols: Columns, like: IntervalStore) -> IntervalStore:
-    """The IntervalStore of ``cols``, rows of ``like``'s records, copied back
-    to the host; its record offsets and longest interval per record
-    (``IntervalStore``'s own definitions) are computed on the device."""
-    device = cols.start.device
-    R = like.num_records
-    with _stage("engine.bucket_copy_back", device):
-        counts = torch.bincount(cols.rec.to(torch.int64), minlength=R)
-        offsets = torch.zeros(counts.numel() + 1, dtype=torch.int64, device=device)
-        offsets[1:] = torch.cumsum(counts, 0)
-        # Record r's rows are rows offsets[r]:offsets[r+1]; an empty record's longest is 0.
-        seg = torch.repeat_interleave(torch.arange(R, device=device), counts[:R])
-        longest = torch.zeros(R, dtype=torch.int64, device=device).scatter_reduce_(
-            0, seg, (cols.end - cols.start)[: seg.numel()], "amax", include_self=False)
-        return IntervalStore(
-            record_names=like.record_names,
-            record_lens=like.record_lens,
-            n_docs=like.n_docs,
-            kind=like.kind,
-            rec_id=cols.rec.cpu().numpy(),
-            start=cols.start.cpu().numpy(),
-            end=cols.end.cpu().numpy(),
-            order=cols.order.cpu().numpy(),
-            rec_offsets=offsets.cpu().numpy(),
-            max_interval_len=longest.cpu().numpy(),
-        )

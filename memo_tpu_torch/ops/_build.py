@@ -95,6 +95,11 @@ def load_library() -> ctypes.CDLL:
     # L, C, k, tile, stages, n_docs, membership; the stream.
     lib.memo_fused_query_v2_rows.argtypes = [ptr] * 11 + [i32] * 9 + [ptr]
     lib.memo_fused_query_v2_rows.restype = i32
+    # window parameters: 4 store row pointers, 2 key pointers, starts, out;
+    # rec_lo, rec_n, n_keys, L, k, stride, first_key; Q, C, monotone; the stream.
+    i64 = ctypes.c_longlong
+    lib.memo_window_params.argtypes = [ptr] * 8 + [i64] * 7 + [i32] * 3 + [ptr]
+    lib.memo_window_params.restype = i32
     lib.memo_cuda_error_string.argtypes = [i32]
     lib.memo_cuda_error_string.restype = ctypes.c_char_p
     return lib

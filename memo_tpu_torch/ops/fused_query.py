@@ -8,8 +8,9 @@ both orders, so every (qs, k) query reads two already-sorted event streams:
 - minus stream: -1 at ``st``, in start order;
 - plus stream: +1 at ``ce``, in end order.
 
-Events left of the window enter as the host-computed ``prefix`` (coverage at
-position 0, ``QueryLayout.prefix_counts``); events right of it never matter.
+Events left of the window enter as the ``prefix`` (coverage at position 0,
+``QueryLayout.prefix_counts``, found on the device by ``query/window.py``);
+events right of it never matter.
 
 :func:`fused_query_rows` runs the hand-written CUDA kernel
 (``csrc/fused_query.cu``) on the store's rows as ``engine.place_store`` put
@@ -216,24 +217,6 @@ def launch_error(name: str, lib, err: int) -> RuntimeError:
     )
 
 
-def window_args(params: np.ndarray, prefix: np.ndarray,
-                device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The parameter block int32[Q, 5] (mlo, mhi, plo, phi, qs per window)
-    and the prefix int32[Q, C] on ``device``, as two views of one tensor:
-    the host writes both into one pinned buffer, so a CUDA device gets them
-    in one host-to-device copy, without waiting on it."""
-    params = np.asarray(params).reshape(-1, 5)
-    prefix = np.asarray(prefix).reshape(params.shape[0], -1)
-    n_win, C = prefix.shape
-    device = torch.device(device)
-    host = torch.empty(n_win * (5 + C), dtype=torch.int32, pin_memory=device.type == "cuda")
-    view = host.numpy()
-    view[: n_win * 5] = params.ravel()
-    view[n_win * 5 :] = prefix.ravel()
-    dev = host.to(device, non_blocking=True)
-    return dev[: n_win * 5].view(n_win, 5), dev[n_win * 5 :].view(n_win, C)
-
-
 def fused_query_rows_reference(placed, params, prefix, *, k: int, L: int, C: int, n_docs: int,
                                membership: bool):
     """Plain PyTorch version of :func:`fused_query_rows`: the event streams
@@ -252,7 +235,7 @@ def fused_query_rows(placed, params: torch.Tensor, prefix: torch.Tensor, *, k: i
     """Conservation int32[Q, L] or membership int8[Q, L, C] of Q windows of
     L positions at k, from the placed store (``engine.PlacedStore``, six
     int32 row tensors), the parameter block ``params`` int32[Q, 5] and the
-    prefix int32[Q, C] (:func:`window_args` puts both on the device).
+    prefix int32[Q, C] (``query/window.py`` finds both on the device).
 
     On CUDA tensors this launches the kernels of ``csrc/fused_query.cu`` on
     the current stream, once for the whole batch, and counts the launch in

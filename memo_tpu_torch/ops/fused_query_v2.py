@@ -3,7 +3,7 @@
 Counterpart of :mod:`memo_tpu.ops.pallas_query_v2`, the variant for dense
 windows, with exactly the contract of v1's :func:`fused_query_rows`: the
 placed store's six row tensors, the parameter block int32[Q, 5] and the
-prefix int32[Q, C] from ``window_args`` in, conservation int32[Q, L] or
+prefix int32[Q, C] in, conservation int32[Q, L] or
 membership int8[Q, L, C] out, and the same plain version,
 :func:`fused_query_rows_reference`. :func:`fused_query_v2_rows` runs the
 hand-written CUDA kernel of ``csrc/fused_query_v2.cu``; its source note

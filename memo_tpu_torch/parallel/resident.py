@@ -135,8 +135,7 @@ class ResidentShardedQuery:
         mine = sorted(store.record_index(name) for name in self._mine if name is not None)
         self.engine = _RowsEngine(store, [self._slab_rows(r, s) for r in mine], self.k_max,
                                   self.device)
-        self.local_rows = sum(c.store.num_intervals for _, c in self.engine._children or
-                              [(0, self.engine)])  # store rows this rank holds
+        self.local_rows = sum(c._layout.num_rows for c in self._placed())  # store rows held here
         # Whole-record outputs memoized per (k, mode); a bounded LRU, so a k
         # sweep cannot accumulate stale device memory.
         self._full_cache: dict[tuple[int, bool], torch.Tensor] = {}
@@ -150,6 +149,11 @@ class ResidentShardedQuery:
         lo, hi = store.window_bounds(
             name, slab * self.B, min((slab + 1) * self.B, int(store.record_lens[r])), self.k_max)
         return lo, max(min(hi, int(store.rec_offsets[r + 1])), lo)
+
+    def _placed(self) -> list[QueryEngine]:
+        """The engines that hold this rank's rows: one per length bucket, or
+        the engine itself."""
+        return [c for _, c in self.engine._children or [(0, self.engine)]]
 
     @functools.cached_property
     def rows_per_shard(self) -> int:
@@ -169,8 +173,9 @@ class ResidentShardedQuery:
     def stats(self) -> dict:
         """memo_tpu's keys (``resident_bytes_per_shard`` is its nominal
         rows_per_shard * 12 * n_batch), and the port's own: the rows this
-        rank holds and the bytes of their placement on the device."""
-        placed = [c._d for _, c in self.engine._children or [(0, self.engine)]]
+        rank holds and the bytes of their placement on the device, rows and
+        query layout."""
+        placed = [(*c._d, *c._layout.device_tensors()) for c in self._placed()]
         return {
             "record": self.record,
             "records": self.records,

@@ -3,13 +3,16 @@ conservation/membership.
 
 Counterpart of :mod:`memo_tpu.query.engine`, with the same contracts. The
 store's columns go to the device once, and its length buckets and query
-layout are built there (:mod:`memo_tpu_torch.index.placement`); then
+layout are built and kept there (:mod:`memo_tpu_torch.index.placement`);
+then
 
-1. host-side binary search for the candidate row ranges of a window,
+1. the candidate row ranges and the prefix of the windows, searched on the
+   device (:mod:`memo_tpu_torch.query.window`); the host reads back only
+   each window's two candidate counts,
 2. a device step per (window, interval bucket): the fused CUDA kernel
    (backend ``fused``; v1 and v2 both read the placed rows of the candidate
-   ranges from one parameter upload), or the diff-array tensor ops (backend
-   ``torch``); ``numpy`` runs on the host,
+   ranges), or the diff-array tensor ops (backend ``torch``); ``numpy``
+   runs on the host,
 3. bit-exact text output (:mod:`memo_tpu_torch.query.output`).
 
 Large windows run in position chunks and oversized candidate sets halve the
@@ -33,7 +36,6 @@ import torch
 from memo_tpu_torch.index.placement import (
     Columns,
     PlacedStore,
-    host_store,
     place_columns,
     place_store_and_layout,
     short_share,
@@ -42,8 +44,9 @@ from memo_tpu_torch.index.placement import (
 )
 from memo_tpu_torch.index.store import IntervalStore
 from memo_tpu_torch.ops import query_ops as Q
-from memo_tpu_torch.ops.fused_query import fused_query_rows, window_args
+from memo_tpu_torch.ops.fused_query import fused_query_rows
 from memo_tpu_torch.ops.fused_query_v2 import ROW_SLACK, fused_query_v2_rows
+from memo_tpu_torch.query.window import WindowParams, window_bounds, window_params
 from memo_tpu_torch.utils.device import resolve_device
 from memo_tpu_torch.utils.profiling import stage_timer
 
@@ -95,7 +98,9 @@ class QueryEngine:
     The positional parameters are memo_tpu's, in its order; ``device``
     (keyword only) is "cuda" or "cpu", and "cuda" raises where no GPU
     exists. The fused and torch backends place the store and build its
-    query layout on ``device``. ``device_output=True`` returns tensors on
+    query layout on ``device`` and search it there; the host keeps no copy
+    of the placed rows (``store`` stays the caller's; queries read only its
+    record names). ``device_output=True`` returns tensors on
     the device instead of numpy arrays. ``kernel_version`` picks the fused
     kernel: "v1" (``csrc/fused_query.cu``) or "v2"
     (``csrc/fused_query_v2.cu``), else ``$MEMO_TPU_PALLAS_KERNEL``, else
@@ -153,18 +158,15 @@ class QueryEngine:
         if stratify:
             buckets = split_by_length(cols, self.STRATA_EDGES)
             del cols  # each bucket holds its own rows on the device
-            self._init_stratified(store, buckets)
+            self._init_stratified(buckets)
         else:
-            if cols.start.numel() != store.num_intervals:  # a subset: see _upload
-                self.store = host_store(cols, store)
             self._place(cols)
 
     def _upload(self, store: IntervalStore) -> Columns:
         """The rows this engine places, on the device: the whole store. A
         subclass may return a subset of its rows (in store order) already
-        there; the engine's host store is then that subset copied back, or,
-        where it stratifies, ``store`` for its records, each bucket's child
-        holding its own rows."""
+        there; the engine then answers over that subset, whose record
+        offsets and longest intervals its layout holds."""
         return upload_columns(store, self.device)
 
     # Upper length bounds (exclusive) of the buckets: at k=31 only bucket 0
@@ -176,16 +178,16 @@ class QueryEngine:
         pad = max(min(self.max_intervals, _next_pow2(max(cols.start.numel(), 1))), ROW_SLACK + 1)
         self._d, self._layout = place_columns(cols, self.store.num_records, self.n_docs, pad)
 
-    def _init_stratified(self, store: IntervalStore, buckets: list[tuple[int, Columns]]) -> None:
-        """One child engine per nonempty length bucket, over the bucket's
-        sub-store (copied back to the host) and placed from the bucket's rows
-        on the device; each child has the parent's settings, as in memo_tpu,
-        and leaves its output on the device."""
+    def _init_stratified(self, buckets: list[tuple[int, Columns]]) -> None:
+        """One child engine per nonempty length bucket, placed from the
+        bucket's rows on the device (its layout holds their record offsets
+        and longest intervals; ``store`` is the parent's, shared); each child
+        has the parent's settings, as in memo_tpu, and leaves its output on
+        the device."""
         children: list[tuple[int, QueryEngine]] = []
         while buckets:  # popped, so each bucket's device columns go once it is placed
             b, sub_cols = buckets.pop(0)
             child = copy.copy(self)
-            child.store = host_store(sub_cols, store)
             child.device_output = True
             child.last_stats = QueryStats()
             child._place(sub_cols)
@@ -245,21 +247,17 @@ class QueryEngine:
         return self._query_batch(record, windows, k, membership=True)
 
     # ----------------------------------------------------------------- internals
-    def _window_params(self, record: str, qs: int, qe: int, k: int):
-        """Host-side kernel parameters of one window: the candidate rows
-        [mlo, mhi) of the start-order stream and [plo, phi) of the end-order
-        stream, and the coverage entering position 0 (int64[C])."""
-        st = self.store
-        lay = self._layout
-        r = st.record_index(record)
-        rec_lo, rec_hi = int(st.rec_offsets[r]), int(st.rec_offsets[r + 1])
-        seg_s = st.start[rec_lo:rec_hi]
-        seg_e = lay.end_sorted[rec_lo:rec_hi]
-        mlo = rec_lo + int(np.searchsorted(seg_s, qs, side="right"))
-        mhi = rec_lo + int(np.searchsorted(seg_s, qe, side="left"))
-        plo = rec_lo + int(np.searchsorted(seg_e, qs + k - 1, side="right"))
-        phi = rec_lo + int(np.searchsorted(seg_e, qe + k - 1, side="left"))
-        return mlo, mhi, plo, phi, lay.prefix_counts(st, r, qs, k)
+    def _window_params(self, record: str, starts, L: int, k: int) -> WindowParams:
+        """The kernel parameters of windows [qs, qs + L) of ``record``, one
+        per ``qs`` of ``starts``, on the device: the candidate rows [mlo,
+        mhi) of the start-order stream and [plo, phi) of the end-order
+        stream, the coverage entering position 0, and the candidate counts
+        (:func:`~memo_tpu_torch.query.window.window_params`)."""
+        return window_params(self._d, self._layout, self.store.record_index(record), starts, L, k)
+
+    def _window_bounds(self, record: str, qs: int, qe: int, k: int) -> tuple[int, int]:
+        """``IntervalStore.window_bounds`` over this engine's placed rows."""
+        return window_bounds(self._d, self._layout, self.store.record_index(record), qs, qe, k)
 
     def _query(self, record: str, qs: int, qe: int, k: int, membership: bool):
         if qe < qs:
@@ -331,25 +329,25 @@ class QueryEngine:
         return acc
 
     def _batch_plan(self, record, windows, k):
-        """(ranges, prefix, L, counts) of one launch over ``windows``, or
-        None where the batch runs per window."""
+        """(window parameters, L, candidate counts) of one launch over
+        ``windows``, or None where the batch runs per window. Reads the
+        counts back: 2 integers a window."""
         L = max(qe - qs for qs, qe in windows)
         # A batch of empty windows has nothing to launch.
         if self.backend != "fused" or not 0 < L <= self.chunk_positions:
             return None
-        params = [self._window_params(record, qs, qs + L, k) for qs, _ in windows]
-        counts = [max(p[1] - p[0], p[3] - p[2]) for p in params]
+        wp = self._window_params(record, [qs for qs, _ in windows], L, k)
+        counts = [max(m, p) for m, p in zip(*wp.counts.tolist())]
         if max(counts) > self.max_intervals:
             return None
-        ranges = np.array([p[:4] + (qs,) for p, (qs, _) in zip(params, windows)], np.int64)
-        return ranges, np.stack([p[4] for p in params]), L, counts
+        return wp, L, counts
 
     def _run_batch(self, plan, windows, k, membership) -> torch.Tensor:
         # memo_tpu pads the window count to a power of two to bound the
         # programs XLA compiles; nothing here compiles per shape, so the
         # batch keeps its own count.
-        ranges, prefix, L, counts = plan
-        out = self._run_kernel(ranges, prefix, k, L, membership)
+        wp, L, counts = plan
+        out = self._run_kernel(wp, k, L, membership)
         self.last_stats = QueryStats(
             candidate_intervals=sum(counts),
             chunks=len(windows),
@@ -395,19 +393,20 @@ class QueryEngine:
     def _query_chunk(self, record, qs, qe, k, membership, stats: QueryStats):
         if self.backend == "fused":
             return self._query_chunk_fused(record, qs, qe, k, membership, stats)
-        lo, hi = self.store.window_bounds(record, qs, qe, k)
-        count = hi - lo
         L = qe - qs
         n = self.n_docs
 
         if self.backend == "numpy":
-            stats.candidate_intervals += count
+            lo, hi = self.store.window_bounds(record, qs, qe, k)
+            stats.candidate_intervals += hi - lo
             s = self.store.start[lo:hi]
             e = self.store.end[lo:hi]
             o = self.store.order[lo:hi]
             marks = Q.coverage_marks_np(s, e, o, qs, k, L, n)
             return Q.membership_np(marks) if membership else Q.conservation_np(marks, n)
 
+        lo, hi = self._window_bounds(record, qs, qe, k)
+        count = hi - lo
         M = min(_next_pow2(max(count, 1)), self.max_intervals)
         if count > M:
             # More candidates than the bucket cap: halve the position chunk
@@ -422,8 +421,7 @@ class QueryEngine:
         return self._run_device_range(record, qs, k, membership, lo, M, L)
 
     def _run_device_range(self, record, qs, k, membership, lo, M, L):
-        r = self.store.record_index(record)
-        rec_end = int(self.store.rec_offsets[r + 1])
+        rec_end = int(self._layout.rec_offsets[self.store.record_index(record) + 1])
         return self._finish(
             _device_query(self._d, lo, rec_end, qs, k, M, L, self.n_docs, membership)
         )
@@ -449,35 +447,30 @@ class QueryEngine:
 
     def _query_chunk_fused(self, record, qs, qe, k, membership, stats: QueryStats):
         """Fused-kernel chunk: exact in-window event ranges from the two
-        sorted streams plus the host prefix counts."""
+        sorted streams plus the prefix counts, found on the device."""
         L = qe - qs
-        mlo, mhi, plo, phi, prefix = self._window_params(record, qs, qe, k)
-        count = max(mhi - mlo, phi - plo)
+        wp = self._window_params(record, [qs], L, k)
+        count = max(n for (n,) in wp.counts.tolist())
         M = min(_next_pow2(max(count, 1)), self.max_intervals)
         if count > M:
             mid = (qs + qe) // 2
             if mid == qs:
                 # The two event streams do not split by interval subset, so a
                 # single position over the cap goes through the diff-array ops.
-                lo, hi = self.store.window_bounds(record, qs, qe, k)
+                lo, hi = self._window_bounds(record, qs, qe, k)
                 return self._query_interval_pieces(record, qs, qe, k, membership, lo, hi, stats)
             left = self._query_chunk_fused(record, qs, mid, k, membership, stats)
             right = self._query_chunk_fused(record, mid, qe, k, membership, stats)
             return self._cat(left, right)
         stats.candidate_intervals += count
-        ranges = np.array([[mlo, mhi, plo, phi, qs]])
-        return self._finish(self._run_kernel(ranges, prefix[None], k, L, membership)[0])
+        return self._finish(self._run_kernel(wp, k, L, membership)[0])
 
-    def _run_kernel(self, ranges: np.ndarray, prefix: np.ndarray, k: int, L: int,
-                    membership: bool) -> torch.Tensor:
-        """The fused kernel on Q windows of L positions: ``ranges`` holds
-        (mlo, mhi, plo, phi, qs) per window, ``prefix`` int[Q, C]. Both
-        versions read the placed rows from one parameter upload. Output
-        [Q, L] or [Q, L, C]."""
+    def _run_kernel(self, wp: WindowParams, k: int, L: int, membership: bool) -> torch.Tensor:
+        """The fused kernel on the Q windows of ``wp`` (their parameters on
+        the device), L positions each. Output [Q, L] or [Q, L, C]."""
         n = self.n_docs
-        params, prefix_t = window_args(ranges, prefix, self.device)
         run = fused_query_rows if self.kernel_version == "v1" else fused_query_v2_rows
-        return run(self._d, params, prefix_t, k=k, L=L, C=n, n_docs=n, membership=membership)
+        return run(self._d, wp.params, wp.prefix, k=k, L=L, C=n, n_docs=n, membership=membership)
 
 
 def _device_query(d: PlacedStore, lo, rec_end, qs, k, M, L, n, membership):

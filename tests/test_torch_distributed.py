@@ -39,6 +39,12 @@ def _record_windows(length):
 
 
 # ----------------------------------------------------------------- the worker
+def _placed_rows(rq) -> int:
+    """The rows a resident rank's engines placed, by their layouts' record
+    offsets (counted on the device from the placed rows' records)."""
+    return sum(int(c._layout.rec_offsets[-1]) for c in rq._placed())
+
+
 def _worker(rank: int, world: int, data: pathlib.Path) -> None:
     """One rank: every layout of its world, every strategy, mode and k; saves
     its outputs and resident row counts under ``data``."""
@@ -82,9 +88,8 @@ def _worker(rank: int, world: int, data: pathlib.Path) -> None:
                     for i, out in enumerate(getattr(rq2, f"{mode}_windows")(
                             _record_windows(length), k, record=name)):
                         outs[f"{lay}/resident_records/{mode}/{k}/{name}/{i}"] = out
-        rows[lay] = {"record": [rq.local_rows, rq.engine.store.num_intervals, rq.rows_per_shard],
-                     "records": [rq2.local_rows, rq2.engine.store.num_intervals,
-                                 rq2.rows_per_shard],
+        rows[lay] = {"record": [rq.local_rows, _placed_rows(rq), rq.rows_per_shard],
+                     "records": [rq2.local_rows, _placed_rows(rq2), rq2.rows_per_shard],
                      "dispatches": [rq.dispatch_count, rq2.dispatch_count]}
     if world == 4:
         rows["dryrun"] = dryrun_multichip(make_mesh(2, 2, device_type="cpu"))

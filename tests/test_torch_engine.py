@@ -146,7 +146,7 @@ def test_stratified_engine_matches_numpy_oracle(mixed_store, backend):
                 err_msg=f"{qs}-{qe} k={k}",
             )
     strat.conservation("c0", 0, 900, 31)  # k=31 dispatches bucket 0 only
-    assert strat.last_stats.candidate_intervals <= strat._children[0][1].store.num_intervals
+    assert strat.last_stats.candidate_intervals <= strat._children[0][1]._layout.num_rows
 
     memb = store_from_ms(mixed_store, ["c0"], [900], 9, "membership")
     sm = QueryEngine(memb, backend=backend, device="cpu", stratify=True)

@@ -26,7 +26,6 @@ from memo_tpu_torch.ops.fused_query import (
     fused_query_rows_reference,
     kernel_constants,
     prepare_streams,
-    window_args,
 )
 from memo_tpu_torch.query.engine import QueryEngine, place_store
 
@@ -174,9 +173,7 @@ def test_fused_query_cpu_runs_plain_version_and_counts_no_launch():
     nothing."""
     store = _store(np.random.default_rng(9), True, n_records=2, n_docs=7, rec_len=300)
     eng = QueryEngine(store, device="cpu", stratify=False)
-    params = [eng._window_params("chr1", qs, qs + 120, 5) for qs in (0, 100, 180)]
-    ranges = np.array([p[:4] + (qs,) for p, qs in zip(params, (0, 100, 180))])
-    args = window_args(ranges, np.stack([p[4] for p in params]), "cpu")
+    args = eng._window_params("chr1", (0, 100, 180), 120, 5)[:2]
     before = fused_query_rows.launches
     for membership in (False, True):
         got = fused_query_rows(eng._d, *args, k=5, L=120, C=7, n_docs=7, membership=membership)
@@ -252,9 +249,7 @@ def _check_rows_kernel(device, C, membership, n_win):
     eng = QueryEngine(store, device=device, stratify=False)
     for k in (1, 3, 31, 101):
         L = max(qe - qs for qs, qe in wins)
-        params = [eng._window_params("chr1", qs, qs + L, k) for qs, _ in wins]
-        ranges = np.array([p[:4] + (qs,) for p, (qs, _) in zip(params, wins)])
-        args = window_args(ranges, np.stack([p[4] for p in params]), device)
+        args = eng._window_params("chr1", [qs for qs, _ in wins], L, k)[:2]
         before = fused_query_rows.launches
         got = fused_query_rows(eng._d, *args, k=k, L=L, C=C, n_docs=C, membership=membership)
         torch.cuda.synchronize()

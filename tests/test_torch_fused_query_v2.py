@@ -1,6 +1,6 @@
 """memo_tpu_torch.ops.fused_query_v2.fused_query_v2_rows: the v2 query read
 from the placed store's rows. On the CPU it runs its plain version
-(fused_query_rows_reference), fed from place_store and window_args, and is
+(fused_query_rows_reference), fed from place_store and the engine's window parameters, and is
 held exactly against memo_query_pallas_v2 run in interpret mode on the CPU
 (sparse and dense-band stores, a wide store, a width that is not a multiple
 of 8, membership). At most 6 interpret-mode programs are compiled in this
@@ -17,7 +17,7 @@ from test_torch_fused_query import _window
 from test_torch_fused_rows import BATCH, WINDOWS, random_store
 
 from memo_tpu.query.engine import _next_pow2
-from memo_tpu_torch.ops.fused_query import fused_query_rows_reference, window_args
+from memo_tpu_torch.ops.fused_query import fused_query_rows_reference
 from memo_tpu_torch.ops.fused_query_v2 import ROW_SLACK, fused_query_v2_rows, v2_constants
 from memo_tpu_torch.query.engine import QueryEngine, place_store
 
@@ -59,20 +59,19 @@ def test_rows_match_pallas_v2_interpret(n_docs, kind, rec_len, window, k):
         tile=tile, ev_rows=ev_rows,
     )
     placed = place_store(store, "cpu", _next_pow2(store.num_intervals))
-    params, prefix_t = window_args(np.array([[*ranges, qs]]), prefix[None], "cpu")
+    params = torch.tensor([[*ranges, qs]], dtype=torch.int32)
+    prefix_t = torch.from_numpy(prefix[None].astype(np.int32))
     got = fused_query_v2_rows(placed, params, prefix_t, k=k, L=L, C=n_docs, n_docs=n_docs,
                               membership=membership)
     assert got.dtype == (torch.int8 if membership else torch.int32)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want))
 
 
-def _rows_args(eng: QueryEngine, record: str, wins, k: int, device):
-    """window_args of ``wins`` of one record at the longest length, from the
-    engine's host search, and that length."""
+def _rows_args(eng: QueryEngine, record: str, wins, k: int):
+    """The parameters and prefix of ``wins`` of one record at the longest
+    length, found on the engine's device, and that length."""
     L = max(qe - qs for qs, qe in wins)
-    params = [eng._window_params(record, qs, qs + L, k) for qs, _ in wins]
-    ranges = np.array([p[:4] + (qs,) for p, (qs, _) in zip(params, wins)])
-    return window_args(ranges, np.stack([p[4] for p in params]), device), L
+    return eng._window_params(record, [qs for qs, _ in wins], L, k)[:2], L
 
 
 def test_cpu_runs_plain_version_and_counts_no_launch():
@@ -80,7 +79,7 @@ def test_cpu_runs_plain_version_and_counts_no_launch():
     eng = QueryEngine(store, device="cpu", stratify=False, kernel_version="v2")
     before = fused_query_v2_rows.launches
     for wins in ([(0, 300)], [(0, 120), (100, 220), (180, 300)]):
-        args, L = _rows_args(eng, "chr1", wins, 5, "cpu")
+        args, L = _rows_args(eng, "chr1", wins, 5)
         for membership in (False, True):
             got = fused_query_v2_rows(eng._d, *args, k=5, L=L, C=7, n_docs=7,
                                       membership=membership)
@@ -148,7 +147,7 @@ def test_cuda_rows_match_plain(cuda_device, C):
         for k in (1, 2, 31):
             cases = [(record, [(qs, qe)]) for record, qs, qe in WINDOWS] + [("chr0", BATCH)]
             for record, wins in cases:
-                args, L = _rows_args(eng, record, wins, k, cuda_device)
+                args, L = _rows_args(eng, record, wins, k)
                 before = fused_query_v2_rows.launches
                 got = fused_query_v2_rows(eng._d, *args, k=k, L=L, C=C, n_docs=C,
                                           membership=kind == "membership")
@@ -171,7 +170,7 @@ def test_cuda_long_and_dense_windows(cuda_device):
     for store, windows in cases:
         eng = QueryEngine(store, device=cuda_device, stratify=False)
         for wins in windows:
-            args, L = _rows_args(eng, "chr0", wins, 31, cuda_device)
+            args, L = _rows_args(eng, "chr0", wins, 31)
             want = fused_query_rows_reference(eng._d, *args, k=31, L=L, C=16, n_docs=16,
                                               membership=False)
             for _ in range(2):

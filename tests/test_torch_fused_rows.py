@@ -24,7 +24,6 @@ from memo_tpu_torch.ops.fused_query import (
     kernel_constants,
     prepare_streams,
     rows_tile,
-    window_args,
 )
 from memo_tpu_torch.query.engine import QueryEngine
 
@@ -65,13 +64,11 @@ def stores():
             for kind in ("conservation", "membership")}
 
 
-def _rows(eng: QueryEngine, record: str, wins, k: int, membership: bool, device="cpu", **kw):
+def _rows(eng: QueryEngine, record: str, wins, k: int, membership: bool, **kw):
     """fused_query_rows on ``wins`` of one record, all at the longest length,
-    with the engine's host search for the ranges and the prefix."""
+    with the ranges and the prefix the engine finds on its device."""
     L = max(qe - qs for qs, qe in wins)
-    params = [eng._window_params(record, qs, qs + L, k) for qs, _ in wins]
-    ranges = np.array([p[:4] + (qs,) for p, (qs, _) in zip(params, wins)])
-    args = window_args(ranges, np.stack([p[4] for p in params]), device)
+    args = eng._window_params(record, [qs for qs, _ in wins], L, k)[:2]
     C = eng.n_docs
     out = fused_query_rows(eng._d, *args, k=k, L=L, C=C, n_docs=C, membership=membership, **kw)
     return out, args, L
@@ -87,7 +84,8 @@ def test_rows_match_numpy_engine(stores, C, k, kind):
     oracle = JaxEngine(store, backend="numpy")
     jeng = JaxEngine(store, backend="pallas", stratify=False)
     for record, qs, qe in WINDOWS:
-        assert eng._window_params(record, qs, qe, k)[:4] == jeng._window_params(record, qs, qe, k)[:4]
+        params = eng._window_params(record, [qs], qe - qs, k).params
+        assert params[0, :4].tolist() == list(jeng._window_params(record, qs, qe, k)[:4])
         got, _, _ = _rows(eng, record, [(qs, qe)], k, membership)
         want = getattr(oracle, kind)(record, qs, qe, k)
         assert got.shape == (1,) + want.shape
@@ -103,7 +101,7 @@ def test_empty_ranges_give_the_prefix_alone(stores):
     """A window whose candidate ranges are empty reads no row: the output is
     the prefix alone, here nothing marked."""
     eng = QueryEngine(stores[(16, "conservation")], device="cpu", stratify=False)
-    mlo, mhi, plo, phi, _ = eng._window_params("chr2", 0, 100, 31)
+    mlo, mhi, plo, phi, _ = eng._window_params("chr2", [0], 100, 31).params[0].tolist()
     assert mlo == mhi and plo == phi
     got, _, _ = _rows(eng, "chr2", [(0, 100)], 31, False)
     assert (got == 16).all()
@@ -162,16 +160,6 @@ def test_rows_match_pallas_interpret(stores, source, C, kind, window, k):
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want))
 
 
-def test_window_args_is_one_tensor():
-    params = np.array([[1, 2, 3, 4, 5], [6, 7, 8, 9, 10]])
-    prefix = np.arange(6, dtype=np.int64).reshape(2, 3)
-    p, x = window_args(params, prefix, "cpu")
-    assert p.dtype == x.dtype == torch.int32 and p.is_contiguous() and x.is_contiguous()
-    assert p.untyped_storage().data_ptr() == x.untyped_storage().data_ptr()
-    np.testing.assert_array_equal(p.numpy(), params)
-    np.testing.assert_array_equal(x.numpy(), prefix)
-
-
 def test_reference_is_prepare_streams_then_the_diff_array(stores):
     """The plain version is prepare_streams over the largest candidate range
     followed by fused_query_reference, whatever M the engine would pick."""
@@ -219,7 +207,7 @@ def test_cuda_rows_match_plain(cuda_device, stores, C):
             cases = [(record, [(qs, qe)]) for record, qs, qe in WINDOWS] + [("chr0", BATCH)]
             for record, wins in cases:
                 before = fused_query_rows.launches
-                got, args, L = _rows(eng, record, wins, k, kind == "membership", cuda_device)
+                got, args, L = _rows(eng, record, wins, k, kind == "membership")
                 torch.cuda.synchronize()
                 assert fused_query_rows.launches == before + 1
                 want = fused_query_rows_reference(eng._d, *args, k=k, L=L, C=C, n_docs=C,
@@ -239,7 +227,7 @@ def test_cuda_rows_long_window_and_many_windows(cuda_device):
     for store, windows in cases:
         eng = QueryEngine(store, device=cuda_device, stratify=False)
         for wins in windows:
-            got, args, L = _rows(eng, "chr0", wins, 31, False, cuda_device)
+            got, args, L = _rows(eng, "chr0", wins, 31, False)
             want = fused_query_rows_reference(eng._d, *args, k=31, L=L, C=16, n_docs=16,
                                               membership=False)
             assert torch.equal(got, want), wins[0]

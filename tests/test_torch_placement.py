@@ -1,6 +1,8 @@
 """The store's placement and query layout built with torch ops
 (``memo_tpu_torch.index.placement``), on CPU tensors, held array for array
-to memo_tpu's ``QueryLayout.build`` and the port's numpy copy of it; the
+to memo_tpu's ``QueryLayout.build`` and the port's numpy copy of it (the
+device layout read back in the test only), its prefix to their
+``prefix_counts``; the
 engine that places through it against memo_tpu's numpy oracle; the engine's
 positional parameters against memo_tpu's; and the ``entry()`` twin against
 memo_tpu's ``__graft_entry__.entry()`` under ``jax.jit``."""
@@ -21,13 +23,14 @@ from memo_tpu_torch import QueryEngine
 from memo_tpu_torch.entry import entry
 from memo_tpu_torch.index import store as store_mod
 from memo_tpu_torch.index.placement import (
-    host_store,
+    place_columns,
     place_store_and_layout,
     short_share,
     split_by_length,
     upload_columns,
 )
 from memo_tpu_torch.index.store import IntervalStore, QueryLayout
+from memo_tpu_torch.query.window import window_params
 
 C = 6
 REC_LEN = 300
@@ -113,28 +116,34 @@ def test_layout_equals_numpy_build(case, reference):
     store, ref_store = _stores(case)
     want = RefLayout.build(ref_store) if reference == "memo_tpu" else QueryLayout.build(store)
     pad = 5
-    placed, host = place_store_and_layout(store, "cpu", pad)
+    placed, lay = place_store_and_layout(store, "cpu", pad)
     n = store.num_intervals
-    for name in ("end_sorted", "col_offsets", "s_keys", "e_keys"):
-        got, exp = getattr(host, name), getattr(want, name)
+    for name in ("col_offsets", "s_keys", "e_keys"):
+        got, exp = getattr(lay, name).numpy(), getattr(want, name)
         assert got.dtype == exp.dtype, name
         np.testing.assert_array_equal(got, exp, err_msg=name)
-    assert (host.monotone, host.key_stride) == (want.monotone, want.key_stride)
-    assert host.monotone == (case in ("one_record", "several_records", "empty_store"))
+    assert (lay.monotone, lay.key_stride) == (want.monotone, want.key_stride)
+    assert lay.monotone == (case in ("one_record", "several_records", "empty_store"))
     # The by-column gathers, read back out of the composite keys.
     seg = np.repeat(np.arange(len(want.col_offsets) - 1), np.diff(want.col_offsets))
-    np.testing.assert_array_equal(host.s_keys - seg * host.key_stride, want.s_by_col)
-    np.testing.assert_array_equal(host.e_keys - seg * host.key_stride, want.e_by_col)
+    np.testing.assert_array_equal(lay.s_keys.numpy() - seg * lay.key_stride, want.s_by_col)
+    np.testing.assert_array_equal(lay.e_keys.numpy() - seg * lay.key_stride, want.e_by_col)
     rows = (store.start, store.end, store.order, want.end_sorted, want.start_by_end,
             want.order_by_end)
     for t, exp, fill in zip(placed, rows, (0, 0, -1, 0, 0, -1)):
         assert t.dtype == torch.int32 and t.shape == (n + pad,)
         np.testing.assert_array_equal(t[:n].numpy(), exp.astype(np.int32))
         assert (t[n:] == fill).all()
+    # IntervalStore's own record offsets and longest intervals, R-sized on the host.
+    assert lay.num_rows == n
+    for got, exp in ((lay.rec_offsets, ref_store.rec_offsets),
+                     (lay.longest, ref_store.max_interval_len)):
+        assert isinstance(got, np.ndarray) and got.dtype == exp.dtype
+        np.testing.assert_array_equal(got, exp)
     for r in range(store.num_records):
         for qs, k in ((0, 1), (37, 3), (150, 31), (REC_LEN - 1, 101)):
-            np.testing.assert_array_equal(host.prefix_counts(store, r, qs, k),
-                                          want.prefix_counts(ref_store, r, qs, k))
+            got = window_params(placed, lay, r, [qs], 1, k).prefix[0]
+            np.testing.assert_array_equal(got.numpy(), want.prefix_counts(ref_store, r, qs, k))
 
 
 @pytest.mark.parametrize("pad", [1, 64])
@@ -149,10 +158,11 @@ def test_placed_store_equals_old_placement(case, pad):
 @pytest.mark.parametrize("edges", [(32, 128, 512, 2048), (3, 10, 50)], ids=["strata", "narrow"])
 @pytest.mark.parametrize("case", CASES)
 def test_length_buckets_equal_memo_tpus_split(case, edges):
-    """Each nonempty bucket of ``split_by_length``, copied back by
-    ``host_store``, is the sub-store memo_tpu's ``_init_stratified`` builds
-    on the host (its rows by ``np.searchsorted`` of the lengths, offsets and
-    longest intervals by ``IntervalStore``), array for array and in dtype."""
+    """Each nonempty bucket of ``split_by_length`` holds the rows of the
+    sub-store memo_tpu's ``_init_stratified`` builds on the host (by
+    ``np.searchsorted`` of the lengths), array for array and in dtype, and
+    its placement's layout the sub-store's record offsets and longest
+    intervals (``IntervalStore``'s)."""
     store, ref_store = _stores(case)
     b_id = np.searchsorted(np.asarray(edges, np.int64), ref_store.end - ref_store.start,
                            side="right")
@@ -167,13 +177,14 @@ def test_length_buckets_equal_memo_tpus_split(case, edges):
     got = split_by_length(upload_columns(store, "cpu"), edges)
     assert [b for b, _ in got] == [b for b, _ in want]
     for (_, cols), (_, exp) in zip(got, want):
-        sub = host_store(cols, store)
-        assert (sub.record_names, sub.n_docs, sub.kind) == (exp.record_names, C, "conservation")
-        for name in ("record_lens", "rec_id", "start", "end", "order", "rec_offsets",
-                     "max_interval_len"):
-            g, e = getattr(sub, name), getattr(exp, name)
+        for name, col in zip(("rec_id", "start", "end", "order"), cols):
+            g, e = col.numpy(), getattr(exp, name)
             assert g.dtype == e.dtype, name
             np.testing.assert_array_equal(g, e, err_msg=name)
+        _, lay = place_columns(cols, store.num_records, C, 1)
+        for g, e in ((lay.rec_offsets, exp.rec_offsets), (lay.longest, exp.max_interval_len)):
+            assert g.dtype == e.dtype
+            np.testing.assert_array_equal(g, e)
 
 
 @pytest.mark.parametrize("case", [c for c in CASES if c != "empty_store"])

@@ -177,7 +177,14 @@ def test_rows_per_shard_and_stats_are_memo_tpus(stores, kind):
         assert mine[key] == value, key
     long_rows = int(((store.end - store.start) >= K_MAX - 1).sum())
     assert 0 < long_rows and rq.local_rows == store.num_intervals - long_rows
-    assert rq.engine.store.num_intervals == rq.local_rows
+    # The engine's placed rows, read back here only: the store's rows less the long ones.
+    keep = (store.end - store.start) < K_MAX - 1
+    lay, n = rq.engine._layout, rq.local_rows
+    assert rq.engine._children is None and lay.num_rows == n
+    np.testing.assert_array_equal(rq.engine._d.start[:n].numpy(), store.start[keep])
+    np.testing.assert_array_equal(
+        lay.rec_offsets, np.concatenate([[0], np.cumsum(np.bincount(store.rec_id[keep],
+                                                                    minlength=store.num_records))]))
     assert rq.rows_per_shard == ref.rows_per_shard
 
 
@@ -213,7 +220,8 @@ def test_engine_over_a_subset_of_rows(stores, no_count_plane, kernel_calls, stra
     """An engine placed from a subset of the store's rows already on the
     device answers as the numpy engine over that sub-store, whole or in
     length buckets (several of which mark at k=60: their batch outputs are
-    min-combined as one tensor); unstratified, its host store is the subset."""
+    min-combined as one tensor); unstratified, its placed rows, record
+    offsets and longest intervals are the subset's."""
     store = stores[kind]
     keep = np.flatnonzero((store.end - store.start) % 3 != 0)
     cols = (store.rec_id, store.start, store.end, store.order)
@@ -225,11 +233,14 @@ def test_engine_over_a_subset_of_rows(stores, no_count_plane, kernel_calls, stra
     oracle = JaxEngine(sub, backend="numpy")
     assert (eng._children is not None) == stratify
     if stratify:
-        assert sum(c.store.num_intervals for _, c in eng._children) == keep.size
+        assert sum(c._layout.num_rows for _, c in eng._children) == keep.size
         assert len([lb for lb, _ in eng._children if lb < 60 - 1]) > 1
     else:
-        for name in ("rec_id", "start", "end", "order", "rec_offsets", "max_interval_len"):
-            np.testing.assert_array_equal(getattr(eng.store, name), getattr(sub, name))
+        n = eng._layout.num_rows
+        for name, got in zip(("start", "end", "order"), eng._d[:3]):
+            np.testing.assert_array_equal(got[:n].numpy(), getattr(sub, name))
+        np.testing.assert_array_equal(eng._layout.rec_offsets, sub.rec_offsets)
+        np.testing.assert_array_equal(eng._layout.longest, sub.max_interval_len)
     for k in (1, 5, 31, 60):
         launches = sum(kernel_calls.values())
         outs = getattr(eng, f"{kind}_batch")("chr0", WINDOWS, k)
@@ -263,7 +274,8 @@ def test_rows_per_shard_is_computed_on_first_use(stores):
     assert "rows_per_shard" not in vars(rq)
     stats = rq.stats()
     assert "rows_per_shard" in vars(rq) and stats["rows_per_shard"] == rq.rows_per_shard
-    assert stats["placed_bytes"] == sum(t.numel() * 4 for t in rq.engine._d)
+    placed = (*rq.engine._d, *rq.engine._layout.device_tensors())
+    assert stats["placed_bytes"] == sum(t.numel() * t.element_size() for t in placed)
     assert stats["placed_bytes"] >= rq.local_rows * 6 * 4
 
 
