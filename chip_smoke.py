@@ -15,7 +15,8 @@ genomes, k=31), its wall split into stages (store load, engine set-up,
 query, format, write), the engine's set-up split into stages (upload, the
 gate, the bucket split, the card's sorts and gathers, sentinel padding) and
 the query layout it built and keeps on the card held to the numpy build
-array for array; the device operations of one query of each kernel counted
+array for array; the window over a candidate cap it exceeds, halved on
+the card, == the reference loop; the device operations of one query of each kernel counted
 exactly by capturing its window-parameter step (a copy up and one kernel)
 and its kernel function (three kernels for v1, one for v2) into CUDA
 graphs, the read of the candidate counts between them (one copy down)
@@ -37,7 +38,8 @@ streaming synth_ms's anchors): the window parameters of its shortest and
 longest rows == numpy (eight 2 Mbp windows, windows at and past the
 record's end and past 100M, k in 1/21/31/101), eight 2 Mbp windows with
 each kernel (set-up stages, host RSS, set-up peak and steady device
-bytes), resident over the whole record (conservation and membership, one
+bytes), a query of eight position chunks equal to the batch of them,
+resident over the whole record (conservation and membership, one
 launch per bucket), and the CLI's ``-r`` and ``--regions-file`` (auto,
 resolved to resident, and batched). Every output is checked exactly
 against the reference loop below (memo_query.py's per-interval slice
@@ -86,6 +88,7 @@ BATCH_WINDOWS, BATCH_LEN = 16, 1 << 20
 WIDE_DOCS, WIDE_LEN = 160, 1 << 19
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores, for int32 ALU work
+OVER_CAP = 1 << 20  # a candidate cap the headline window exceeds (phase 3)
 EDGE_REC_LEN = 200_000  # records of the random stores that phase 2 checks v1 on
 # The device operations of one query or batch, as CUDA graph nodes. The
 # window-parameter step (query/window.py): one copy of the window starts up
@@ -111,6 +114,9 @@ CHROM_INTERVALS = 432_249_312  # SCALE_r05.json "intervals"
 CHROM_CHUNK = 1 << 22  # MS rows generated and extracted at a time
 CHROM_WINDOWS, CHROM_WINDOW = 8, 1 << 21  # SCALE_r05's eight 2 Mbp windows
 CHROM_REPS = 5
+# A query longer than the engine's position chunk: seven full 2 Mbp chunks
+# and a shorter last one, from window 3's start.
+CHUNKED_CHUNKS, CHUNKED_TAIL_CUT = 8, 12_345
 SPOT = 1 << 15  # spot windows checked against the reference loop
 
 
@@ -655,7 +661,11 @@ def time_window_params(engine, record: str, windows, k: int) -> dict:
     launch's: exact against its plain version (:func:`v1_inputs`); device
     times of the wrapper (the copy of the starts and the kernel) and of its
     plain version by CUDA events over back-to-back calls, of the kernel
-    alone by the profiler, and the step's wall with the read of its counts.
+    alone by the profiler; and three walls, each with what the query must
+    have on the host before it launches: the step with the read of its
+    counts, its plain version (torch operations) with the same read, and
+    the numpy search on the host with one copy of its output up
+    (:func:`host_search_upload`).
     Its bound: what the searches must read (log2 of the rows or keys
     searched: 4 bytes a row, 8 a key; a scan reads the record's rows once)
     and the output, against the memory rate; a comparison a word read."""
@@ -675,6 +685,11 @@ def time_window_params(engine, record: str, windows, k: int) -> dict:
     # None where the profiler's traces all missed the kernel: not measured.
     kernel_us = next((us for name, us in ops if "window_params_kernel" in name), None)
     wall = spread_ms(walls_s(lambda: step().counts.tolist(), engine.device))
+    plain_wall = spread_ms(walls_s(
+        lambda: window_params_reference(engine._d, lay, r, starts, L, k).counts.tolist(),
+        engine.device))
+    host_wall = spread_ms(walls_s(lambda: host_search_upload(engine, record, starts, L, k),
+                                  engine.device))
     n_win, C = len(windows), engine.n_docs
     rec_rows = int(lay.rec_offsets[r + 1] - lay.rec_offsets[r])
     depth_rows, depth_keys = rec_rows.bit_length() or 1, lay.s_keys.numel().bit_length() or 1
@@ -685,8 +700,27 @@ def time_window_params(engine, record: str, windows, k: int) -> dict:
     bound, bound_by = bound_ms(n_bytes, n_ops)
     return {"windows": n_win, "C": C, "record_rows": rec_rows, "monotone": lay.monotone,
             "ms": ms, "plain_ms": plain, "kernel_us": kernel_us,
-            "device_op_list": ops, "wall_with_count_read_ms": wall, "bytes": n_bytes, "ops": n_ops,
+            "device_op_list": ops, "wall_with_count_read_ms": wall,
+            "plain_wall_with_count_read_ms": plain_wall, "host_search_wall_ms": host_wall,
+            "bytes": n_bytes, "ops": n_ops,
             "bound_ms": bound, "bound_by": bound_by, "bound_share": bound / ms}
+
+
+def host_search_upload(engine, record: str, starts, L: int, k: int) -> torch.Tensor:
+    """The window step as the engine ran it while it kept its rows on the
+    host: the numpy searches over the rows and their ``QueryLayout``
+    (:func:`plain_of`'s, here), params and prefix packed into one pinned
+    int32 buffer and copied up in one copy, without waiting on it."""
+    from memo_tpu_torch.query.window import window_params_numpy
+
+    rows, layout, _ = plain_of(engine)
+    params, prefix = window_params_numpy(rows, layout, engine.store.record_index(record), starts,
+                                         L, k)
+    host = torch.empty(params.size + prefix.size, dtype=torch.int32, pin_memory=True)
+    view = host.numpy()
+    view[: params.size] = params.ravel()
+    view[params.size :] = prefix.ravel()
+    return host.to(engine.device, non_blocking=True)
 
 
 def device_ops(fn, expect: tuple[str, ...], count: int | None = None) -> list[tuple[str, float]]:
@@ -836,6 +870,15 @@ def phase_headline(device, tmp: str):
     for k in (21, 51, 101):
         check(np.array_equal(fused.conservation("chr1", 0, L, k), oracle.conservation("chr1", 0, L, k)),
               f"fused == numpy engine at k={k}")
+    # Over the cap: the window's kernel is launched before its counts are
+    # read, then the window runs again in halves, down to chunks under it.
+    capped = QueryEngine(store, backend="fused", device=device, chunk_positions=L,
+                         max_intervals_per_chunk=OVER_CAP)
+    check(np.array_equal(capped.conservation("chr1", 0, L, K), ref)
+          and capped.last_stats.candidate_intervals > OVER_CAP,
+          f"a window over a cap of {OVER_CAP} candidates, halved on the card == reference loop")
+    over_cap = capped.last_stats.as_dict()
+    del capped
 
     # The device operations of one headline query (result left on the device),
     # and its wall.
@@ -864,7 +907,8 @@ def phase_headline(device, tmp: str):
          setup_peak_device_bytes=setup_peak, steady_device_bytes=steady, card_layout=layout,
          window_params_vs_numpy=params,
          reference_loop_s=ref_s, mbp_s=mbp_s, query_wall_ms=query_wall,
-         k_sweep_exact=[21, 51, 101], query_ops=ops, query_ops_v2=ops_v2,
+         k_sweep_exact=[21, 51, 101], over_cap_exact=over_cap, query_ops=ops,
+         query_ops_v2=ops_v2,
          layers_ms={"window_params": window_fn["ms"],
                     "window_params_with_count_read": window_fn["wall_with_count_read_ms"]["median"],
                     "v1_function": kern["ms"], "format_output": format_ms},
@@ -1335,6 +1379,26 @@ def chromosome_windows() -> list[tuple[int, int]]:
     return [(int(qs), int(qs) + CHROM_WINDOW) for qs in starts]
 
 
+def chunked_query(engine, device, check_batch: bool = True) -> dict:
+    """A query over CHUNKED_CHUNKS position chunks of the chromosome record
+    (the last one shorter) through ``engine`` (chunk_positions =
+    CHROM_WINDOW, output left on the card): equal, where ``check_batch``,
+    to one batch of the same chunks; its wall, median of WALL_REPS with its
+    spread."""
+    qs = chromosome_windows()[3][0]
+    qe = qs + CHUNKED_CHUNKS * CHROM_WINDOW - CHUNKED_TAIL_CUT
+    check(engine.chunk_positions == CHROM_WINDOW, "chunked query: 2 Mbp position chunks")
+    got = engine.conservation("chr1", qs, qe, K)
+    check(tuple(got.shape) == (qe - qs,) and got.device.type == "cuda", "chunked query: shape")
+    if check_batch:
+        chunks = [(a, min(a + CHROM_WINDOW, qe)) for a in range(qs, qe, CHROM_WINDOW)]
+        want = torch.cat(engine.conservation_batch("chr1", chunks, K))
+        check(torch.equal(got, want), "a query of 8 position chunks == the batch of its chunks")
+    walls = walls_s(lambda: engine.conservation("chr1", qs, qe, K), device)
+    return {"window": [qs, qe], "chunks": CHUNKED_CHUNKS, "equal_to_batch": check_batch,
+            "wall_ms": spread_ms(walls)}
+
+
 def rss_bytes() -> int:
     """This process's resident set now, in bytes."""
     with open("/proc/self/status") as fh:
@@ -1543,6 +1607,7 @@ def phase_chromosome(device, tmp: str):
             walls.append(wall_median_s(lambda: eng.conservation("chr1", qs, qe, K), device,
                                        reps=CHROM_REPS))
             rows.append(eng.last_stats.candidate_intervals)
+        chunked = chunked_query(eng, device)
         launches[version] += (fused_query_rows.launches if version == "v1"
                               else fused_query_v2_rows.launches)
         launches["window"] += window_params.launches
@@ -1556,7 +1621,8 @@ def phase_chromosome(device, tmp: str):
                             "buckets": [(lb, c._layout.num_rows) for lb, c in eng._children],
                             "window_wall_ms": [w * 1e3 for w in walls],
                             "window_mbp_s": [CHROM_WINDOW / w / 1e6 for w in walls],
-                            "candidate_rows": rows, "functions": functions}
+                            "candidate_rows": rows, "chunked_query": chunked,
+                            "functions": functions}
         del eng, child
         torch.cuda.empty_cache()
 
@@ -1630,7 +1696,8 @@ def setup_cells(tmp: str) -> int:
     median of WALL_REPS with its spread); and at the chromosome scale, its
     store loaded from ``tmp``/chrom.npz (built from the seed and saved there
     by the first run), the stratified engine's set-up with its stages, host
-    RSS before and after it, set-up peak and steady device bytes;
+    RSS before and after it, set-up peak and steady device bytes, and the
+    wall of a query of eight position chunks (:func:`chunked_query`);
     ResidentShardedQuery's placement, the same; and the CLI ``-r`` of
     window 3 with its stages. Prints one line, ``setup_cells {...}``."""
     from memo_tpu_torch import cli
@@ -1655,7 +1722,7 @@ def setup_cells(tmp: str) -> int:
     store = IntervalStore.load(npz)
     load_s = time.perf_counter() - t0
 
-    def measured(make) -> dict:
+    def measured(make, then=None) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         rss0 = rss_bytes()
@@ -1664,11 +1731,14 @@ def setup_cells(tmp: str) -> int:
                torch.cuda.max_memory_allocated(), "steady_device_bytes":
                torch.cuda.memory_allocated(), "rss_before_bytes": rss0,
                "rss_after_setup_bytes": rss_bytes()}
+        if then is not None:
+            out |= then(obj)
         del obj
         return out
 
     engine = measured(lambda: QueryEngine(store, backend="fused", device=device,
-                                          chunk_positions=CHROM_WINDOW, device_output=True))
+                                          chunk_positions=CHROM_WINDOW, device_output=True),
+                      lambda eng: {"chunked_query": chunked_query(eng, device, False)})
     resident = measured(lambda: ResidentShardedQuery(store, device, k_max=1024))
     del store
     torch.cuda.empty_cache()
@@ -1684,7 +1754,8 @@ def setup_cells(tmp: str) -> int:
 
 
 WINDOW_KEYS = ("windows", "C", "record_rows", "ms", "plain_ms", "kernel_us",
-               "wall_with_count_read_ms", "bytes", "bound_ms", "bound_share")
+               "wall_with_count_read_ms", "plain_wall_with_count_read_ms", "host_search_wall_ms",
+               "bytes", "bound_ms", "bound_share")
 FUNCTION_KEYS = ("C", "L", "windows", "candidate_rows", "tile", "ms", "plain_ms", "bytes",
                  "bound_ms", "bound_share", "kernels_us")
 

@@ -145,8 +145,15 @@ def place_columns(cols: Columns, num_records: int, n_docs: int,
         rec_counts = torch.bincount(rec, minlength=R)[:R]
         rec_offsets = torch.zeros(R + 1, dtype=torch.int64, device=device)
         rec_offsets[1:] = torch.cumsum(rec_counts, 0)
-        longest = torch.zeros(R, dtype=torch.int64, device=device).scatter_reduce_(
-            0, rec, end - start, "amax", include_self=False)
+        rec_offsets = rec_offsets.cpu().numpy()
+        # Each record's rows are contiguous: a max over each nonempty slice.
+        longest = torch.zeros(R, dtype=torch.int64, device=device)
+        live = np.flatnonzero(np.diff(rec_offsets))
+        if live.size:
+            lengths = end - start
+            longest[torch.from_numpy(live).to(device)] = torch.stack(
+                [lengths[rec_offsets[r] : rec_offsets[r + 1]].amax() for r in live.tolist()])
+            del lengths
         perm_e = torch.argsort(rec * span + (end - lo), stable=True)
         end_sorted, start_by_end, order_by_end = end[perm_e], start[perm_e], order[perm_e]
         del perm_e
@@ -196,7 +203,7 @@ def place_columns(cols: Columns, num_records: int, n_docs: int,
         key_stride=stride,
         monotone=monotone,
         n_docs=C,
-        rec_offsets=rec_offsets.cpu().numpy(),
+        rec_offsets=rec_offsets,
         longest=longest.cpu().numpy(),
         num_rows=n,
     )

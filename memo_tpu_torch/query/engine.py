@@ -268,11 +268,14 @@ class QueryEngine:
             return self._query_stratified(record, qs, qe, k, membership)
         n = self.n_docs
         stats = QueryStats(positions=qe - qs)
-        outputs = []
-        for c_qs in range(qs, qe, self.chunk_positions):
-            c_qe = min(c_qs + self.chunk_positions, qe)
-            outputs.append(self._query_chunk(record, c_qs, c_qe, k, membership, stats))
-            stats.chunks += 1
+        chunks = [(c_qs, min(c_qs + self.chunk_positions, qe))
+                  for c_qs in range(qs, qe, self.chunk_positions)]
+        if self.backend == "fused":
+            outputs = self._query_chunk_fused(record, chunks, k, membership, stats)
+        else:
+            outputs = [self._query_chunk(record, c_qs, c_qe, k, membership, stats)
+                       for c_qs, c_qe in chunks]
+        stats.chunks += len(chunks)
         self.last_stats = stats
         if self.device_output:
             if not outputs:
@@ -391,8 +394,7 @@ class QueryEngine:
         return np.concatenate([left, right], axis=0)
 
     def _query_chunk(self, record, qs, qe, k, membership, stats: QueryStats):
-        if self.backend == "fused":
-            return self._query_chunk_fused(record, qs, qe, k, membership, stats)
+        """One position chunk on the ``numpy`` or ``torch`` backend."""
         L = qe - qs
         n = self.n_docs
 
@@ -445,25 +447,62 @@ class QueryEngine:
                 acc = np.minimum(acc, out)
         return acc
 
-    def _query_chunk_fused(self, record, qs, qe, k, membership, stats: QueryStats):
-        """Fused-kernel chunk: exact in-window event ranges from the two
-        sorted streams plus the prefix counts, found on the device."""
-        L = qe - qs
-        wp = self._window_params(record, [qs], L, k)
-        count = max(n for (n,) in wp.counts.tolist())
-        M = min(_next_pow2(max(count, 1)), self.max_intervals)
-        if count > M:
-            mid = (qs + qe) // 2
-            if mid == qs:
+    def _query_chunk_fused(self, record, chunks, k, membership, stats: QueryStats) -> list:
+        """The fused backend's position chunks [(qs, qe), ...]: each one's
+        exact in-window event ranges in the two sorted streams and its
+        prefix counts, found on the device by one window step per chunk
+        length (the full chunks, then a shorter last one); then every
+        chunk's kernel. On CUDA the kernels are launched before the host
+        reads the candidate counts, which are copied back behind the steps,
+        so the read waits for the steps alone and the host stays ahead of
+        the card; a chunk over the cap is then run again in halves (exact
+        either way), down to interval pieces at a single position. On the
+        CPU the counts are known at once and a chunk over the cap is not
+        launched (the plain version sizes its gathers by the cap)."""
+        by_len: dict[int, list[int]] = {}
+        for i, (c_qs, c_qe) in enumerate(chunks):
+            by_len.setdefault(c_qe - c_qs, []).append(i)
+        steps = [(L, rows, self._window_params(record, [chunks[i][0] for i in rows], L, k))
+                 for L, rows in by_len.items()]
+        if not steps:
+            return []
+        counts = [wp.counts for _, _, wp in steps]
+        counts, ready = _copy_back(torch.cat(counts, 1) if len(counts) > 1 else counts[0])
+        order = [i for _, rows, _ in steps for i in rows]
+
+        def per_chunk() -> dict[int, int]:
+            return dict(zip(order, (max(m, p) for m, p in zip(*counts.tolist()))))
+
+        known = per_chunk() if ready is None else None
+        outs: list = [None] * len(chunks)
+        for L, rows, wp in steps:
+            for j, i in enumerate(rows):
+                if known is None or known[i] <= self.max_intervals:
+                    one = WindowParams(wp.params[j : j + 1], wp.prefix[j : j + 1],
+                                       wp.counts[:, j : j + 1])
+                    outs[i] = self._run_kernel(one, k, L, membership)[0]
+        if known is None:
+            ready.synchronize()
+            known = per_chunk()
+        for i in order:
+            count = known[i]
+            if count <= self.max_intervals:
+                stats.candidate_intervals += count
+                outs[i] = self._finish(outs[i])
+                continue
+            c_qs, c_qe = chunks[i]
+            mid = (c_qs + c_qe) // 2
+            if mid == c_qs:
                 # The two event streams do not split by interval subset, so a
                 # single position over the cap goes through the diff-array ops.
-                lo, hi = self._window_bounds(record, qs, qe, k)
-                return self._query_interval_pieces(record, qs, qe, k, membership, lo, hi, stats)
-            left = self._query_chunk_fused(record, qs, mid, k, membership, stats)
-            right = self._query_chunk_fused(record, mid, qe, k, membership, stats)
-            return self._cat(left, right)
-        stats.candidate_intervals += count
-        return self._finish(self._run_kernel(wp, k, L, membership)[0])
+                lo, hi = self._window_bounds(record, c_qs, c_qe, k)
+                outs[i] = self._query_interval_pieces(record, c_qs, c_qe, k, membership, lo, hi,
+                                                      stats)
+            else:
+                left, right = self._query_chunk_fused(record, [(c_qs, mid), (mid, c_qe)], k,
+                                                      membership, stats)
+                outs[i] = self._cat(left, right)
+        return outs
 
     def _run_kernel(self, wp: WindowParams, k: int, L: int, membership: bool) -> torch.Tensor:
         """The fused kernel on the Q windows of ``wp`` (their parameters on
@@ -471,6 +510,19 @@ class QueryEngine:
         n = self.n_docs
         run = fused_query_rows if self.kernel_version == "v1" else fused_query_v2_rows
         return run(self._d, wp.params, wp.prefix, k=k, L=L, C=n, n_docs=n, membership=membership)
+
+
+def _copy_back(t: torch.Tensor) -> tuple[torch.Tensor, torch.cuda.Event | None]:
+    """``t`` on the host: a CUDA tensor is copied into pinned memory behind
+    the work queued so far, without waiting for it, and comes with the event
+    to wait on before reading it; a CPU tensor is itself, ready."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record()
+    return host, ready
 
 
 def _device_query(d: PlacedStore, lo, rec_end, qs, k, M, L, n, membership):

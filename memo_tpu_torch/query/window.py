@@ -106,37 +106,43 @@ window_params.launches = 0
 def window_params_reference(placed: PlacedStore, layout: DeviceLayout, r: int, starts, L: int,
                             k: int) -> WindowParams:
     """Plain PyTorch version of :func:`window_params`, on the placed store's
-    device: the four range searches and the prefix's (or the scan) as torch
-    operations."""
+    device: one copy of the starts up, then the four range searches and the
+    prefix's (or the scan) as torch operations, written into one int32
+    tensor laid out as the kernel's (params, counts, prefix)."""
     starts = np.asarray(starts, np.int64).reshape(-1)
     n_win, C = starts.size, layout.n_docs
     device = placed.start.device
     rec_lo, rec_hi = int(layout.rec_offsets[r]), int(layout.rec_offsets[r + 1])
+    qs = torch.from_numpy(starts).to(device)
+    out = torch.empty(n_win * (7 + C), dtype=torch.int32, device=device)
+    wp = WindowParams(out[: 5 * n_win].view(n_win, 5), out[7 * n_win:].view(n_win, C),
+                      out[5 * n_win : 7 * n_win].view(2, n_win))
 
-    def up(values: np.ndarray, dtype) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(values, dtype=dtype)).to(device)
+    probes = torch.stack([qs, qs + (L - 1), qs + (k - 1), qs + (L + k - 2)])
+    probes = probes.clamp_(I32.min, I32.max).to(torch.int32)
+    found = torch.cat([
+        torch.searchsorted(placed.start[rec_lo:rec_hi], probes[:2], right=True, out_int32=True),
+        torch.searchsorted(placed.end_s[rec_lo:rec_hi], probes[2:], right=True, out_int32=True),
+    ])
+    torch.sub(found[1::2], found[0::2], out=wp.counts)
+    wp.params[:, :4] = (found + rec_lo).t()
+    wp.params[:, 4] = qs
 
-    probes = up(_clamp32(np.stack([starts, starts + L - 1, starts + k - 1, starts + L + k - 2])),
-                np.int32)
-    found = torch.cat([torch.searchsorted(placed.start[rec_lo:rec_hi], probes[:2], right=True),
-                       torch.searchsorted(placed.end_s[rec_lo:rec_hi], probes[2:], right=True)])
-    params = torch.cat([found + rec_lo, up(starts, np.int64)[None]]).t().to(torch.int32)
-    counts = (found[1::2] - found[0::2]).to(torch.int32)
-
-    prefix = torch.zeros((n_win, C), dtype=torch.int32, device=device)
-    e0 = starts + k - 1
+    wp.prefix.zero_()
     if layout.monotone:
         if C > 1:
-            first_key = r * C * layout.key_stride  # key of record r's column 0 at coordinate 0
-            cols = torch.arange(1, C, dtype=torch.int64, device=device) * layout.key_stride
-            e_probes = up(first_key + np.minimum(e0, layout.key_stride - 1), np.int64)[:, None]
-            s_probes = up(first_key + starts, np.int64)[:, None]
-            ends = torch.searchsorted(layout.e_keys, e_probes + cols, right=True)
-            begins = torch.searchsorted(layout.s_keys, s_probes + cols, right=True)
-            prefix[:, 1:] = (ends - begins).clamp_(min=0)
+            stride = layout.key_stride
+            first_key = r * C * stride  # key of record r's column 0 at coordinate 0
+            cols = torch.arange(first_key + stride, first_key + C * stride, stride,
+                                dtype=torch.int64, device=device)
+            e_probes = (qs + (k - 1)).clamp_(max=stride - 1)[:, None] + cols
+            ends = torch.searchsorted(layout.e_keys, e_probes, right=True, out_int32=True)
+            begins = torch.searchsorted(layout.s_keys, qs[:, None] + cols, right=True,
+                                        out_int32=True)
+            wp.prefix[:, 1:] = (ends - begins).clamp_(min=0)
     elif rec_hi > rec_lo:
-        _scan_prefix(placed, rec_lo, rec_hi, up(e0, np.int64), up(starts, np.int64), prefix)
-    return WindowParams(params.contiguous(), prefix, counts)
+        _scan_prefix(placed, rec_lo, rec_hi, qs + (k - 1), qs, wp.prefix)
+    return wp
 
 
 def _scan_prefix(placed: PlacedStore, rec_lo: int, rec_hi: int, e0: torch.Tensor,

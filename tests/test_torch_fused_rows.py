@@ -160,6 +160,28 @@ def test_rows_match_pallas_interpret(stores, source, C, kind, window, k):
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want))
 
 
+def test_window_args_is_one_tensor(stores):
+    """The window step's parameter block int32[Q, 5], candidate counts
+    int32[2, Q] and prefix int32[Q, C] are contiguous views of one int32
+    tensor (the kernel's layout; the card twin is in
+    test_torch_window_params_card.py), and agree with memo_tpu's host
+    search."""
+    store = stores[(33, "conservation")]
+    eng = QueryEngine(store, device="cpu", stratify=False)
+    jeng = JaxEngine(store, backend="pallas", stratify=False)
+    L = max(qe - qs for qs, qe in BATCH)
+    wp = eng._window_params("chr0", [qs for qs, _ in BATCH], L, 31)
+    shapes = [(len(BATCH), 5), (len(BATCH), 33), (2, len(BATCH))]
+    assert [tuple(t.shape) for t in wp] == shapes
+    assert all(t.dtype == torch.int32 and t.is_contiguous() for t in wp)
+    assert len({t.untyped_storage().data_ptr() for t in wp}) == 1
+    for i, (qs, _) in enumerate(BATCH):
+        mlo, mhi, plo, phi, prefix = jeng._window_params("chr0", qs, qs + L, 31)
+        assert wp.params[i].tolist() == [mlo, mhi, plo, phi, qs]
+        assert wp.counts[:, i].tolist() == [mhi - mlo, phi - plo]
+        np.testing.assert_array_equal(wp.prefix[i].numpy(), prefix)
+
+
 def test_reference_is_prepare_streams_then_the_diff_array(stores):
     """The plain version is prepare_streams over the largest candidate range
     followed by fused_query_reference, whatever M the engine would pick."""
@@ -241,7 +263,7 @@ def test_cuda_rows_narrow_tiles(cuda_device, C):
         store = random_store(np.random.default_rng(C), C, kind, rec_len=2000, per_pos=2)
         eng = QueryEngine(store, device=cuda_device, stratify=False)
         for record, wins in (("chr0", [(0, 2000)]), ("chr0", BATCH)):
-            got, args, L = _rows(eng, record, wins, 31, kind == "membership", cuda_device)
+            got, args, L = _rows(eng, record, wins, 31, kind == "membership")
             want = fused_query_rows_reference(eng._d, *args, k=31, L=L, C=C, n_docs=C,
                                               membership=kind == "membership")
             assert torch.equal(got, want), (C, kind, wins)

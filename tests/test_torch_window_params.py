@@ -264,3 +264,59 @@ def test_engine_keeps_no_host_rows_and_reads_back_only_counts(mixed_store, owner
         assert launches and len(reads) == len(launches), (reads, launches)
         assert all(m == "tolist" and dt == torch.int32 and len(shape) == 2 and shape[0] == 2
                    for m, dt, shape in reads), reads
+
+
+@pytest.mark.parametrize("counts_on", ["host", "card"])
+@pytest.mark.parametrize("kind", ["conservation", "membership"])
+@pytest.mark.parametrize("stratify", [True, False], ids=["stratified", "whole"])
+def test_chunked_query_reads_counts_once(mixed_store, stratify, kind, counts_on, monkeypatch):
+    """A query over seven full position chunks and a shorter last one finds
+    every chunk's parameters first and reads all the chunks' counts, an
+    int32 [2, 8] tensor, once per engine (or live bucket), with one launch a
+    chunk. Where the counts are on the host at once (the CPU) the read comes
+    first; where they come back from the card ("card": the copy's event
+    stood in for) all eight kernels are launched before the host waits on
+    the copy and reads. The output equals memo_tpu's numpy engine."""
+    from memo_tpu_torch.query import engine as engine_mod
+
+    store = _copy(mixed_store, kind=kind)
+    eng = QueryEngine(store, backend="fused", chunk_positions=128, stratify=stratify,
+                      device="cpu", device_output=True)
+    oracle = JaxEngine(store, backend="numpy")
+    events, recording = [], [False]
+
+    class Copied:
+        def synchronize(self):
+            events.append(("wait",))
+
+    if counts_on == "card":
+        monkeypatch.setattr(engine_mod, "_copy_back", lambda t: (t, Copied()))
+
+    def tolist(self, _real=torch.Tensor.tolist):
+        if recording[0]:
+            events.append(("read", self.dtype, tuple(self.shape)))
+        return _real(self)
+
+    real_kernel = engine_mod.fused_query_rows
+
+    def kernel(*args, **kwargs):
+        events.append(("launch",))
+        recording[0] = False  # the plain version's own reads are not the engine's
+        try:
+            return real_kernel(*args, **kwargs)
+        finally:
+            recording[0] = True
+
+    monkeypatch.setattr(torch.Tensor, "tolist", tolist)
+    monkeypatch.setattr(engine_mod, "fused_query_rows", kernel)
+    read = [("read", torch.int32, (2, 8))]
+    launches = [("launch",)] * 8
+    each = read + launches if counts_on == "host" else launches + [("wait",)] + read
+    for k in (31, 200):
+        events.clear()
+        recording[0] = True
+        got = getattr(eng, kind)("chrA", 0, 900, k)
+        recording[0] = False
+        np.testing.assert_array_equal(got.numpy(), getattr(oracle, kind)("chrA", 0, 900, k))
+        live = sum(lb < k - 1 for lb, _ in eng._children) if stratify else 1
+        assert events == each * live, events

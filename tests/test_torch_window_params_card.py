@@ -35,5 +35,8 @@ def test_card_params_equal_the_cpus(cuda_device):
                 for L, starts in WINDOWS:
                     want = window_params(*on_cpu, r, starts, L, k)
                     got = window_params(*on_card, r, starts, L, k)
+                    # params, prefix and counts: contiguous int32 views of one tensor
+                    assert all(g.dtype == torch.int32 and g.is_contiguous() for g in got)
+                    assert len({g.untyped_storage().data_ptr() for g in got}) == 1
                     for g, w in zip(got, want):
                         assert g.device.type == "cuda" and torch.equal(g.cpu(), w), (name, k, r, L)
