@@ -12,8 +12,13 @@ searches, at every launch this script makes), runs the twin of
 ``__graft_entry__.entry()`` (phase 11), and drives the query paths: the
 single-window path through the CLI at the headline size (2 Mbp pivot, 16
 genomes, k=31), its wall split into stages (store load, engine set-up,
-query, format, write), the engine's set-up split into stages (upload, the
-gate, the bucket split, the card's sorts and gathers, sentinel padding) and
+query, format, write; the upload's reads or inflates and its copies beside
+them), its host memory, and a check that the columns went from the .npz to
+the card through the staging buffers (index/npz.py) and never through
+numpy's member reader, the streamed columns == the store's (phases 3, 4
+and 12: deflated, stored, the chromosome's 10.3 GB), the engine's set-up
+split into stages (upload, the gate, the bucket split, the card's sorts and
+gathers, sentinel padding) and
 the query layout it built and keeps on the card held to the numpy build
 array for array; the window over a candidate cap it exceeds, halved on
 the card, == the reference loop; the device operations of one query of each kernel counted
@@ -63,11 +68,15 @@ import logging
 import os
 import signal
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import weakref
+import zipfile
+import zlib
 
 import numpy as np
 import torch
@@ -203,6 +212,161 @@ def timed_stages(run):
     result = run()
     wall = time.perf_counter() - t0
     return result, wall, dict(GLOBAL_TIMES.times)
+
+
+@contextlib.contextmanager
+def numpy_array_reads(limit: int):
+    """The element counts of the arrays over ``limit`` elements that numpy's
+    member reader (``numpy.lib.format.read_array``, which ``np.load``
+    reaches) reads inside the block."""
+    real, big = np.lib.format.read_array, []
+
+    def counted(*args, **kwargs):
+        arr = real(*args, **kwargs)
+        if arr.size > limit:
+            big.append(int(arr.size))
+        return arr
+
+    np.lib.format.read_array = counted
+    try:
+        yield big
+    finally:
+        np.lib.format.read_array = real
+
+
+@contextlib.contextmanager
+def rss_peak():
+    """This process's resident set before the block and its highest during
+    it (sampled every 5 ms), in bytes."""
+    out = {"rss_before_bytes": rss_bytes()}
+    peak, stop = [out["rss_before_bytes"]], threading.Event()
+
+    def poll():
+        while not stop.wait(0.005):
+            peak[0] = max(peak[0], rss_bytes())
+
+    thread = threading.Thread(target=poll, daemon=True)
+    thread.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        thread.join()
+        out["rss_peak_bytes"] = max(peak[0], rss_bytes())
+
+
+def timed_cli(argv: list[str], limit: int):
+    """``cli.main(argv)``'s exit code, wall, stage timers (as
+    :func:`timed_stages`) and host side: the resident set before and its
+    peak during the call, and how many arrays over ``limit`` elements (a
+    store's records + 1) numpy's member reader read."""
+    from memo_tpu_torch import cli
+
+    with rss_peak() as host, numpy_array_reads(limit) as big:
+        rc, wall, stages = timed_stages(lambda: cli.main(argv))
+    return rc, wall, stages, host | {"numpy_large_reads": len(big)}
+
+
+def check_streamed(stages: dict, host: dict, what: str) -> None:
+    """The CLI ``-r`` above streamed its store's columns from the file: the
+    read and copy stages ran, and numpy's reader read no large member."""
+    check({"place.upload.read", "place.upload.copy"} <= set(stages)
+          and host["numpy_large_reads"] == 0,
+          f"{what}: columns streamed from the .npz, none through numpy's reader")
+
+
+def streamed_columns_check(store, npz: str, device) -> dict:
+    """The columns of ``npz`` (``store``, saved) streamed to the card by
+    ``upload_columns``, column for column == the store's own columns
+    uploaded from the host; the streamed upload's wall and stages."""
+    from memo_tpu_torch.index.placement import upload_columns
+    from memo_tpu_torch.index.store import COLUMNS, IntervalStore
+
+    loaded = IntervalStore.load(npz)
+    cols, wall, stages = timed_stages(lambda: upload_columns(loaded, device))
+    check(loaded.file_columns()[1] == list(COLUMNS), "streamed upload read no column on the host")
+    for name, col in zip(COLUMNS, cols):
+        want = torch.from_numpy(getattr(store, name)).to(device)
+        check(col.dtype == want.dtype and torch.equal(col, want),
+              f"{name} streamed from {os.path.basename(npz)} == the store's")
+        del want
+    n_bytes = sum(c.numel() * c.element_size() for c in cols)
+    return {"equal": True, "bytes": n_bytes, "s": wall, "stages": stages}
+
+
+def npz_columns(npz: str) -> dict[str, tuple]:
+    """Each ``.npy`` member of ``npz``: (method, the file offset of its data
+    from its local header, compressed size, .npy header length, dtype,
+    shape); the load probe's own parse, for any tree's package."""
+    out = {}
+    with open(npz, "rb") as fh, zipfile.ZipFile(fh) as zf:
+        for info in zf.infolist():
+            fh.seek(info.header_offset)
+            name_len, extra_len = struct.unpack("<2H", fh.read(30)[26:30])
+            with zf.open(info) as fp:
+                version = np.lib.format.read_magic(fp)
+                read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                        else np.lib.format.read_array_header_2_0)
+                shape, _, dtype = read(fp)
+                header = fp.tell()
+            out[info.filename[:-4]] = (info.compress_type,
+                                       info.header_offset + 30 + name_len + extra_len,
+                                       info.compress_size, header, dtype, shape)
+    return out
+
+
+def load_split(npz: str, device) -> dict:
+    """How numpy's load of the four columns of ``npz`` splits on this host:
+    per member, ``np.load``'s seconds against reading the same bytes into
+    an array at the member's data offset (stored) or reading its raw stream
+    and inflating it (deflated), both equal to np.load's array; then the
+    CRC-32 and int64 -> int32 narrowing rates on 256 MB of host memory and
+    the pinned host-to-device copy rate (CUDA events)."""
+    table = npz_columns(npz)
+    out = {}
+    for name in ("rec_id", "start", "end", "order"):
+        method, offset, csize, header, dtype, shape = table[name]
+        t0 = time.perf_counter()
+        with np.load(npz) as z:
+            want = z[name]
+        np_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        arr = np.empty(shape, dtype)
+        view = memoryview(arr.view(np.uint8))
+        with open(npz, "rb", buffering=0) as fh:
+            if method == zipfile.ZIP_STORED:
+                done = 0
+                while done < len(view):
+                    done += os.preadv(fh.fileno(), [view[done:]], offset + header + done)
+                cell = {"readinto_s": time.perf_counter() - t0}
+            else:
+                raw = os.pread(fh.fileno(), csize, offset)
+                read_s = time.perf_counter() - t0
+                t1 = time.perf_counter()
+                data = zlib.decompressobj(-15).decompress(raw)
+                inflate_s = time.perf_counter() - t1
+                view[:] = memoryview(data)[header:]
+                del raw, data
+                cell = {"raw_read_s": read_s, "inflate_s": inflate_s,
+                        "inflate_gb_s": arr.nbytes / inflate_s / 1e9, "compressed_bytes": csize}
+        check(np.array_equal(arr, want), f"load probe: {name} read directly == np.load's")
+        out[name] = {"method": "stored" if method == zipfile.ZIP_STORED else "deflated",
+                     "bytes": arr.nbytes, "np_load_s": np_s,
+                     "np_load_gb_s": arr.nbytes / np_s / 1e9} | cell
+        del want, arr, view
+    probe = np.random.default_rng(SEED).integers(0, 1 << 40, 32 << 20)  # 256 MB of int64
+    t0 = time.perf_counter()
+    zlib.crc32(probe)
+    crc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    probe.astype(np.int32)
+    narrow_s = time.perf_counter() - t0
+    pinned = torch.from_numpy(probe).pin_memory()
+    on_card = torch.empty_like(pinned, device=device)
+    copy_ms = kernel_ms(lambda: on_card.copy_(pinned, non_blocking=True), reps=10)
+    return {"members": out, "crc32_gb_s": probe.nbytes / crc_s / 1e9,
+            "narrow_int64_gb_s": probe.nbytes / narrow_s / 1e9,
+            "pinned_h2d_gb_s": probe.nbytes / copy_ms / 1e6}
 
 
 _PLAIN = weakref.WeakKeyDictionary()  # engine -> (its rows on the host, their numpy layout)
@@ -835,11 +999,12 @@ def phase_headline(device, tmp: str):
     store.save(npz)
 
     fused_query_rows.launches = window_params.launches = 0
-    rc, cli_s, cli_stages = timed_stages(lambda: cli.main(
+    rc, cli_s, cli_stages, cli_host = timed_cli(
         ["query", "-b", npz, "-k", str(K), "-r", f"chr1:0-{L}", "-o", out,
-         "--device", device.type, "--stats"]))
+         "--device", device.type, "--stats"], store.num_records + 1)
     launches = {"v1": fused_query_rows.launches, "window": window_params.launches}
     check(rc == 0, "CLI query exit code")
+    check_streamed(cli_stages, cli_host, "headline CLI -r (deflated .npz)")
     check(launches["v1"] > 0 and launches["window"] > 0,
           f"the CLI query launched the window and v1 kernels: {launches}")
 
@@ -850,6 +1015,7 @@ def phase_headline(device, tmp: str):
     with open(out, "rb") as fh:
         got_bytes = fh.read()
     check(got_bytes == format_conservation(ref), "CLI output bytes == reference loop")
+    streamed = streamed_columns_check(store, npz, device)
 
     mbp_s = {}
     for backend in ("fused", "torch"):
@@ -902,8 +1068,8 @@ def phase_headline(device, tmp: str):
     format_conservation(res)
     format_ms = (time.perf_counter() - t0) * 1e3
     emit("phase3_headline", intervals=store.num_intervals, n_docs=store.n_docs, L=L, k=K,
-         store_build_s=build_s, cli_query_s=cli_s, cli_stages_s=cli_stages, launches=launches,
-         exact_cli_bytes=True, engine_init_s=init_s, engine_init_stages=init_stages,
+         store_build_s=build_s, cli_query_s=cli_s, cli_stages_s=cli_stages, cli_host=cli_host,
+         streamed_columns=streamed, launches=launches, exact_cli_bytes=True, engine_init_s=init_s, engine_init_stages=init_stages,
          setup_peak_device_bytes=setup_peak, steady_device_bytes=steady, card_layout=layout,
          window_params_vs_numpy=params,
          reference_loop_s=ref_s, mbp_s=mbp_s, query_wall_ms=query_wall,
@@ -1013,18 +1179,22 @@ def phase_hprc(device, tmp: str):
     del eng, bucket0
     torch.cuda.empty_cache()
     cli_out = os.path.join(tmp, "hprc_cons.txt")
-    rc, cli_s, cli_stages = timed_stages(lambda: cli.main(
+    rc, cli_s, cli_stages, cli_host = timed_cli(
         ["query", "-b", npz, "-k", str(K), "-r", f"chr1:0-{L}", "-o", cli_out,
-         "--device", device.type]))
+         "--device", device.type], store.num_records + 1)
     check(rc == 0, "n90 CLI query exit code")
+    check_streamed(cli_stages, cli_host, "n90 CLI -r (stored .npz)")
     with open(cli_out, "rb") as fh:
         check(fh.read() == format_conservation(out), "n90 CLI bytes == the engine's output")
+    streamed = streamed_columns_check(store, npz, device)
+    torch.cuda.empty_cache()
     emit("phase4_hprc", intervals=store.num_intervals, n_docs=store.n_docs, L=L, k=K,
          store_build_s=build_s, store_save_s=save_s, engine_init_s=init_s,
          engine_init_stages=init_stages, setup_peak_device_bytes=setup_peak,
          steady_device_bytes=steady, bucket0_window_params_vs_numpy=params, mbp_s=L / dt / 1e6, last_stats=stats, buckets=buckets, peak_device_bytes=peak,
          spot_windows_exact=2, bucket0_card_layout=layout, cli_query_s=cli_s,
-         cli_stages_s=cli_stages, exact_cli_bytes=True)
+         cli_stages_s=cli_stages, cli_host=cli_host, streamed_columns=streamed,
+         exact_cli_bytes=True)
     return store
 
 
@@ -1631,16 +1801,22 @@ def phase_chromosome(device, tmp: str):
     launches["window"] += resident["launches"]["window"]
     for (qs, qe), out in zip(wins, outs):
         check(np.array_equal(cons[qs:qe], out), f"resident window {qs}-{qe} == the engine's")
-    del store, cons
+    del cons
+    torch.cuda.empty_cache()
+    streamed = streamed_columns_check(store, npz, device)
+    R = store.num_records
+    del store
+    torch.cuda.empty_cache()
 
     q = 3  # the CLI -r window
     cli_out = os.path.join(tmp, "chrom_cons.txt")
     fused_query_rows.launches = window_params.launches = 0
-    rc, cli_s, cli_stages = timed_stages(lambda: cli.main(
+    rc, cli_s, cli_stages, cli_host = timed_cli(
         ["query", "-b", npz, "-k", str(K), "-r", f"chr1:{wins[q][0]}-{wins[q][1]}", "-o", cli_out,
-         "--device", device.type]))
+         "--device", device.type], R + 1)
     check(rc == 0 and fused_query_rows.launches > 0 and window_params.launches > 0,
           "chromosome CLI -r ran the window and v1 kernels")
+    check_streamed(cli_stages, cli_host, "chromosome CLI -r (stored .npz)")
     launches["v1"] += fused_query_rows.launches
     launches["window"] += window_params.launches
     with open(cli_out, "rb") as fh:
@@ -1682,7 +1858,7 @@ def phase_chromosome(device, tmp: str):
          windows=wins, spot_windows=spots, edge_windows=edges, window_params_vs_numpy=params,
          engines=engines, resident=resident,
          cli_r_window=list(wins[q]), cli_query_s=cli_s, cli_stages_s=cli_stages,
-         cli_bytes_equal=True, regions_cli_s=regions_s, auto_resolved="resident",
+         cli_host=cli_host, streamed_columns=streamed, cli_bytes_equal=True, regions_cli_s=regions_s, auto_resolved="resident",
          regions_byte_identical=True, launches=launches, window_kernel=window_fn)
     whole = resident["whole_record_max_abs_err"].values()
     return ({v: engines[v]["functions"][q] for v in ("v1", "v2")} | {"window": window_fn}, launches,
@@ -1698,9 +1874,13 @@ def setup_cells(tmp: str) -> int:
     by the first run), the stratified engine's set-up with its stages, host
     RSS before and after it, set-up peak and steady device bytes, and the
     wall of a query of eight position chunks (:func:`chunked_query`);
-    ResidentShardedQuery's placement, the same; and the CLI ``-r`` of
-    window 3 with its stages. Prints one line, ``setup_cells {...}``."""
-    from memo_tpu_torch import cli
+    ResidentShardedQuery's placement, the same; the CLI ``-r`` of window 3
+    with its stages and host memory; the CLI ``-r`` of the n=90 store's
+    whole window from ``tmp``/n90.npz (stored members) and
+    ``tmp``/n90_deflated.npz (the default ``save()``, the file ``memo
+    index`` writes), byte-identical; and how numpy's load of the chromosome
+    and of the deflated n=90 file splits on this host (:func:`load_split`).
+    Prints one line, ``setup_cells {...}``."""
     from memo_tpu_torch.index.store import IntervalStore
     from memo_tpu_torch.parallel import ResidentShardedQuery
     from memo_tpu_torch.query.engine import QueryEngine
@@ -1714,10 +1894,16 @@ def setup_cells(tmp: str) -> int:
     del eng, store
     torch.cuda.empty_cache()
 
+    os.makedirs(tmp, exist_ok=True)
     npz = os.path.join(tmp, "chrom.npz")
+    n90 = {"stored": os.path.join(tmp, "n90.npz"), "deflated": os.path.join(tmp, "n90_deflated.npz")}
     if not os.path.exists(npz):
-        os.makedirs(tmp, exist_ok=True)
         build_chromosome_store(np.random.default_rng(SEED)).save(npz, compressed=False)
+    if not all(map(os.path.exists, n90.values())):
+        large = build_large_store(np.random.default_rng(SEED))
+        large.save(n90["stored"], compressed=False)
+        large.save(n90["deflated"])
+        del large
     t0 = time.perf_counter()
     store = IntervalStore.load(npz)
     load_s = time.perf_counter() - t0
@@ -1743,13 +1929,26 @@ def setup_cells(tmp: str) -> int:
     del store
     torch.cuda.empty_cache()
     qs, qe = chromosome_windows()[3]
-    rc, cli_s, cli_stages = timed_stages(lambda: cli.main(
+    rc, cli_s, cli_stages, cli_host = timed_cli(
         ["query", "-b", npz, "-k", str(K), "-r", f"chr1:{qs}-{qe}", "-o",
-         os.path.join(tmp, "cli_r.txt"), "--device", "cuda"]))
+         os.path.join(tmp, "cli_r.txt"), "--device", "cuda"], 2)
     check(rc == 0, "setup cells: CLI -r exit code")
+    n90_cli = {}
+    for kind, path in n90.items():
+        torch.cuda.empty_cache()
+        rc, wall, stages, host = timed_cli(
+            ["query", "-b", path, "-k", str(K), "-r", f"chr1:0-{LARGE_PIVOT_LEN}", "-o",
+             os.path.join(tmp, f"n90_{kind}.txt"), "--device", "cuda"], 2)
+        check(rc == 0, f"setup cells: n90 {kind} CLI -r exit code")
+        n90_cli[kind] = {"s": wall, "stages": stages, "host": host}
+    with open(os.path.join(tmp, "n90_stored.txt"), "rb") as a, \
+            open(os.path.join(tmp, "n90_deflated.txt"), "rb") as b:
+        check(a.read() == b.read(), "setup cells: n90 CLI -r bytes, stored == deflated")
+    split = {"chromosome": load_split(npz, device), "n90_deflated": load_split(n90["deflated"], device)}
     emit("setup_cells", card=card, tree=os.path.dirname(os.path.abspath(__file__)),
          headline_query_wall_ms=headline, chrom_load_s=load_s, engine=engine,
-         resident=resident, cli_r_s=cli_s, cli_r_stages=cli_stages)
+         resident=resident, cli_r_s=cli_s, cli_r_stages=cli_stages, cli_r_host=cli_host,
+         n90_cli_r=n90_cli, n90_bytes_equal=True, load_split=split)
     return 0
 
 

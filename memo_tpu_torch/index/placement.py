@@ -2,7 +2,9 @@
 
 memo_tpu builds the fused query's layout on the host (``QueryLayout.build``:
 two ``np.lexsort`` permutations, their gathers and the composite keys) and
-then uploads the gathered arrays. Here the store's columns go up once and
+then uploads the gathered arrays. Here the store's columns go up once (a
+loaded store's straight from its .npz through staging buffers,
+``index/npz.py``, with no host copy of them) and
 the permutations are stable ``torch.argsort``s of one composite int64 key
 each, so the sorts and gathers run where the placed store lives, and the
 layout stays there (:class:`DeviceLayout`): the window search
@@ -30,8 +32,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from memo_tpu_torch.index.store import IntervalStore
-from memo_tpu_torch.utils.profiling import stage_timer
+from memo_tpu_torch.index.store import COLUMNS, IntervalStore
+from memo_tpu_torch.utils.profiling import GLOBAL_TIMES, stage_timer
 
 
 class PlacedStore(NamedTuple):
@@ -105,11 +107,31 @@ class Columns(NamedTuple):
 
 
 def upload_columns(store: IntervalStore, device) -> Columns:
-    """The store's columns on ``device``, copied once."""
+    """The store's columns on ``device``, copied once. The columns of a
+    loaded store that no host code has read go from its file to the device
+    (``NpzMembers.stream``: staging buffers, pinned on CUDA), with the
+    stages ``place.upload.read`` (thread-seconds of reads and inflates) and
+    ``place.upload.copy`` (the copies' seconds) beside ``place.upload``; any
+    failure there raises. A store built in memory, and a column already on
+    the host or in a member format numpy never writes, goes from its host
+    array."""
     device = torch.device(device)
     with _stage("place.upload", device):
-        return Columns(*(torch.from_numpy(a).to(device)
-                         for a in (store.rec_id, store.start, store.end, store.order)))
+        # a memo_tpu store, or any other with the columns, goes from its host arrays
+        npz, in_file = store.file_columns() if isinstance(store, IntervalStore) else (None, [])
+        direct = [n for n in in_file if npz.member(n).direct]
+        streamed, times = npz.stream(direct, device) if direct else ({}, None)
+        cols = []
+        for name, dtype in COLUMNS.items():
+            col = streamed.pop(name, None)
+            if col is None:
+                col = torch.from_numpy(getattr(store, name)).to(device)
+            # a writer's other integer width, cast as IntervalStore casts it
+            cols.append(col.to(getattr(torch, np.dtype(dtype).name)))
+    if times is not None:
+        for stage, seconds in times.items():
+            GLOBAL_TIMES.add(f"place.upload.{stage}", seconds)
+    return Columns(*cols)
 
 
 def place_store_and_layout(store: IntervalStore, device,

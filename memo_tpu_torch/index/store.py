@@ -8,6 +8,9 @@ predicate pushdown (reference memo_query.py:19-36).
 
 Compat importers/exporters for the reference's BED and Parquet formats are in
 :mod:`memo_tpu_torch.io.compat` — this module is the native format (.npz).
+A loaded store reads its four large columns from the file only when host
+code first uses one (:mod:`memo_tpu_torch.index.npz`), so a placement can
+stream them from the file to the device without a host copy.
 
 The port's own copy of :mod:`memo_tpu.index.store`, which stays the reference; the two
 read and write the same files.
@@ -21,7 +24,11 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from memo_tpu_torch.index.npz import NpzMembers
+
 _MAGIC = "memo-tpu-interval-store-v1"
+# The large columns, with their dtypes; a loaded store reads each on first use.
+COLUMNS = {"rec_id": np.int32, "start": np.int64, "end": np.int64, "order": np.int32}
 
 
 @dataclass
@@ -46,10 +53,9 @@ class IntervalStore:
 
     def __post_init__(self):
         self.record_lens = np.asarray(self.record_lens, np.int64)
-        self.rec_id = np.asarray(self.rec_id, np.int32)
-        self.start = np.asarray(self.start, np.int64)
-        self.end = np.asarray(self.end, np.int64)
-        self.order = np.asarray(self.order, np.int32)
+        for name, dtype in COLUMNS.items():
+            if name in self.__dict__:  # else still in the file (``load``)
+                setattr(self, name, np.asarray(self.__dict__[name], dtype))
         if self.rec_offsets is None:
             self.rec_offsets = self._compute_offsets()
         else:
@@ -59,6 +65,16 @@ class IntervalStore:
         else:
             self.max_interval_len = np.asarray(self.max_interval_len, np.int64)
 
+    def __getattr__(self, name: str):
+        """A column of a loaded store that no host code has used yet: read
+        from its file now, and kept."""
+        npz = self.__dict__.get("_npz")
+        if name not in COLUMNS or npz is None:
+            raise AttributeError(f"{type(self).__name__!r} object has no attribute {name!r}")
+        value = np.asarray(npz.read(name), COLUMNS[name])
+        setattr(self, name, value)
+        return value
+
     # ------------------------------------------------------------------ core
     @property
     def num_records(self) -> int:
@@ -66,7 +82,17 @@ class IntervalStore:
 
     @property
     def num_intervals(self) -> int:
+        npz = self.__dict__.get("_npz")
+        if "start" not in self.__dict__ and npz is not None and npz.member("start").direct:
+            return int(npz.member("start").shape[0])
         return int(self.start.shape[0])
+
+    def file_columns(self) -> tuple[NpzMembers | None, list[str]]:
+        """The member table of the file this store was loaded from (None for
+        a store built in memory), and the columns still only there: those no
+        host code has read or set."""
+        npz = self.__dict__.get("_npz")
+        return npz, [n for n in COLUMNS if npz is not None and n not in self.__dict__]
 
     def _compute_offsets(self) -> np.ndarray:
         counts = np.bincount(self.rec_id, minlength=self.num_records)
@@ -137,22 +163,26 @@ class IntervalStore:
 
     @classmethod
     def load(cls, path: str | os.PathLike) -> "IntervalStore":
-        with np.load(path) as z:
-            meta = json.loads(z["meta"].tobytes().decode())
-            if meta.get("magic") != _MAGIC:
-                raise ValueError(f"{path}: not a memo-tpu interval store")
-            return cls(
-                record_names=list(meta["record_names"]),
-                record_lens=z["record_lens"],
-                n_docs=int(meta["n_docs"]),
-                kind=meta["kind"],
-                rec_id=z["rec_id"],
-                start=z["start"],
-                end=z["end"],
-                order=z["order"],
-                rec_offsets=z["rec_offsets"],
-                max_interval_len=z["max_interval_len"],
-            )
+        """The store saved at ``path``, equal to ``np.load``'s reading of it
+        (memo_tpu's ``load``). Reads the member table and the small members;
+        each large column is read from the file on first use (or streamed
+        to a device by ``index/placement.upload_columns``)."""
+        npz = NpzMembers(path)
+        meta = json.loads(npz.read("meta").tobytes().decode())
+        if meta.get("magic") != _MAGIC:
+            raise ValueError(f"{path}: not a memo-tpu interval store")
+        store = cls.__new__(cls)
+        store._npz = npz
+        store.record_names = list(meta["record_names"])
+        store.record_lens = npz.read("record_lens")
+        store.n_docs = int(meta["n_docs"])
+        store.kind = meta["kind"]
+        for name in COLUMNS:
+            npz.member(name)  # a missing column raises KeyError now, as np.load's reads do
+        store.rec_offsets = npz.read("rec_offsets")
+        store.max_interval_len = npz.read("max_interval_len")
+        store.__post_init__()
+        return store
 
     # ------------------------------------------------------------------ misc
     def stats(self) -> dict:
