@@ -100,21 +100,26 @@ INT_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores, for int
 OVER_CAP = 1 << 20  # a candidate cap the headline window exceeds (phase 3)
 EDGE_REC_LEN = 200_000  # records of the random stores that phase 2 checks v1 on
 # The device operations of one query or batch, as CUDA graph nodes. The
-# window-parameter step (query/window.py): one copy of the window starts up
-# and csrc/window_params.cu's kernel; then the read of its candidate counts,
-# one copy down, which a graph cannot hold (the profiler lists it); then
-# the kernel function: v1's three kernels (csrc/fused_query.cu) or v2's one.
-WINDOW_GRAPH = {"memcpy": 1, "kernel": 1}
+# window-parameter step (query/window.py): csrc/window_params.cu's kernel,
+# after one copy of the window starts up where there are more than its
+# parameters take by value (window_graph); then the kernel function: v1's
+# three kernels (csrc/fused_query.cu) or v2's one. A query under a cap it
+# cannot prove also copies its candidate counts down, behind the step, which
+# a graph cannot hold (the profiler lists it); under a provable cap it
+# copies nothing down.
 V1_KERNELS = ("rows_net_kernel", "tile_scan_kernel", "rows_apply_kernel")
 V2_KERNELS = ("fused_query_v2_kernel",)
 V1_GRAPH, V2_GRAPH = {"kernel": 3}, {"kernel": 1}  # the kernel functions
 STEP_OPS = ("Memcpy HtoD", "window_params_kernel", "Memcpy DtoH")  # profiler names
+CAPPED_WINDOW = 1 << 19  # a window under OVER_CAP's candidates, whose record's rows pass it
+K_SWEEP = (31, 51, 101, 201)  # n90's stratified engine: 1, 2, 2 and 3 live buckets
 DENSE_LEN, DENSE_DOCS = 1 << 18, 90  # dense_small: tools/kernel_lab.py's 256 Kbp, C=90 store
 PROFILE_TRIES = 3
 MESH_REPS = 3  # timed runs of each strategy on the mesh, after one checked run
 MESH_TIMEOUT_S = 300  # the torchrun of phase 10, start to end
 MESH_CHILD = "--mesh-child"  # argv[1] of the ranks phase 10 starts
 SETUP_CELLS = "--setup-cells"  # argv[1]: the set-up cells alone, for an A/B of two trees
+HOST_SPLIT = "--host-split"  # argv[1]: how a headline query's host time splits, alone
 # The chromosome-scale index (phase 12): SCALE_r05.json's configuration, a
 # 128 Mbp pivot at HPRC width (90 haplotypes, 432,249,312 intervals there),
 # from synth_ms's anchors at the gap that gives its density.
@@ -845,7 +850,8 @@ def time_window_params(engine, record: str, windows, k: int) -> dict:
 
     ms = kernel_ms(step)
     plain = kernel_ms(lambda: window_params_reference(engine._d, lay, r, starts, L, k))
-    ops = device_ops(step, ("Memcpy HtoD", "window_params_kernel"))
+    ops = device_ops(step, ("Memcpy HtoD", "window_params_kernel"),
+                     sum(window_graph(len(windows)).values()))
     # None where the profiler's traces all missed the kernel: not measured.
     kernel_us = next((us for name, us in ops if "window_params_kernel" in name), None)
     wall = spread_ms(walls_s(lambda: step().counts.tolist(), engine.device))
@@ -955,19 +961,35 @@ def graph_ops(fn) -> dict[str, int]:
     return counts
 
 
+def window_graph(n_win: int) -> dict[str, int]:
+    """The window step's device operations for ``n_win`` windows: its
+    kernel, after one copy of the starts up where they do not all go by
+    value in its parameters."""
+    from memo_tpu_torch.query.window import INLINE_STARTS
+
+    return {"kernel": 1} if n_win <= INLINE_STARTS else {"memcpy": 1, "kernel": 1}
+
+
+def copies_of(ops) -> list[int]:
+    """The copies up and down in a profiler list of device operations."""
+    return [sum(kind in name for name, _ in ops) for kind in ("Memcpy HtoD", "Memcpy DtoH")]
+
+
 def query_graphs(engine, record: str, windows, k: int) -> dict:
-    """The device operations of one query of ``windows`` (one launch): the
-    window-parameter step and the kernel function each captured into a
-    CUDA graph and counted by node type (exactly; the read of the counts
-    between them cannot be captured), and the whole query, that read
-    included, listed by torch.profiler."""
+    """The device operations of one query of ``windows`` (one launch) under
+    the engine's provable cap: the window-parameter step and the kernel
+    function each captured into a CUDA graph and counted by node type
+    (exactly), and the whole query listed by torch.profiler: the step, the
+    function and nothing else, no copy down."""
+    check(engine._cap_holds(record), f"{record}'s rows are within the engine's cap")
     kernels = V1_KERNELS if engine.kernel_version == "v1" else V2_KERNELS
     want_fn = V1_GRAPH if engine.kernel_version == "v1" else V2_GRAPH
     L = max(qe - qs for qs, qe in windows)
     starts = [qs for qs, _ in windows]
     step = graph_ops(lambda: engine._window_params(record, starts, L, k))
-    check(step == WINDOW_GRAPH, f"the window-parameter step of {len(windows)} window(s) is "
-                                f"{WINDOW_GRAPH}: {step}")
+    want_step = window_graph(len(windows))
+    check(step == want_step, f"the window-parameter step of {len(windows)} window(s) is "
+                             f"{want_step}: {step}")
     wp = engine._window_params(record, starts, L, k)
     fn = kernel_functions()[engine.kernel_version]
     C = engine.n_docs
@@ -976,11 +998,65 @@ def query_graphs(engine, record: str, windows, k: int) -> dict:
     check(function == want_fn, f"the {engine.kernel_version} function is {want_fn}: {function}")
     query = ((lambda: engine.conservation(record, *windows[0], k)) if len(windows) == 1
              else (lambda: engine.conservation_batch(record, windows, k)))
-    ops = device_ops(query, STEP_OPS + kernels, sum(step.values()) + 1 + len(kernels))
-    copies = [sum(kind in name for name, _ in ops) for kind in ("Memcpy HtoD", "Memcpy DtoH")]
-    check(copies == [1, 1], f"one copy up and one down a query: {copies} in {ops}")
-    return {"step_graph": step, "function_graph": function,
-            "device_ops": sum(step.values()) + 1 + sum(function.values()), "device_op_list": ops}
+    n_ops = sum(step.values()) + len(kernels)
+    ops = device_ops(query, STEP_OPS + kernels, n_ops)
+    copies = copies_of(ops)
+    check(copies == [step.get("memcpy", 0), 0],
+          f"{step.get('memcpy', 0)} copy up and none down a query under a provable cap: "
+          f"{copies} in {ops}")
+    return {"step_graph": step, "function_graph": function, "device_ops": n_ops,
+            "device_op_list": ops}
+
+
+def capped_query_ops(capped, record: str, window: tuple[int, int], k: int) -> dict:
+    """One query of ``window`` through ``capped``, an engine whose cap the
+    record's rows pass but the window's candidates do not: the profiler's
+    device operations are the step, one copy of the counts down and the
+    kernel function, exactly."""
+    kernels = V1_KERNELS if capped.kernel_version == "v1" else V2_KERNELS
+    check(not capped._cap_holds(record), f"{record}'s rows pass the capped engine's cap")
+    wp = capped._window_params(record, [window[0]], window[1] - window[0], k)
+    count = int(wp.counts.max())
+    check(count <= capped.max_intervals, f"window {window}'s {count} candidates within the cap")
+    n_ops = sum(window_graph(1).values()) + 1 + len(kernels)
+    ops = device_ops(lambda: capped.conservation(record, *window, k), STEP_OPS + kernels, n_ops)
+    copies = copies_of(ops)
+    check(copies == [0, 1] and len(ops) == n_ops,
+          f"no copy up and one down a query over a provable cap: {copies} in {ops}")
+    return {"window": list(window), "candidates": count, "cap": capped.max_intervals,
+            "device_ops": n_ops, "device_op_list": ops}
+
+
+def no_wait_query(engine, record: str, qs: int, qe: int, k: int) -> dict:
+    """One query of [qs, qe) through ``engine`` (output left on the card,
+    under a provable cap) with ``torch.cuda.set_sync_debug_mode("error")``,
+    so that any operation that waits on the card raises, and with
+    ``torch.cuda.Event.synchronize`` and ``torch.cuda.synchronize`` counting
+    their calls: it must make none, and its output equals the same query's
+    run normally; ``last_stats`` is read after it."""
+    calls = []
+    real_event, real_sync = torch.cuda.Event.synchronize, torch.cuda.synchronize
+
+    def event_sync(self):
+        calls.append("Event.synchronize")
+        return real_event(self)
+
+    def device_sync(*args, **kwargs):
+        calls.append("torch.cuda.synchronize")
+        return real_sync(*args, **kwargs)
+
+    want = engine.conservation(record, qs, qe, k)
+    real_sync()
+    torch.cuda.Event.synchronize, torch.cuda.synchronize = event_sync, device_sync
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = engine.conservation(record, qs, qe, k)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.Event.synchronize, torch.cuda.synchronize = real_event, real_sync
+    check(not calls, f"a query under a provable cap waited: {calls}")
+    check(torch.equal(got, want), "the no-wait query's output == the query's")
+    return {"waits": len(calls), "equal": True, "last_stats": engine.last_stats.as_dict()}
 
 
 def phase_headline(device, tmp: str):
@@ -1039,18 +1115,20 @@ def phase_headline(device, tmp: str):
     # Over the cap: the window's kernel is launched before its counts are
     # read, then the window runs again in halves, down to chunks under it.
     capped = QueryEngine(store, backend="fused", device=device, chunk_positions=L,
-                         max_intervals_per_chunk=OVER_CAP)
-    check(np.array_equal(capped.conservation("chr1", 0, L, K), ref)
+                         max_intervals_per_chunk=OVER_CAP, device_output=True)
+    check(np.array_equal(capped.conservation("chr1", 0, L, K).cpu().numpy(), ref)
           and capped.last_stats.candidate_intervals > OVER_CAP,
           f"a window over a cap of {OVER_CAP} candidates, halved on the card == reference loop")
     over_cap = capped.last_stats.as_dict()
+    capped_ops = capped_query_ops(capped, "chr1", (0, CAPPED_WINDOW), K)
     del capped
 
     # The device operations of one headline query (result left on the device),
-    # and its wall.
+    # its wall, and that it waits on nothing.
     resident = QueryEngine(store, backend="fused", device=device, chunk_positions=L,
                            device_output=True)
     ops = query_graphs(resident, "chr1", [(0, L)], K)
+    no_wait = no_wait_query(resident, "chr1", 0, L, K)
     query_wall = spread_ms(walls_s(lambda: resident.conservation("chr1", 0, L, K), device))
     resident_v2 = QueryEngine(store, backend="fused", device=device, chunk_positions=L,
                               device_output=True, kernel_version="v2")
@@ -1074,11 +1152,12 @@ def phase_headline(device, tmp: str):
          window_params_vs_numpy=params,
          reference_loop_s=ref_s, mbp_s=mbp_s, query_wall_ms=query_wall,
          k_sweep_exact=[21, 51, 101], over_cap_exact=over_cap, query_ops=ops,
-         query_ops_v2=ops_v2,
+         query_ops_v2=ops_v2, capped_query_ops=capped_ops, no_wait_query=no_wait,
          layers_ms={"window_params": window_fn["ms"],
                     "window_params_with_count_read": window_fn["wall_with_count_read_ms"]["median"],
                     "v1_function": kern["ms"], "format_output": format_ms},
          window_kernel=window_fn, kernel=kern, kernel_v2=kern_v2)
+    emit("phase3_host_split", **host_split(store, device))
     return launches, kern, kern_v2, window_fn, store, mbp_s
 
 
@@ -1176,6 +1255,7 @@ def phase_hprc(device, tmp: str):
         check(np.array_equal(out[sub[0]:sub[1]], reference_query_np(store, *sub, K)),
               f"HPRC spot window {sub}")
     buckets = [(lb, child._layout.num_rows) for lb, child in eng._children]
+    sweep = k_sweep(eng, "chr1", L, device, store=store)
     del eng, bucket0
     torch.cuda.empty_cache()
     cli_out = os.path.join(tmp, "hprc_cons.txt")
@@ -1194,8 +1274,63 @@ def phase_hprc(device, tmp: str):
          steady_device_bytes=steady, bucket0_window_params_vs_numpy=params, mbp_s=L / dt / 1e6, last_stats=stats, buckets=buckets, peak_device_bytes=peak,
          spot_windows_exact=2, bucket0_card_layout=layout, cli_query_s=cli_s,
          cli_stages_s=cli_stages, cli_host=cli_host, streamed_columns=streamed,
-         exact_cli_bytes=True)
+         exact_cli_bytes=True, k_sweep=sweep)
     return store
+
+
+def bucket_device_ms(eng, record: str, windows, k: int) -> dict:
+    """The device times (CUDA events) of what a query of ``windows`` (one
+    launch, at their longest length) queues in each bucket of the
+    stratified engine ``eng`` that can mark at ``k``: its window step and
+    its v1 function; their sum over the buckets."""
+    from memo_tpu_torch.ops.fused_query import fused_query_rows
+
+    L = max(qe - qs for qs, qe in windows)
+    starts = [qs for qs, _ in windows]
+    per = {}
+    for lb, child in eng._children:
+        if lb >= k - 1:
+            continue
+        wp = child._window_params(record, starts, L, k)
+        C = child.n_docs
+        per[lb] = {
+            "window_step_ms": kernel_ms(lambda: child._window_params(record, starts, L, k)),
+            "v1_function_ms": kernel_ms(lambda: fused_query_rows(
+                child._d, wp.params, wp.prefix, k=k, L=L, C=C, n_docs=C, membership=False),
+                reps=5),
+            "candidate_rows": int(wp.counts.sum())}
+    return {"buckets": per, "sum_ms": sum(b["window_step_ms"] + b["v1_function_ms"]
+                                          for b in per.values())}
+
+
+def k_sweep(eng, record: str, L: int, device, reps: int = HPRC_REPS,
+            store=None) -> dict:
+    """The stratified engine ``eng`` (v1, output left on the card) at each k
+    of K_SWEEP: the live buckets; the wall of one window [0, L) and of the
+    batch of 16 staggered 1 Mbp windows (medians of ``reps``, spread); the
+    sum over live buckets of their device times for each
+    (:func:`bucket_device_ms`), and each wall less that sum. Where ``store``
+    is given, batch window 3 == its single-window query, and a 4 Kbp spot of
+    the window == the reference loop."""
+    wins = batch_windows(L)
+    out = {}
+    for k in K_SWEEP:
+        single = spread_ms(walls_s(lambda: eng.conservation(record, 0, L, k), device, reps))
+        batch = spread_ms(walls_s(lambda: eng.conservation_batch(record, wins, k), device, reps))
+        if store is not None:
+            got = eng.conservation_batch(record, wins, k)[3]
+            check(torch.equal(got, eng.conservation(record, *wins[3], k)),
+                  f"n90 k={k}: batch window 3 == single window")
+            spot = (WINDOW, WINDOW + (1 << 12))
+            check(np.array_equal(eng.conservation(record, *spot, k).cpu().numpy(),
+                                 reference_query_np(store, *spot, k)),
+                  f"n90 k={k}: spot {spot} == reference loop")
+        one, many = bucket_device_ms(eng, record, [(0, L)], k), bucket_device_ms(eng, record, wins, k)
+        out[k] = {"live_buckets": list(one["buckets"]), "single_wall_ms": single,
+                  "batch_wall_ms": batch, "single_device_ms": one, "batch_device_ms": many,
+                  "single_host_gap_ms": single["median"] - one["sum_ms"],
+                  "batch_host_gap_ms": batch["median"] - many["sum_ms"]}
+    return out
 
 
 @contextlib.contextmanager
@@ -1865,11 +2000,31 @@ def phase_chromosome(device, tmp: str):
             {v: max(errors[v] for errors in whole) for v in ("v1", "v2")})
 
 
+def headline_device_ms(eng, record: str, wins) -> dict:
+    """The kernels' device times (CUDA events) at the headline, for an A/B
+    of two trees: the window step of one window and of the batch, and the
+    v1 and v2 functions on each."""
+    out = {}
+    for name, windows in (("window", [(0, PIVOT_LEN)]), ("batch", wins)):
+        L = max(qe - qs for qs, qe in windows)
+        starts = [qs for qs, _ in windows]
+        wp = eng._window_params(record, starts, L, K)
+        C = eng.n_docs
+        out[name] = {"window_step_ms": kernel_ms(lambda: eng._window_params(record, starts, L, K))}
+        for version, fn in kernel_functions().items():
+            out[name][f"{version}_function_ms"] = kernel_ms(lambda: fn(
+                eng._d, wp.params, wp.prefix, k=K, L=L, C=C, n_docs=C, membership=False))
+    return out
+
+
 def setup_cells(tmp: str) -> int:
     """The set-up cells, measured on the ``memo_tpu_torch`` beside this
     file (so a copy of this script in another tree measures that tree's):
     the headline single-window query wall (fused, result on the card,
-    median of WALL_REPS with its spread); and at the chromosome scale, its
+    median of WALL_REPS with its spread), the 16 x 1 Mbp batch's wall and
+    the kernels' device times there (:func:`headline_device_ms`); n90's
+    stratified engine, from ``tmp``/n90.npz, across K_SWEEP
+    (:func:`k_sweep`); and at the chromosome scale, its
     store loaded from ``tmp``/chrom.npz (built from the seed and saved there
     by the first run), the stratified engine's set-up with its stages, host
     RSS before and after it, set-up peak and steady device bytes, and the
@@ -1891,6 +2046,9 @@ def setup_cells(tmp: str) -> int:
     eng = QueryEngine(store, backend="fused", device=device, chunk_positions=PIVOT_LEN,
                       device_output=True)
     headline = spread_ms(walls_s(lambda: eng.conservation("chr1", 0, PIVOT_LEN, K), device))
+    wins = batch_windows(PIVOT_LEN)
+    batch = spread_ms(walls_s(lambda: eng.conservation_batch("chr1", wins, K), device))
+    kernels = headline_device_ms(eng, "chr1", wins)
     del eng, store
     torch.cuda.empty_cache()
 
@@ -1904,6 +2062,12 @@ def setup_cells(tmp: str) -> int:
         large.save(n90["stored"], compressed=False)
         large.save(n90["deflated"])
         del large
+    n90_store = IntervalStore.load(n90["stored"])
+    eng = QueryEngine(n90_store, backend="fused", device=device, chunk_positions=LARGE_PIVOT_LEN,
+                      max_intervals_per_chunk=1 << 25, device_output=True)
+    n90_sweep = k_sweep(eng, "chr1", LARGE_PIVOT_LEN, device, reps=WALL_REPS)
+    del eng, n90_store
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     store = IntervalStore.load(npz)
     load_s = time.perf_counter() - t0
@@ -1946,9 +2110,229 @@ def setup_cells(tmp: str) -> int:
         check(a.read() == b.read(), "setup cells: n90 CLI -r bytes, stored == deflated")
     split = {"chromosome": load_split(npz, device), "n90_deflated": load_split(n90["deflated"], device)}
     emit("setup_cells", card=card, tree=os.path.dirname(os.path.abspath(__file__)),
-         headline_query_wall_ms=headline, chrom_load_s=load_s, engine=engine,
+         headline_query_wall_ms=headline, batch_wall_ms=batch, headline_device_ms=kernels,
+         n90_k_sweep=n90_sweep, chrom_load_s=load_s, engine=engine,
          resident=resident, cli_r_s=cli_s, cli_r_stages=cli_stages, cli_r_host=cli_host,
          n90_cli_r=n90_cli, n90_bytes_equal=True, load_split=split)
+    return 0
+
+
+# ------------------------------------------------------------- host split
+STAMP_REPS = 50  # stamped queries whose statement times are medians
+# The functions a headline query runs on the host, stamped statement by
+# statement where they exist in the tree beside this script: (module, owner
+# within it or None, name).
+STAMPED = (
+    ("memo_tpu_torch.query.engine", "QueryEngine", "_query"),
+    ("memo_tpu_torch.query.engine", "QueryEngine", "_query_chunk_fused"),
+    ("memo_tpu_torch.query.engine", "QueryEngine", "_chunk_steps"),
+    ("memo_tpu_torch.query.engine", "QueryEngine", "_launch_chunks"),
+    ("memo_tpu_torch.query.engine", "QueryEngine", "_settle_chunks"),
+    ("memo_tpu_torch.query.engine", "QueryEngine", "_window_params"),
+    ("memo_tpu_torch.query.engine", "QueryEngine", "_run_kernel"),
+    ("memo_tpu_torch.query.engine", None, "_fused_chunks"),
+    ("memo_tpu_torch.query.engine", None, "_copy_counts"),
+    ("memo_tpu_torch.query.engine", None, "_copy_back"),
+    ("memo_tpu_torch.query.engine", None, "window_params"),
+    ("memo_tpu_torch.query.engine", None, "fused_query_rows"),
+    ("memo_tpu_torch.query.engine", None, "fused_query_v2_rows"),
+    ("memo_tpu_torch.query.window", None, "launch"),
+    ("memo_tpu_torch.ops.fused_query", None, "check_rows_launch"),
+    ("memo_tpu_torch.ops.fused_query", None, "launch"),
+    ("memo_tpu_torch.ops.fused_query_v2", None, "check_rows_launch"),
+    ("memo_tpu_torch.ops.fused_query_v2", None, "launch"),
+)
+
+
+def stamped(fn, log: list):
+    """A copy of ``fn`` (a function or method, in its own module's globals)
+    with a ``time.perf_counter_ns()`` stamp before its body and after each
+    statement of it and of the bodies of its ``with``, ``if``, ``for`` and
+    ``try`` statements (a nested function is one statement); a ``return``'s
+    value is computed before its stamp. Each call appends the (first line,
+    last line, ns since the previous stamp) of every statement it ran to
+    ``log``, as one list."""
+    import __future__
+    import ast
+    import inspect
+    import textwrap
+
+    lines, first = inspect.getsourcelines(fn)
+    tree = ast.parse(textwrap.dedent("".join(lines)))
+    fdef = tree.body[0]
+    fdef.decorator_list = []
+    off, key = first - 1, f"_stamp_log_{id(log)}"
+
+    def stamp(node):
+        return ast.parse(f"_ST_.append(({node.lineno + off}, {node.end_lineno + off}, "
+                         "_stamp_ns_()))").body[0]
+
+    def walk(body):
+        out = []
+        for node in body:
+            if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+                for field in ("body", "orelse", "finalbody"):
+                    part = getattr(node, field, None)
+                    if isinstance(part, list) and part and isinstance(part[0], ast.stmt):
+                        setattr(node, field, walk(part))
+                for handler in getattr(node, "handlers", ()):
+                    handler.body = walk(handler.body)
+            if isinstance(node, ast.Return) and node.value is not None:
+                out += [ast.Assign([ast.Name("_RV_", ast.Store())], node.value, lineno=0),
+                        stamp(node), ast.Return(ast.Name("_RV_", ast.Load()))]
+            elif isinstance(node, (ast.Return, ast.Raise, ast.Continue, ast.Break)):
+                out += [stamp(node), node]
+            else:
+                out += [node, stamp(node)]
+        return out
+
+    body = walk(fdef.body)
+    head = ast.parse("_ST_ = [(0, 0, _stamp_ns_())]").body[0]
+    tail = ast.parse(f"{key}.append(_ST_)").body[0]
+    fdef.body = [head, ast.Try(body=body, handlers=[], orelse=[], finalbody=[tail])]
+    fdef.name = "_stamped_copy_"
+    ast.fix_missing_locations(tree)
+    scope = fn.__globals__
+    scope["_stamp_ns_"], scope[key] = time.perf_counter_ns, log
+    exec(compile(tree, inspect.getsourcefile(fn), "exec",
+                 flags=__future__.annotations.compiler_flag, dont_inherit=True), scope)
+    copy = scope.pop("_stamped_copy_")
+    copy.__dict__.update(fn.__dict__)
+    return copy
+
+
+@contextlib.contextmanager
+def stamping():
+    """Every function of STAMPED that the tree has, replaced by its
+    :func:`stamped` copy inside the block; yields {name: its log}."""
+    import importlib
+
+    logs, undo = {}, []
+    for module, owner, name in STAMPED:
+        holder = importlib.import_module(module)
+        holder = getattr(holder, owner) if owner else holder
+        fn = holder.__dict__.get(name)
+        if not callable(fn):
+            continue
+        label = f"{os.path.relpath(fn.__code__.co_filename)}::{fn.__qualname__}"
+        if fn.__module__ != module:
+            label += f" (called from {module})"
+        setattr(holder, name, stamped(fn, logs.setdefault(label, [])))
+        undo.append((holder, name, fn))
+    try:
+        yield logs
+    finally:
+        for holder, name, fn in undo:
+            setattr(holder, name, fn)
+
+
+def split_of(log: list, queries: int) -> dict:
+    """Median ns of one call of each statement of a stamped function's
+    ``log`` ("lines a-b": ns; a statement run more than once in a call,
+    as in a loop, summed over the call), of the whole call, and the calls a
+    query made."""
+    per: dict[str, list[int]] = {}
+    whole = []
+    for run in log:
+        seen: dict[str, int] = {}
+        for (_, _, t0), (a, b, t1) in zip(run, run[1:]):
+            label = f"{a}-{b}" if b > a else str(a)
+            seen[label] = seen.get(label, 0) + t1 - t0
+        for label, ns in seen.items():
+            per.setdefault(label, []).append(ns)
+        whole.append(run[-1][2] - run[0][2])
+    out = {label: statistics.median(v + [0] * (len(log) - len(v))) for label, v in per.items()}
+    return {"calls_per_query": len(log) / queries, "whole_ns": statistics.median(whole),
+            "lines_ns": out, "over_5us": sorted(k for k, v in out.items() if v > 5000)}
+
+
+def micro_ns(fn, reps: int = 200) -> float:
+    """Median host ns of one call of ``fn`` over ``reps`` calls."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter_ns()
+        fn()
+        times.append(time.perf_counter_ns() - t0)
+    return statistics.median(times)
+
+
+def host_split(store, device) -> dict:
+    """How one headline query's host time splits (result left on the card,
+    v1 and v2): STAMP_REPS queries with every function of STAMPED that the
+    tree has stamped statement by statement (:func:`split_of`: each
+    function's statements, median ns a query), the operations inside single
+    statements timed alone (pinned copy of the starts, ``torch.empty``,
+    the device context, the stream handle, ``data_ptr``), and, unstamped,
+    the host time to queue a query (call to return), the wait after it
+    (``torch.cuda.synchronize``) and the wall, medians of 50."""
+    from memo_tpu_torch.query.engine import QueryEngine
+
+    L = PIVOT_LEN
+    out = {}
+    for version in ("v1", "v2"):
+        eng = QueryEngine(store, backend="fused", device=device, chunk_positions=L,
+                          device_output=True, kernel_version=version)
+        run = (lambda: eng.conservation("chr1", 0, L, K))
+        for _ in range(3):
+            run()
+        sync(device)
+        enqueue, wait, wall = [], [], []
+        for _ in range(50):
+            sync(device)
+            t0 = time.perf_counter_ns()
+            run()
+            t1 = time.perf_counter_ns()
+            sync(device)
+            t2 = time.perf_counter_ns()
+            enqueue.append(t1 - t0)
+            wait.append(t2 - t1)
+            wall.append(t2 - t0)
+        with stamping() as logs:
+            for _ in range(STAMP_REPS):
+                sync(device)
+                run()
+                sync(device)
+        out[version] = {"enqueue_ns": statistics.median(enqueue),
+                        "wait_ns": statistics.median(wait), "wall_ns": statistics.median(wall),
+                        "enqueue_ns_min_max": [min(enqueue), max(enqueue)],
+                        "functions": {name: split_of(log, STAMP_REPS)
+                                      for name, log in logs.items() if log}}
+        del eng
+    one = torch.zeros(1, dtype=torch.int64)
+    small = torch.empty(64, dtype=torch.int32, device=device)
+    ops = {
+        "np_array_starts": micro_ns(lambda: np.array([0], np.int64).reshape(-1)),
+        "pin_memory_starts": micro_ns(lambda: one.pin_memory()),
+        "pinned_copy_up": micro_ns(lambda: one.pin_memory().to(device, non_blocking=True)),
+        "torch_empty": micro_ns(lambda: torch.empty(23, dtype=torch.int32, device=device)),
+        "cuda_device_context": micro_ns(lambda: _enter_exit(device)),
+        "current_stream_handle": micro_ns(lambda: torch.cuda.current_stream(device).cuda_stream),
+        "raw_stream_handle": micro_ns(
+            lambda: torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())),
+        "data_ptr": micro_ns(lambda: small.data_ptr()),
+        "current_device": micro_ns(torch.cuda.current_device),
+    }
+    sync(device)
+    return {"card": gpu_name_and_power(), "L": L, "k": K, "queries": STAMP_REPS, **out,
+            "ops_ns": ops}
+
+
+def _enter_exit(device) -> None:
+    with torch.cuda.device(device):
+        pass
+
+
+def host_split_main() -> int:
+    """``--host-split``: :func:`host_split` alone, on the package beside
+    this file; prints one line, ``host_split {...}``."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    device = torch.device("cuda")
+    store = build_store(np.random.default_rng(SEED))
+    emit("host_split", tree=os.path.dirname(os.path.abspath(__file__)),
+         **host_split(store, device))
     return 0
 
 
@@ -2045,4 +2429,6 @@ if __name__ == "__main__":
         raise SystemExit(mesh_child(sys.argv[2]))
     if sys.argv[1:2] == [SETUP_CELLS]:
         raise SystemExit(setup_cells(sys.argv[2]))
+    if sys.argv[1:2] == [HOST_SPLIT]:
+        raise SystemExit(host_split_main())
     raise SystemExit(main())

@@ -25,7 +25,9 @@
 // the composite keys, or scan the record's rows into a shared histogram.
 // Comparisons are in 64 bits, so no probe is clamped. The output is one
 // int32 buffer: params [Q][5] (mlo, mhi, plo, phi, qs), the candidate
-// counts [2][Q] (mhi - mlo, phi - plo) and the prefix [Q][C].
+// counts [2][Q] (mhi - mlo, phi - plo) and the prefix [Q][C]. The window
+// starts come from the card, or, for up to kInlineStarts windows, by value
+// in the kernel's parameters, so that such a query copies nothing up.
 //
 // What bounds it: each search reads about log2(rows) words, so a window
 // costs (4 + 2(C - 1)) x log2(rows) dependent loads: latency, not bytes or
@@ -40,6 +42,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMaxHistBytes = 48 * 1024;  // shared memory without an opt-in
+constexpr int kInlineStarts = 16;         // window starts passed by value (window.py's INLINE_STARTS)
 
 template <typename T>
 __device__ __forceinline__ long long count_at_most(const T* __restrict__ a, long long n,
@@ -63,17 +66,20 @@ struct Args {
   const int32_t* end_s;      // placed ends, end order
   const int64_t* s_keys;     // composite keys of the (record, order) segments
   const int64_t* e_keys;
-  const int64_t* starts;     // [Q] window starts
+  const int64_t* starts;     // [Q] window starts on the card, or null: inline_starts
   int32_t* out;              // params [Q][5] | counts [2][Q] | prefix [Q][C]
   long long rec_lo, rec_n, n_keys, L, k, stride, first_key;
   int Q, C, monotone;
+  long long inline_starts[kInlineStarts];
 };
 
-__global__ void __launch_bounds__(kThreads) window_params_kernel(const Args a) {
+// __grid_constant__: the window's start is read from the parameters where
+// they lie, at an index known only at run time, with no per-thread copy.
+__global__ void __launch_bounds__(kThreads) window_params_kernel(const __grid_constant__ Args a) {
   extern __shared__ int hist[];  // [C], the scan's histogram
   __shared__ long long found[4];
   const int w = blockIdx.x;
-  const long long qs = a.starts[w];
+  const long long qs = a.starts != nullptr ? a.starts[w] : a.inline_starts[w];
   const int t = threadIdx.x;
   if (t < 4) {
     const int32_t* rows = (t < 2 ? a.start : a.end_s) + a.rec_lo;
@@ -116,18 +122,25 @@ __global__ void __launch_bounds__(kThreads) window_params_kernel(const Args a) {
 
 }  // namespace
 
+// ``starts`` is the window starts on the card; where it is null, the Q <=
+// kInlineStarts starts at the host address ``host_starts`` go by value.
 extern "C" int memo_window_params(const int32_t* start, const int32_t* end, const int32_t* order,
                                   const int32_t* end_s, const int64_t* s_keys,
-                                  const int64_t* e_keys, const int64_t* starts, int32_t* out,
-                                  long long rec_lo, long long rec_n, long long n_keys, long long L,
-                                  long long k, long long stride, long long first_key, int Q, int C,
+                                  const int64_t* e_keys, const int64_t* starts,
+                                  const int64_t* host_starts, int32_t* out, long long rec_lo,
+                                  long long rec_n, long long n_keys, long long L, long long k,
+                                  long long stride, long long first_key, int Q, int C,
                                   int monotone, void* stream) {
   const size_t hist_bytes = monotone ? 0 : static_cast<size_t>(C) * sizeof(int);
-  if (Q < 1 || C < 1 || rec_lo < 0 || rec_n < 0 || n_keys < 0 || hist_bytes > kMaxHistBytes) {
+  if (Q < 1 || C < 1 || rec_lo < 0 || rec_n < 0 || n_keys < 0 || hist_bytes > kMaxHistBytes ||
+      (starts == nullptr && (host_starts == nullptr || Q > kInlineStarts))) {
     return cudaErrorInvalidValue;
   }
-  const Args a{start, end, order, end_s, s_keys, e_keys, starts, out,
-               rec_lo, rec_n, n_keys, L, k, stride, first_key, Q, C, monotone};
+  Args a{start, end, order, end_s, s_keys, e_keys, starts, out,
+         rec_lo, rec_n, n_keys, L, k, stride, first_key, Q, C, monotone, {}};
+  if (starts == nullptr) {
+    for (int w = 0; w < Q; ++w) a.inline_starts[w] = host_starts[w];
+  }
   window_params_kernel<<<Q, kThreads, hist_bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
 }

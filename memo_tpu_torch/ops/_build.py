@@ -18,6 +18,8 @@ import pathlib
 import shutil
 import subprocess
 
+import torch
+
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -95,11 +97,25 @@ def load_library() -> ctypes.CDLL:
     # L, C, k, tile, stages, n_docs, membership; the stream.
     lib.memo_fused_query_v2_rows.argtypes = [ptr] * 11 + [i32] * 9 + [ptr]
     lib.memo_fused_query_v2_rows.restype = i32
-    # window parameters: 4 store row pointers, 2 key pointers, starts, out;
-    # rec_lo, rec_n, n_keys, L, k, stride, first_key; Q, C, monotone; the stream.
+    # window parameters: 4 store row pointers, 2 key pointers, the starts on
+    # the card (or null), the starts on the host (by value), out; rec_lo,
+    # rec_n, n_keys, L, k, stride, first_key; Q, C, monotone; the stream.
     i64 = ctypes.c_longlong
-    lib.memo_window_params.argtypes = [ptr] * 8 + [i64] * 7 + [i32] * 3 + [ptr]
+    lib.memo_window_params.argtypes = [ptr] * 9 + [i64] * 7 + [i32] * 3 + [ptr]
     lib.memo_window_params.restype = i32
     lib.memo_cuda_error_string.argtypes = [i32]
     lib.memo_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def launch(entry, device: torch.device, *args) -> int:
+    """``entry(*args, stream)``, a C entry point of the library that launches
+    on the current device, given the raw handle of ``device``'s current
+    stream; ``device`` is made current for the call only where it is not.
+    Returns the entry point's CUDA error code. The handle comes from the
+    accessor torch's own generated kernels use: the public ``Stream``
+    object costs several microseconds more a call (PERF.md, PR 12)."""
+    if device.index == torch.cuda.current_device():
+        return entry(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    with torch.cuda.device(device):
+        return entry(*args, torch._C._cuda_getCurrentRawStream(device.index))

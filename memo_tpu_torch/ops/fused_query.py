@@ -25,12 +25,15 @@ contract and the same plain version.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from memo_tpu_torch.index.placement import kernel_ready
 from memo_tpu_torch.ops import query_ops as Q
+from memo_tpu_torch.ops._build import launch, load_library
 
 SEG = 16  # segment sums in kernel_constants' tile budget, which sets v1's widest C
 TILES = (256, 128, 64)  # position tiles the kernels are built for, widest first
@@ -57,6 +60,7 @@ def _rows_smem_bytes(tile: int, C: int) -> int:
     return (C * (tile + 1) + C + tile) * 4
 
 
+@functools.lru_cache(maxsize=None)
 def rows_tile(C: int) -> int:
     """Position tile of the row kernel for ``C`` columns: the widest of
     256/128/64 whose shared memory fits one block. Takes every C that v1
@@ -179,14 +183,24 @@ def fused_query_reference(streams: Streams, prefix: torch.Tensor, *, n_docs: int
     return out if batched else out[0]
 
 
-def check_rows_launch(name: str, placed, params: torch.Tensor, prefix: torch.Tensor,
-                      devices: set, *, k: int, L: int, C: int) -> tuple[int, int]:
+def check_rows_launch(name: str, placed, params: torch.Tensor, prefix: torch.Tensor, *, k: int,
+                      L: int, C: int) -> tuple[int, int] | None:
     """Validate a kernel launch on the placed store's six row tensors, the
-    parameter block [Q, 5] and the prefix [Q, C], all on ``devices``:
-    returns (Q, rows per store tensor). Raises on anything the kernels do
-    not take, so that a CUDA tensor never reaches a plain version."""
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(f"{name} needs all tensors on one CUDA device, got {devices}")
+    parameter block [Q, 5] and the prefix [Q, C]: returns (Q, rows per
+    store tensor), or None where every tensor is on the CPU (the plain
+    version's case). Raises on anything the kernels do not take, so that a
+    CUDA tensor never reaches a plain version. A placed store that
+    ``place_columns`` built and checked is recognised by identity
+    (``placement.kernel_ready``) and not checked again."""
+    device = params.device
+    ready = kernel_ready(placed) and prefix.device == device == placed[0].device
+    tensors = (params, prefix) if ready else (*placed, params, prefix)
+    if not ready:  # a placed store ready for the kernels lies on one CUDA device
+        devices = {t.device for t in tensors}
+        if devices == {CPU}:
+            return None
+        if len(devices) != 1 or device.type != "cuda":
+            raise ValueError(f"{name} needs all tensors on one CUDA device, got {devices}")
     n_win = params.shape[0] if params.dim() == 2 else 0
     if L < 1 or k < 1:
         raise ValueError(f"{name} needs L >= 1 and k >= 1, got L={L}, k={k}")
@@ -197,10 +211,10 @@ def check_rows_launch(name: str, placed, params: torch.Tensor, prefix: torch.Ten
     if prefix.shape != (n_win, C):
         raise ValueError(f"prefix must be [Q, C] = [{n_win}, {C}], got {tuple(prefix.shape)}")
     n_rows = placed[0].numel()
-    for t in (*placed, params, prefix):
+    for t in tensors:
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name} takes contiguous int32 tensors")
-    if any(t.dim() != 1 or t.numel() != n_rows for t in placed) or n_rows >= 2**31:
+    if not ready and (any(t.dim() != 1 or t.numel() != n_rows for t in placed) or n_rows >= 2**31):
         raise ValueError("the placed store needs six 1-D row tensors of one length below 2**31")
     return n_win, n_rows
 
@@ -242,28 +256,20 @@ def fused_query_rows(placed, params: torch.Tensor, prefix: torch.Tensor, *, k: i
     ``fused_query_rows.launches``; a tensor the kernels do not take raises.
     On CPU tensors it runs :func:`fused_query_rows_reference`.
     """
-    tensors = (*placed, params, prefix)
-    devices = {t.device for t in tensors}
-    if devices == {CPU}:
+    checked = check_rows_launch("fused_query_rows", placed, params, prefix, k=k, L=L, C=C)
+    if checked is None:
         return fused_query_rows_reference(placed, params, prefix, k=k, L=L, C=C, n_docs=n_docs,
                                           membership=membership)
-    n_win, n_rows = check_rows_launch("fused_query_rows", placed, params, prefix, devices, k=k,
-                                      L=L, C=C)
+    n_win, n_rows = checked
     tile = rows_tile(C)
-
-    from memo_tpu_torch.ops._build import load_library
-
     lib = load_library()
     device = params.device
     nt = -(-L // tile)
     scratch = torch.empty(n_win * nt * (4 + 2 * C), dtype=torch.int32, device=device)
     out = output_tensor((n_win,), L, C, membership, device)
-    with torch.cuda.device(device):  # the launch goes to the current device
-        err = lib.memo_fused_query_rows(
-            *(t.data_ptr() for t in tensors), scratch.data_ptr(), out.data_ptr(),
-            n_rows, n_win, L, C, k, tile, n_docs, int(membership),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
+    err = launch(lib.memo_fused_query_rows, device,
+                 *(t.data_ptr() for t in (*placed, params, prefix)), scratch.data_ptr(),
+                 out.data_ptr(), n_rows, n_win, L, C, k, tile, n_docs, int(membership))
     if err != 0:
         raise launch_error("fused_query_rows", lib, err)
     fused_query_rows.launches += 1

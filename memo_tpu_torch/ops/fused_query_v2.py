@@ -12,10 +12,13 @@ says how it reads every row once and carries the coverage by a look-back.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from memo_tpu_torch.index.placement import kernel_ready
+from memo_tpu_torch.ops._build import launch, load_library
 from memo_tpu_torch.ops.fused_query import (
-    CPU,
     MAX_SMEM_BYTES,
     TILES,
     check_rows_launch,
@@ -42,6 +45,7 @@ def _smem_bytes(tile: int, stages: int, C: int) -> int:
     return RING_HEADER + stages * STAGE_BYTES + (C * (tile + 1) + 2 * C + tile + 2) * 4
 
 
+@functools.lru_cache(maxsize=None)
 def v2_constants(C: int) -> tuple[int, int]:
     """(tile T, ring stages S) for ``C`` columns: the widest of 256/128/64
     that leaves room for at least two stages, and as many stages (up to 8)
@@ -85,32 +89,25 @@ def fused_query_v2_rows(placed, params: torch.Tensor, prefix: torch.Tensor, *, k
     ``fused_query_v2_rows.launches``; a tensor the kernel does not take
     raises. On CPU tensors it runs :func:`fused_query_rows_reference`.
     """
-    tensors = (*placed, params, prefix)
-    devices = {t.device for t in tensors}
-    if devices == {CPU}:
+    checked = check_rows_launch("fused_query_v2_rows", placed, params, prefix, k=k, L=L, C=C)
+    if checked is None:
         return fused_query_rows_reference(placed, params, prefix, k=k, L=L, C=C, n_docs=n_docs,
                                           membership=membership)
-    n_win, n_rows = check_rows_launch("fused_query_v2_rows", placed, params, prefix, devices, k=k,
-                                      L=L, C=C)
+    n_win, n_rows = checked
     tile, stages = v2_constants(C)
-    if n_rows <= ROW_SLACK or any(t.data_ptr() % 16 for t in placed):
+    if n_rows <= ROW_SLACK or (not kernel_ready(placed) and any(t.data_ptr() % 16 for t in placed)):
         raise ValueError("fused_query_v2_rows reads the store rows in 16-byte copies: each row "
                          f"tensor must be 16-byte aligned and hold more than {ROW_SLACK} rows")
-
-    from memo_tpu_torch.ops._build import load_library
-
     lib = load_library()
     device = params.device
     units = n_win * -(-L // tile)
     state = _state(device, 4 + units)
     sums = torch.empty(units * 2 * C, dtype=torch.int32, device=device)
     out = output_tensor((n_win,), L, C, membership, device)
-    with torch.cuda.device(device):  # the launch goes to the current device
-        err = lib.memo_fused_query_v2_rows(
-            *(t.data_ptr() for t in tensors), state.data_ptr(), sums.data_ptr(), out.data_ptr(),
-            n_rows - ROW_SLACK, n_win, L, C, k, tile, stages, n_docs, int(membership),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
+    err = launch(lib.memo_fused_query_v2_rows, device,
+                 *(t.data_ptr() for t in (*placed, params, prefix)), state.data_ptr(),
+                 sums.data_ptr(), out.data_ptr(), n_rows - ROW_SLACK, n_win, L, C, k, tile, stages,
+                 n_docs, int(membership))
     if err != 0:
         raise launch_error("fused_query_v2_rows", lib, err)
     fused_query_v2_rows.launches += 1

@@ -7,8 +7,10 @@ layout are built and kept there (:mod:`memo_tpu_torch.index.placement`);
 then
 
 1. the candidate row ranges and the prefix of the windows, searched on the
-   device (:mod:`memo_tpu_torch.query.window`); the host reads back only
-   each window's two candidate counts,
+   device (:mod:`memo_tpu_torch.query.window`); the host reads back each
+   window's two candidate counts only where the record's rows in the
+   engine (or bucket) exceed the cap, and then once, after the query's
+   last launch,
 2. a device step per (window, interval bucket): the fused CUDA kernel
    (backend ``fused``; v1 and v2 both read the placed rows of the candidate
    ranges), or the diff-array tensor ops (backend ``torch``); ``numpy``
@@ -27,8 +29,8 @@ bounds the working set of one step (the fused kernels do not read it).
 from __future__ import annotations
 
 import copy
-import dataclasses
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -58,16 +60,49 @@ def _next_pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
 
 
-@dataclasses.dataclass
 class QueryStats:
-    """Per-query counters, as memo_tpu's engine keeps them."""
+    """Per-query counters, as memo_tpu's engine keeps them
+    (``candidate_intervals``, ``chunks``, ``positions``, ``as_dict()``).
+    ``chunks`` and ``positions`` are known at once. A fused query that needs
+    no read of its candidate counts leaves them on the device
+    (:meth:`add_later`), and ``candidate_intervals`` reads them back on
+    first access."""
 
-    candidate_intervals: int = 0
-    chunks: int = 0
-    positions: int = 0
+    def __init__(self, candidate_intervals: int = 0, chunks: int = 0, positions: int = 0):
+        self._candidates = candidate_intervals
+        self._later: list[torch.Tensor] = []
+        self.chunks = chunks
+        self.positions = positions
+
+    @property
+    def candidate_intervals(self) -> int:
+        if self._later:
+            later, self._later = self._later, []
+            counts = torch.cat(later, 1) if len(later) > 1 else later[0]
+            self._candidates += sum(map(max, *counts.tolist()))
+        return self._candidates
+
+    @candidate_intervals.setter
+    def candidate_intervals(self, value: int) -> None:
+        self._candidates, self._later = value, []
+
+    def add_later(self, counts: torch.Tensor) -> None:
+        """Adds the candidates of the windows whose counts int32[2, Q] (mhi -
+        mlo and phi - plo) are ``counts``, read back only when asked for."""
+        self._later.append(counts)
+
+    def add(self, other: QueryStats) -> None:
+        """Adds another query's candidates and chunks, reading nothing."""
+        self._candidates += other._candidates
+        self._later += other._later
+        self.chunks += other.chunks
 
     def as_dict(self) -> dict:
-        return dataclasses.asdict(self)
+        return {"candidate_intervals": self.candidate_intervals, "chunks": self.chunks,
+                "positions": self.positions}
+
+    def __repr__(self) -> str:
+        return "QueryStats(" + ", ".join(f"{k}={v}" for k, v in self.as_dict().items()) + ")"
 
 
 def parse_region(region: str) -> tuple[str, int, int]:
@@ -196,17 +231,25 @@ class QueryEngine:
 
     def _query_stratified(self, record, qs, qe, k, membership):
         """Union of per-bucket marks == elementwise MIN of per-bucket outputs;
-        buckets whose minimum length >= k-1 hold no live interval."""
+        buckets whose minimum length >= k-1 hold no live interval. On the
+        fused backend every live bucket's steps and kernels are queued
+        before the host reads any count (:func:`_fused_chunks`)."""
         L = qe - qs
-        n = self.n_docs
         stats = QueryStats(positions=L)
+        live = [child for lb, child in self._children if lb < k - 1]
+        if self.backend == "fused" and live:
+            chunks = self._chunks(qs, qe)
+            each = [QueryStats(chunks=len(chunks), positions=L) for _ in live]
+            outs = [child._join(out, membership) for child, out in
+                    zip(live, _fused_chunks(live, record, chunks, k, membership, each))]
+            for child, child_stats in zip(live, each):
+                child.last_stats = child_stats
+        else:
+            outs = [child._query(record, qs, qe, k, membership) for child in live]
+            each = [child.last_stats for child in live]
         acc = None
-        for lb, child in self._children:
-            if lb >= k - 1:
-                continue
-            out = child._query(record, qs, qe, k, membership)
-            stats.candidate_intervals += child.last_stats.candidate_intervals
-            stats.chunks += child.last_stats.chunks
+        for out, child_stats in zip(outs, each):
+            stats.add(child_stats)
             acc = out if acc is None else torch.minimum(acc, out)
         self.last_stats = stats
         if acc is None:  # k too small for any stored interval: nothing marks
@@ -266,10 +309,8 @@ class QueryEngine:
             raise ValueError(f"k must be >= 1, got {k}")
         if self._children is not None:
             return self._query_stratified(record, qs, qe, k, membership)
-        n = self.n_docs
         stats = QueryStats(positions=qe - qs)
-        chunks = [(c_qs, min(c_qs + self.chunk_positions, qe))
-                  for c_qs in range(qs, qe, self.chunk_positions)]
+        chunks = self._chunks(qs, qe)
         if self.backend == "fused":
             outputs = self._query_chunk_fused(record, chunks, k, membership, stats)
         else:
@@ -277,6 +318,17 @@ class QueryEngine:
                        for c_qs, c_qe in chunks]
         stats.chunks += len(chunks)
         self.last_stats = stats
+        return self._join(outputs, membership)
+
+    def _chunks(self, qs: int, qe: int) -> list[tuple[int, int]]:
+        """The position chunks of [qs, qe): full ones of ``chunk_positions``,
+        then a shorter last one."""
+        return [(c_qs, min(c_qs + self.chunk_positions, qe))
+                for c_qs in range(qs, qe, self.chunk_positions)]
+
+    def _join(self, outputs: list, membership: bool):
+        """A query's chunk outputs as one output, in order."""
+        n = self.n_docs
         if self.device_output:
             if not outputs:
                 if membership:
@@ -309,54 +361,49 @@ class QueryEngine:
         length bucket that can mark (bucket outputs min-combined as in
         :meth:`_query_stratified`): row i's first ``qe - qs`` positions are
         window i's output (exact: a window's row is what the single-window
-        kernel computes over [qs, qs + L)). None where the batch runs per
-        window: another backend, windows longer than ``chunk_positions`` or
-        all empty, or candidate sets over the bucket cap."""
-        if self._children is None:
-            plan = self._batch_plan(record, windows, k)
-            return None if plan is None else self._run_batch(plan, windows, k, membership)
-        live = [child for lb, child in self._children if lb < k - 1]
-        plans = [child._batch_plan(record, windows, k) for child in live]
-        if any(plan is None for plan in plans):
-            return None
-        stats = QueryStats(positions=sum(qe - qs for qs, qe in windows))
-        acc = None
-        for child, plan in zip(live, plans):
-            out = child._run_batch(plan, windows, k, membership)
-            stats.candidate_intervals += child.last_stats.candidate_intervals
-            stats.chunks += child.last_stats.chunks
-            acc = out if acc is None else torch.minimum(acc, out, out=acc)
-        self.last_stats = stats
-        if acc is None:  # k too small for any stored interval: nothing marks
-            acc = self._unmarked((len(windows), max(qe - qs for qs, qe in windows)), membership)
-        return acc
-
-    def _batch_plan(self, record, windows, k):
-        """(window parameters, L, candidate counts) of one launch over
-        ``windows``, or None where the batch runs per window. Reads the
-        counts back: 2 integers a window."""
+        kernel computes over [qs, qs + L)). Every bucket's window step and
+        kernel are queued before the host reads any count, and counts are
+        read, in one copy, only where a bucket's cap is not provable. None
+        where the batch runs per window: another backend, windows longer
+        than ``chunk_positions`` or all empty, or candidate sets over the
+        bucket cap (what was launched is then dropped)."""
         L = max(qe - qs for qs, qe in windows)
+        positions = sum(qe - qs for qs, qe in windows)
+        engines = ([self] if self._children is None
+                   else [child for lb, child in self._children if lb < k - 1])
+        if not engines:  # k too small for any stored interval: nothing marks
+            self.last_stats = QueryStats(positions=positions)
+            return self._unmarked((len(windows), L), membership)
         # A batch of empty windows has nothing to launch.
         if self.backend != "fused" or not 0 < L <= self.chunk_positions:
             return None
-        wp = self._window_params(record, [qs for qs, _ in windows], L, k)
-        counts = [max(m, p) for m, p in zip(*wp.counts.tolist())]
-        if max(counts) > self.max_intervals:
-            return None
-        return wp, L, counts
-
-    def _run_batch(self, plan, windows, k, membership) -> torch.Tensor:
         # memo_tpu pads the window count to a power of two to bound the
         # programs XLA compiles; nothing here compiles per shape, so the
         # batch keeps its own count.
-        wp, L, counts = plan
-        out = self._run_kernel(wp, k, L, membership)
-        self.last_stats = QueryStats(
-            candidate_intervals=sum(counts),
-            chunks=len(windows),
-            positions=sum(qe - qs for qs, qe in windows),
-        )
-        return out
+        parts = [eng._chunk_steps(record, [(qs, qs + L) for qs, _ in windows], k)
+                 for eng in engines]
+        host, ready = _copy_counts(parts)
+        known = _by_chunk(parts, host if ready is None else None)
+        if _over_cap(parts, known):
+            return None
+        outs = [part.engine._run_kernel(part.steps[0][2], k, L, membership) for part in parts]
+        if ready is not None:
+            ready.synchronize()
+            known = _by_chunk(parts, host)
+            if _over_cap(parts, known):
+                return None
+        stats, acc = QueryStats(positions=positions), None
+        for part, by_window, out in zip(parts, known, outs):
+            part_stats = QueryStats(chunks=len(windows), positions=positions)
+            if by_window is None:
+                part_stats.add_later(part.steps[0][2].counts)
+            else:
+                part_stats.candidate_intervals = sum(by_window.values())
+            part.engine.last_stats = part_stats
+            stats.add(part_stats)
+            acc = out if acc is None else torch.minimum(acc, out, out=acc)
+        self.last_stats = stats
+        return acc
 
     def _query_batch_windows(self, record, windows, k, membership) -> list:
         """The batch where it does not run as one launch: per window, or
@@ -366,8 +413,7 @@ class QueryEngine:
             outs = []
             for qs, qe in windows:
                 outs.append(self._query(record, qs, qe, k, membership))
-                stats.candidate_intervals += self.last_stats.candidate_intervals
-                stats.chunks += self.last_stats.chunks
+                stats.add(self.last_stats)
                 stats.positions += self.last_stats.positions
             self.last_stats = stats
             return outs
@@ -377,8 +423,7 @@ class QueryEngine:
             if lb >= k - 1:
                 continue
             outs = child._query_batch(record, windows, k, membership)
-            stats.candidate_intervals += child.last_stats.candidate_intervals
-            stats.chunks += child.last_stats.chunks
+            stats.add(child.last_stats)
             accs = outs if accs is None else [torch.minimum(a, o) for a, o in zip(accs, outs)]
         self.last_stats = stats
         if accs is None:  # k too small for any stored interval: nothing marks
@@ -447,44 +492,51 @@ class QueryEngine:
                 acc = np.minimum(acc, out)
         return acc
 
-    def _query_chunk_fused(self, record, chunks, k, membership, stats: QueryStats) -> list:
-        """The fused backend's position chunks [(qs, qe), ...]: each one's
-        exact in-window event ranges in the two sorted streams and its
-        prefix counts, found on the device by one window step per chunk
-        length (the full chunks, then a shorter last one); then every
-        chunk's kernel. On CUDA the kernels are launched before the host
-        reads the candidate counts, which are copied back behind the steps,
-        so the read waits for the steps alone and the host stays ahead of
-        the card; a chunk over the cap is then run again in halves (exact
-        either way), down to interval pieces at a single position. On the
-        CPU the counts are known at once and a chunk over the cap is not
-        launched (the plain version sizes its gathers by the cap)."""
+    def _cap_holds(self, record: str) -> bool:
+        """Whether no window of ``record`` can have more candidates than the
+        cap, known with no read: a window's candidate ranges lie among the
+        record's rows in this engine (or bucket), whose count the host
+        holds (``DeviceLayout.rec_offsets``)."""
+        offsets = self._layout.rec_offsets
+        r = self.store.record_index(record)
+        return int(offsets[r + 1] - offsets[r]) <= self.max_intervals
+
+    def _chunk_steps(self, record: str, chunks, k: int) -> _Steps:
+        """The window steps of the position chunks [(qs, qe), ...], found on
+        the device: one step per chunk length (the full chunks, then a
+        shorter last one); nothing is read back."""
         by_len: dict[int, list[int]] = {}
         for i, (c_qs, c_qe) in enumerate(chunks):
             by_len.setdefault(c_qe - c_qs, []).append(i)
         steps = [(L, rows, self._window_params(record, [chunks[i][0] for i in rows], L, k))
                  for L, rows in by_len.items()]
-        if not steps:
-            return []
-        counts = [wp.counts for _, _, wp in steps]
-        counts, ready = _copy_back(torch.cat(counts, 1) if len(counts) > 1 else counts[0])
-        order = [i for _, rows, _ in steps for i in rows]
+        return _Steps(self, steps, [i for _, rows, _ in steps for i in rows],
+                      self._cap_holds(record))
 
-        def per_chunk() -> dict[int, int]:
-            return dict(zip(order, (max(m, p) for m, p in zip(*counts.tolist()))))
-
-        known = per_chunk() if ready is None else None
-        outs: list = [None] * len(chunks)
-        for L, rows, wp in steps:
+    def _launch_chunks(self, part: _Steps, k: int, membership: bool, known) -> list:
+        """Each chunk's kernel, one launch a chunk, but for chunks ``known``
+        (counts by chunk, where read before the launches) to be over the
+        cap: the [L(, C)] device outputs by chunk, None where not launched."""
+        outs: list = [None] * len(part.order)
+        for L, rows, wp in part.steps:
             for j, i in enumerate(rows):
                 if known is None or known[i] <= self.max_intervals:
-                    one = WindowParams(wp.params[j : j + 1], wp.prefix[j : j + 1],
-                                       wp.counts[:, j : j + 1])
+                    one = wp if len(rows) == 1 else WindowParams(
+                        wp.params[j : j + 1], wp.prefix[j : j + 1], wp.counts[:, j : j + 1])
                     outs[i] = self._run_kernel(one, k, L, membership)[0]
+        return outs
+
+    def _settle_chunks(self, record, chunks, part: _Steps, outs: list, known, k, membership,
+                       stats: QueryStats) -> list:
+        """The chunks' outputs once launched. Where the cap is provable
+        (``known`` None) they stand, and ``stats`` keeps the counts on the
+        device; otherwise a chunk over the cap runs again in halves (exact
+        either way), down to interval pieces at a single position."""
         if known is None:
-            ready.synchronize()
-            known = per_chunk()
-        for i in order:
+            for _, _, wp in part.steps:
+                stats.add_later(wp.counts)
+            return [self._finish(out) for out in outs]
+        for i in part.order:
             count = known[i]
             if count <= self.max_intervals:
                 stats.candidate_intervals += count
@@ -504,12 +556,80 @@ class QueryEngine:
                 outs[i] = self._cat(left, right)
         return outs
 
+    def _query_chunk_fused(self, record, chunks, k, membership, stats: QueryStats) -> list:
+        """The fused backend's position chunks [(qs, qe), ...] of this
+        engine (:func:`_fused_chunks`): their outputs, in order."""
+        return _fused_chunks([self], record, chunks, k, membership, [stats])[0]
+
     def _run_kernel(self, wp: WindowParams, k: int, L: int, membership: bool) -> torch.Tensor:
         """The fused kernel on the Q windows of ``wp`` (their parameters on
         the device), L positions each. Output [Q, L] or [Q, L, C]."""
         n = self.n_docs
         run = fused_query_rows if self.kernel_version == "v1" else fused_query_v2_rows
         return run(self._d, wp.params, wp.prefix, k=k, L=L, C=n, n_docs=n, membership=membership)
+
+
+class _Steps(NamedTuple):
+    """One engine's window steps over a query's position chunks (or a
+    batch's windows), queued on the device."""
+
+    engine: QueryEngine
+    steps: list  # (L, chunk indices, WindowParams), one step per chunk length
+    order: list  # the chunk indices in the order of the steps' counts
+    capped: bool  # no chunk can have more candidates than the cap: no count is read
+
+
+def _fused_chunks(engines: list, record: str, chunks, k: int, membership: bool,
+                  stats: list) -> list[list]:
+    """The position chunks [(qs, qe), ...] of a query through each of
+    ``engines`` (one, or the live length buckets), each one's outputs in
+    chunk order, its counters in its entry of ``stats``. Every engine's
+    window steps are queued, then the counts that need reading are queued
+    for one copy back behind them (:func:`_copy_counts`: none where every
+    engine's cap is provable), then every chunk's kernel; only then does
+    the host wait, and that wait is for the steps and the copy alone, so the
+    card has the kernels queued while the host reads. A chunk over the cap
+    is then run again in halves (``QueryEngine._settle_chunks``). Where the
+    counts are on the host at once (the CPU), they are read first and a
+    chunk over the cap is not launched."""
+    if not chunks:
+        return [[] for _ in engines]
+    parts = [engine._chunk_steps(record, chunks, k) for engine in engines]
+    host, ready = _copy_counts(parts)
+    known = _by_chunk(parts, host if ready is None else None)
+    outs = [part.engine._launch_chunks(part, k, membership, by_chunk)
+            for part, by_chunk in zip(parts, known)]
+    if ready is not None:
+        ready.synchronize()
+        known = _by_chunk(parts, host)
+    return [part.engine._settle_chunks(record, chunks, part, out, by_chunk, k, membership, st)
+            for part, out, by_chunk, st in zip(parts, outs, known, stats)]
+
+
+def _copy_counts(parts: list[_Steps]):
+    """The candidate counts [2, n] of the parts whose cap is not provable,
+    in step order, queued for one copy to the host (:func:`_copy_back`)
+    with the event to wait on, or None where they are there at once; (None,
+    None) where every part's cap is provable."""
+    counts = [wp.counts for part in parts if not part.capped for _, _, wp in part.steps]
+    if not counts:
+        return None, None
+    return _copy_back(counts[0] if len(counts) == 1 else torch.cat(counts, 1))
+
+
+def _by_chunk(parts: list[_Steps], host) -> list[dict[int, int] | None]:
+    """Each part's candidate count by chunk index (the larger of its two),
+    from the counts :func:`_copy_counts` brought back (``host``); None for a
+    part whose cap is provable, and for every part where ``host`` is None."""
+    if host is None:
+        return [None] * len(parts)
+    pairs = map(max, *host.tolist())
+    return [None if part.capped else {i: next(pairs) for i in part.order} for part in parts]
+
+
+def _over_cap(parts: list[_Steps], known) -> bool:
+    return any(by_chunk is not None and max(by_chunk.values()) > part.engine.max_intervals
+               for part, by_chunk in zip(parts, known))
 
 
 def _copy_back(t: torch.Tensor) -> tuple[torch.Tensor, torch.cuda.Event | None]:

@@ -31,15 +31,19 @@ coordinate lies above int32's least value (placement checks it), and keeps
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from memo_tpu_torch.index.placement import I32, DeviceLayout, PlacedStore
+from memo_tpu_torch.index.placement import I32, DeviceLayout, PlacedStore, kernel_ready
 from memo_tpu_torch.index.store import IntervalStore, QueryLayout
+from memo_tpu_torch.ops._build import launch, load_library
+from memo_tpu_torch.ops.fused_query import launch_error
 
 SCAN_PAIRS = 1 << 24  # (window, row) pairs one step of the scan fallback holds
+INLINE_STARTS = 16  # window starts the kernel takes by value (csrc/window_params.cu)
 
 
 class WindowParams(NamedTuple):
@@ -48,6 +52,14 @@ class WindowParams(NamedTuple):
     params: torch.Tensor  # int32[Q, 5]: mlo, mhi, plo, phi, qs
     prefix: torch.Tensor  # int32[Q, C]
     counts: torch.Tensor  # int32[2, Q]: mhi - mlo and phi - plo
+
+
+def _views(out: torch.Tensor, n_win: int, C: int) -> WindowParams:
+    """The kernel's output buffer int32[Q * (7 + C)] as its three parts:
+    params [Q, 5], prefix [Q, C] and counts [2, Q], contiguous views."""
+    return WindowParams(out.as_strided((n_win, 5), (5, 1)),
+                        out.as_strided((n_win, C), (C, 1), 7 * n_win),
+                        out.as_strided((2, n_win), (n_win, 1), 5 * n_win))
 
 
 def _clamp32(values: np.ndarray) -> np.ndarray:
@@ -60,10 +72,11 @@ def window_params(placed: PlacedStore, layout: DeviceLayout, r: int, starts, L: 
     each ``qs`` of ``starts`` (a [Q] integer tensor or sequence on the
     host), found where the placed store is; nothing is read back.
 
-    On CUDA tensors this copies the starts up and launches the kernel of
-    ``csrc/window_params.cu`` (one block a window) on the current stream,
-    and counts the launch in ``window_params.launches``; on CPU tensors it
-    runs :func:`window_params_reference`. Any other device raises."""
+    On CUDA tensors this launches the kernel of ``csrc/window_params.cu``
+    (one block a window) on the current stream, with up to INLINE_STARTS
+    starts by value in its parameters and more copied up first, and counts
+    the launch in ``window_params.launches``; on CPU tensors it runs
+    :func:`window_params_reference`. Any other device raises."""
     device = placed.start.device
     if device.type == "cpu":
         return window_params_reference(placed, layout, r, starts, L, k)
@@ -73,31 +86,30 @@ def window_params(placed: PlacedStore, layout: DeviceLayout, r: int, starts, L: 
     n_win, C = starts.size, layout.n_docs
     rec_lo, rec_hi = int(layout.rec_offsets[r]), int(layout.rec_offsets[r + 1])
     rows, keys = placed[:4], (layout.s_keys, layout.e_keys)
-    if (any(t.device != device or not t.is_contiguous() for t in rows + keys)
-            or any(t.dtype != torch.int32 for t in rows) or any(t.dtype != torch.int64 for t in keys)
+    if ((not kernel_ready(placed, keys)
+         and (any(t.device != device or not t.is_contiguous() for t in rows + keys)
+              or any(t.dtype != torch.int32 for t in rows)
+              or any(t.dtype != torch.int64 for t in keys)))
             or not 1 <= n_win < 1 << 31 or not 0 <= rec_lo <= rec_hi <= placed.start.numel() < 1 << 31):
         raise ValueError("window_params takes 1 to 2**31 - 1 windows over the placed store's "
                          "contiguous int32 rows (fewer than 2**31) and int64 keys, on one device")
-
-    from memo_tpu_torch.ops._build import load_library
-    from memo_tpu_torch.ops.fused_query import launch_error
-
-    lib = load_library()
-    on_card = torch.from_numpy(starts).pin_memory().to(device, non_blocking=True)
+    if n_win <= INLINE_STARTS:
+        on_card, by_value = None, (ctypes.c_int64 * n_win)(*starts.tolist())
+    else:
+        on_card = torch.from_numpy(starts).pin_memory().to(device, non_blocking=True)
+        by_value = None
     out = torch.empty(n_win * (7 + C), dtype=torch.int32, device=device)
-    tensors = (placed.start, placed.end, placed.order, placed.end_s, layout.s_keys,
-               layout.e_keys, on_card, out)
-    with torch.cuda.device(device):
-        err = lib.memo_window_params(
-            *(t.data_ptr() for t in tensors), rec_lo, rec_hi - rec_lo, layout.s_keys.numel(),
-            L, k, layout.key_stride, r * C * layout.key_stride, n_win, C, int(layout.monotone),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
+    lib = load_library()
+    err = launch(
+        lib.memo_window_params, device, *(t.data_ptr() for t in rows + keys),
+        None if on_card is None else on_card.data_ptr(), by_value, out.data_ptr(), rec_lo,
+        rec_hi - rec_lo, layout.s_keys.numel(), L, k, layout.key_stride, r * C * layout.key_stride,
+        n_win, C, int(layout.monotone),
+    )
     if err != 0:
         raise launch_error("window_params", lib, err)
     window_params.launches += 1
-    return WindowParams(out[: 5 * n_win].view(n_win, 5), out[7 * n_win:].view(n_win, C),
-                        out[5 * n_win : 7 * n_win].view(2, n_win))
+    return _views(out, n_win, C)
 
 
 window_params.launches = 0
@@ -114,9 +126,7 @@ def window_params_reference(placed: PlacedStore, layout: DeviceLayout, r: int, s
     device = placed.start.device
     rec_lo, rec_hi = int(layout.rec_offsets[r]), int(layout.rec_offsets[r + 1])
     qs = torch.from_numpy(starts).to(device)
-    out = torch.empty(n_win * (7 + C), dtype=torch.int32, device=device)
-    wp = WindowParams(out[: 5 * n_win].view(n_win, 5), out[7 * n_win:].view(n_win, C),
-                      out[5 * n_win : 7 * n_win].view(2, n_win))
+    wp = _views(torch.empty(n_win * (7 + C), dtype=torch.int32, device=device), n_win, C)
 
     probes = torch.stack([qs, qs + (L - 1), qs + (k - 1), qs + (L + k - 2)])
     probes = probes.clamp_(I32.min, I32.max).to(torch.int32)

@@ -197,9 +197,10 @@ def test_engine_keeps_no_host_rows_and_reads_back_only_counts(mixed_store, owner
     the host window search; no array the engine, its buckets or its layouts
     hold has more than R + 1 elements (the store is the caller's, shared);
     after set-up the host store's rows can go, and the outputs still equal
-    the numpy engine's; and the only values a query reads back are its
-    candidate counts, an int32 [2, Q] tensor per launch (``torch``: the two
-    bounds of each chunk)."""
+    the numpy engine's; and a fused query reads back nothing where every
+    record's rows in the engine are within its cap, and only its candidate
+    counts, int32 [2, Q] tensors, under a cap it cannot prove (``torch``:
+    the two bounds of each chunk)."""
     def refuse(*args, **kwargs):
         raise AssertionError("the engine searched the host")
 
@@ -247,42 +248,64 @@ def test_engine_keeps_no_host_rows_and_reads_back_only_counts(mixed_store, owner
             recording[0] = True
 
     monkeypatch.setattr(engine_mod, "fused_query_rows", kernel)
-    for k, outs in want.items():
-        recording[0] = True
-        if owner == "resident":
-            got = holder.conservation_windows(windows, k, record="chrA")
-        elif k == 31:
-            got = eng.conservation_batch("chrA", windows, k)
-        else:
-            got = [eng.conservation("chrA", qs, qe, k) for qs, qe in windows]
-        recording[0] = False
-        for g, w in zip(got, outs):
-            np.testing.assert_array_equal(g.numpy(), w)
+
+    def queries():
+        for k, outs in want.items():
+            recording[0] = True
+            if owner == "resident":
+                got = holder.conservation_windows(windows, k, record="chrA")
+            elif k == 31:
+                got = eng.conservation_batch("chrA", windows, k)
+            else:
+                got = [eng.conservation("chrA", qs, qe, k) for qs, qe in windows]
+            recording[0] = False
+            for g, w in zip(got, outs):
+                np.testing.assert_array_equal(g.numpy(), w)
+
+    queries()
     if owner.startswith("torch"):
         assert reads and all(r == ("tolist", torch.int64, (2,)) for r in reads), reads
-    else:
-        assert launches and len(reads) == len(launches), (reads, launches)
-        assert all(m == "tolist" and dt == torch.int32 and len(shape) == 2 and shape[0] == 2
-                   for m, dt, shape in reads), reads
+        return
+    assert launches and not reads, (reads, launches)  # the default cap holds every record
+    for engine in (eng, *(child for _, child in eng._children or [])):
+        engine.max_intervals = 64  # below chrA's rows in every engine that has some
+    if owner == "resident":
+        holder._full_cache.clear()
+    queries()
+    assert reads and all(m == "tolist" and dt == torch.int32 and len(shape) == 2
+                         and shape[0] == 2 for m, dt, shape in reads), reads
 
 
+@pytest.mark.parametrize("cap", ["provable", "small"])
 @pytest.mark.parametrize("counts_on", ["host", "card"])
 @pytest.mark.parametrize("kind", ["conservation", "membership"])
 @pytest.mark.parametrize("stratify", [True, False], ids=["stratified", "whole"])
-def test_chunked_query_reads_counts_once(mixed_store, stratify, kind, counts_on, monkeypatch):
+def test_chunked_query_reads_counts_once(mixed_store, stratify, kind, counts_on, cap, monkeypatch):
     """A query over seven full position chunks and a shorter last one finds
-    every chunk's parameters first and reads all the chunks' counts, an
-    int32 [2, 8] tensor, once per engine (or live bucket), with one launch a
-    chunk. Where the counts are on the host at once (the CPU) the read comes
+    every chunk's parameters first, with one launch a chunk in every live
+    bucket. Where every live bucket's rows of the record are within the cap
+    ("provable"), it reads no count and waits on nothing. Under a cap below
+    bucket 0's rows but above every chunk's candidates ("small"), it reads
+    the counts of the buckets it cannot bound, an int32 [2, 8] tensor, once:
+    where the counts are on the host at once (the CPU) the read comes
     first; where they come back from the card ("card": the copy's event
-    stood in for) all eight kernels are launched before the host waits on
-    the copy and reads. The output equals memo_tpu's numpy engine."""
+    stood in for) every live bucket's eight kernels are launched before the
+    host waits on the copy and reads. The output equals memo_tpu's numpy
+    engine."""
     from memo_tpu_torch.query import engine as engine_mod
 
     store = _copy(mixed_store, kind=kind)
     eng = QueryEngine(store, backend="fused", chunk_positions=128, stratify=stratify,
                       device="cpu", device_output=True)
     oracle = JaxEngine(store, backend="numpy")
+    engines = [child for _, child in eng._children] if stratify else [eng]
+    rows = [int(np.diff(e._layout.rec_offsets)[0]) for e in engines]  # chrA's rows in each
+    if cap == "small":
+        for engine in (eng, *engines):
+            engine.max_intervals = rows[0] - 1
+        worst = max(int(engines[0]._window_params("chrA", [qs], 128, k).counts.max())
+                    for qs in range(0, 900, 128) for k in (31, 200))
+        assert worst <= rows[0] - 1, (worst, rows)  # no chunk over the cap: no halving
     events, recording = [], [False]
 
     class Copied:
@@ -309,14 +332,19 @@ def test_chunked_query_reads_counts_once(mixed_store, stratify, kind, counts_on,
 
     monkeypatch.setattr(torch.Tensor, "tolist", tolist)
     monkeypatch.setattr(engine_mod, "fused_query_rows", kernel)
-    read = [("read", torch.int32, (2, 8))]
-    launches = [("launch",)] * 8
-    each = read + launches if counts_on == "host" else launches + [("wait",)] + read
     for k in (31, 200):
         events.clear()
         recording[0] = True
         got = getattr(eng, kind)("chrA", 0, 900, k)
         recording[0] = False
         np.testing.assert_array_equal(got.numpy(), getattr(oracle, kind)("chrA", 0, 900, k))
-        live = sum(lb < k - 1 for lb, _ in eng._children) if stratify else 1
-        assert events == each * live, events
+        live = [e for lb, e in eng._children or [(0, eng)] if lb < k - 1]
+        launches = [("launch",)] * (8 * len(live))
+        unbounded = sum(int(np.diff(e._layout.rec_offsets)[0]) > e.max_intervals for e in live)
+        if cap == "provable":
+            assert unbounded == 0 and events == launches, events
+            continue
+        assert unbounded == 1
+        read = [("read", torch.int32, (2, 8))]
+        want = read + launches if counts_on == "host" else launches + [("wait",)] + read
+        assert events == want, events
