@@ -965,9 +965,9 @@ def window_graph(n_win: int) -> dict[str, int]:
     """The window step's device operations for ``n_win`` windows: its
     kernel, after one copy of the starts up where they do not all go by
     value in its parameters."""
-    from memo_tpu_torch.query.window import INLINE_STARTS
+    from memo_tpu_torch.query.window import inline_starts
 
-    return {"kernel": 1} if n_win <= INLINE_STARTS else {"memcpy": 1, "kernel": 1}
+    return {"kernel": 1} if n_win <= inline_starts() else {"memcpy": 1, "kernel": 1}
 
 
 def copies_of(ops) -> list[int]:
@@ -1107,7 +1107,12 @@ def phase_headline(device, tmp: str):
     steady = torch.cuda.memory_allocated()
     layout = layout_check(fused, store)
     wins = batch_windows(PIVOT_LEN)
-    params = params_check(fused, "chr1", [[(0, L)], wins] + [[w] for w in wins])
+    # The most window starts that go by value, and one more (copied up).
+    from memo_tpu_torch.query.window import inline_starts
+
+    edge = [[(int(qs), int(qs) + 1000) for qs in np.linspace(0, PIVOT_LEN - 1000, n)]
+            for n in (inline_starts(), inline_starts() + 1)]
+    params = params_check(fused, "chr1", [[(0, L)], wins] + [[w] for w in wins] + edge)
     oracle = QueryEngine(store, backend="numpy", device="cpu")
     for k in (21, 51, 101):
         check(np.array_equal(fused.conservation("chr1", 0, L, k), oracle.conservation("chr1", 0, L, k)),

@@ -42,7 +42,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMaxHistBytes = 48 * 1024;  // shared memory without an opt-in
-constexpr int kInlineStarts = 16;         // window starts passed by value (window.py's INLINE_STARTS)
+constexpr int kParamBytes = 4096;         // a kernel's parameter space on every CUDA 12 toolkit
 
 template <typename T>
 __device__ __forceinline__ long long count_at_most(const T* __restrict__ a, long long n,
@@ -59,7 +59,7 @@ __device__ __forceinline__ long long count_at_most(const T* __restrict__ a, long
   return lo;
 }
 
-struct Args {
+struct Fields {
   const int32_t* start;      // placed rows, start order
   const int32_t* end;
   const int32_t* order;
@@ -70,8 +70,16 @@ struct Args {
   int32_t* out;              // params [Q][5] | counts [2][Q] | prefix [Q][C]
   long long rec_lo, rec_n, n_keys, L, k, stride, first_key;
   int Q, C, monotone;
+};
+
+// The window starts by value take what the parameter space leaves.
+constexpr int kInlineStarts =
+    static_cast<int>((kParamBytes - sizeof(Fields)) / sizeof(long long));
+
+struct Args : Fields {
   long long inline_starts[kInlineStarts];
 };
+static_assert(sizeof(Args) <= kParamBytes, "the kernel's parameters must fit its space");
 
 // __grid_constant__: the window's start is read from the parameters where
 // they lie, at an index known only at run time, with no per-thread copy.
@@ -136,11 +144,14 @@ extern "C" int memo_window_params(const int32_t* start, const int32_t* end, cons
       (starts == nullptr && (host_starts == nullptr || Q > kInlineStarts))) {
     return cudaErrorInvalidValue;
   }
-  Args a{start, end, order, end_s, s_keys, e_keys, starts, out,
-         rec_lo, rec_n, n_keys, L, k, stride, first_key, Q, C, monotone, {}};
+  Args a{{start, end, order, end_s, s_keys, e_keys, starts, out,
+          rec_lo, rec_n, n_keys, L, k, stride, first_key, Q, C, monotone}, {}};
   if (starts == nullptr) {
     for (int w = 0; w < Q; ++w) a.inline_starts[w] = host_starts[w];
   }
   window_params_kernel<<<Q, kThreads, hist_bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
 }
+
+// How many window starts ``memo_window_params`` takes by value.
+extern "C" int memo_window_inline_starts() { return kInlineStarts; }

@@ -26,7 +26,6 @@ rows there.
 from __future__ import annotations
 
 import contextlib
-import weakref
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -230,44 +229,7 @@ def place_columns(cols: Columns, num_records: int, n_docs: int,
         longest=longest.cpu().numpy(),
         num_rows=n,
     )
-    _register(placed, layout)
     return placed, layout
-
-
-# Placed stores that ``place_columns`` built and found to be what the
-# kernels take, by the identity of their tensors: id(placed.start) -> weak
-# references to it, its other five row tensors and its layout's two keys;
-# an entry goes when its start tensor does.
-_KERNEL_READY: dict[int, tuple] = {}
-
-
-def _register(placed: PlacedStore, layout: DeviceLayout) -> None:
-    """Checks once what every kernel wrapper takes of a placed store and its
-    keys: six 1-D contiguous int32 row tensors of one length below 2**31,
-    each 16-byte aligned, and contiguous int64 keys, all on one CUDA
-    device. A store that passes is recognised by :func:`kernel_ready`; the
-    tensors are never changed in place."""
-    keys = (layout.s_keys, layout.e_keys)
-    device, n = placed.start.device, placed.start.numel()
-    if (device.type == "cuda" and n < 1 << 31
-            and all(t.device == device and t.dim() == 1 and t.is_contiguous()
-                    for t in (*placed, *keys))
-            and all(t.dtype == torch.int32 and t.numel() == n and t.data_ptr() % 16 == 0
-                    for t in placed)
-            and all(t.dtype == torch.int64 for t in keys)):
-        key = id(placed.start)
-        first = weakref.ref(placed.start, lambda _: _KERNEL_READY.pop(key, None))
-        _KERNEL_READY[key] = (first, *(weakref.ref(t) for t in (*placed[1:], *keys)))
-
-
-def kernel_ready(placed, keys: tuple = ()) -> bool:
-    """Whether ``placed`` (with ``keys``, its layout's ``s_keys`` and
-    ``e_keys``, where given) is a placement that :func:`place_columns`
-    built and found to be what the kernels take (:func:`_register`),
-    recognised by the identity of its tensors."""
-    refs = _KERNEL_READY.get(id(placed[0]))
-    return (refs is not None and len(placed) == 6
-            and all(ref() is t for ref, t in zip(refs, (*placed, *keys))))
 
 
 def short_share(cols: Columns, below: int) -> float:

@@ -103,6 +103,8 @@ def load_library() -> ctypes.CDLL:
     i64 = ctypes.c_longlong
     lib.memo_window_params.argtypes = [ptr] * 9 + [i64] * 7 + [i32] * 3 + [ptr]
     lib.memo_window_params.restype = i32
+    lib.memo_window_inline_starts.argtypes = []
+    lib.memo_window_inline_starts.restype = i32
     lib.memo_cuda_error_string.argtypes = [i32]
     lib.memo_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -114,7 +116,7 @@ def launch(entry, device: torch.device, *args) -> int:
     stream; ``device`` is made current for the call only where it is not.
     Returns the entry point's CUDA error code. The handle comes from the
     accessor torch's own generated kernels use: the public ``Stream``
-    object costs several microseconds more a call (PERF.md, PR 12)."""
+    object costs several microseconds more a call (PERF.md, section 6)."""
     if device.index == torch.cuda.current_device():
         return entry(*args, torch._C._cuda_getCurrentRawStream(device.index))
     with torch.cuda.device(device):

@@ -31,7 +31,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from memo_tpu_torch.index.placement import kernel_ready
 from memo_tpu_torch.ops import query_ops as Q
 from memo_tpu_torch.ops._build import launch, load_library
 
@@ -189,18 +188,13 @@ def check_rows_launch(name: str, placed, params: torch.Tensor, prefix: torch.Ten
     parameter block [Q, 5] and the prefix [Q, C]: returns (Q, rows per
     store tensor), or None where every tensor is on the CPU (the plain
     version's case). Raises on anything the kernels do not take, so that a
-    CUDA tensor never reaches a plain version. A placed store that
-    ``place_columns`` built and checked is recognised by identity
-    (``placement.kernel_ready``) and not checked again."""
-    device = params.device
-    ready = kernel_ready(placed) and prefix.device == device == placed[0].device
-    tensors = (params, prefix) if ready else (*placed, params, prefix)
-    if not ready:  # a placed store ready for the kernels lies on one CUDA device
-        devices = {t.device for t in tensors}
-        if devices == {CPU}:
-            return None
-        if len(devices) != 1 or device.type != "cuda":
-            raise ValueError(f"{name} needs all tensors on one CUDA device, got {devices}")
+    CUDA tensor never reaches a plain version."""
+    tensors = (*placed, params, prefix)
+    devices = {t.device for t in tensors}
+    if devices == {CPU}:
+        return None
+    if len(devices) != 1 or params.device.type != "cuda":
+        raise ValueError(f"{name} needs all tensors on one CUDA device, got {devices}")
     n_win = params.shape[0] if params.dim() == 2 else 0
     if L < 1 or k < 1:
         raise ValueError(f"{name} needs L >= 1 and k >= 1, got L={L}, k={k}")
@@ -214,7 +208,7 @@ def check_rows_launch(name: str, placed, params: torch.Tensor, prefix: torch.Ten
     for t in tensors:
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name} takes contiguous int32 tensors")
-    if not ready and (any(t.dim() != 1 or t.numel() != n_rows for t in placed) or n_rows >= 2**31):
+    if any(t.dim() != 1 or t.numel() != n_rows for t in placed) or n_rows >= 2**31:
         raise ValueError("the placed store needs six 1-D row tensors of one length below 2**31")
     return n_win, n_rows
 

@@ -16,7 +16,6 @@ import functools
 
 import torch
 
-from memo_tpu_torch.index.placement import kernel_ready
 from memo_tpu_torch.ops._build import launch, load_library
 from memo_tpu_torch.ops.fused_query import (
     MAX_SMEM_BYTES,
@@ -95,7 +94,7 @@ def fused_query_v2_rows(placed, params: torch.Tensor, prefix: torch.Tensor, *, k
                                           membership=membership)
     n_win, n_rows = checked
     tile, stages = v2_constants(C)
-    if n_rows <= ROW_SLACK or (not kernel_ready(placed) and any(t.data_ptr() % 16 for t in placed)):
+    if n_rows <= ROW_SLACK or any(t.data_ptr() % 16 for t in placed):
         raise ValueError("fused_query_v2_rows reads the store rows in 16-byte copies: each row "
                          f"tensor must be 16-byte aligned and hold more than {ROW_SLACK} rows")
     lib = load_library()

@@ -28,7 +28,9 @@ bounds the working set of one step (the fused kernels do not read it).
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import dataclasses
 import os
 from typing import NamedTuple
 
@@ -60,49 +62,68 @@ def _next_pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
 
 
+class _Candidates:
+    """``QueryStats.candidate_intervals``: the count so far, plus the
+    candidate counts that queries left on the device
+    (:meth:`QueryStats.add_later`), read back and added on first access."""
+
+    def __get__(self, stats, owner=None) -> int:
+        if stats is None:
+            return 0  # the field's default
+        later = stats.__dict__.pop("_later", None)
+        if later:
+            stats.__dict__["_count"] += _read_candidates(later)
+        return stats.__dict__["_count"]
+
+    def __set__(self, stats, value: int) -> None:
+        stats.__dict__["_count"] = value
+        stats.__dict__.pop("_later", None)
+
+
+@dataclasses.dataclass
 class QueryStats:
-    """Per-query counters, as memo_tpu's engine keeps them
-    (``candidate_intervals``, ``chunks``, ``positions``, ``as_dict()``).
-    ``chunks`` and ``positions`` are known at once. A fused query that needs
-    no read of its candidate counts leaves them on the device
-    (:meth:`add_later`), and ``candidate_intervals`` reads them back on
-    first access."""
+    """Per-query counters, as memo_tpu's engine keeps them. ``chunks`` and
+    ``positions`` are known at once. A fused query that needs no read of its
+    candidate counts leaves them on the device (:meth:`add_later`), and
+    ``candidate_intervals`` reads them back on first access, as does any
+    use of the fields (``==``, ``as_dict``, ``dataclasses.asdict``)."""
 
-    def __init__(self, candidate_intervals: int = 0, chunks: int = 0, positions: int = 0):
-        self._candidates = candidate_intervals
-        self._later: list[torch.Tensor] = []
-        self.chunks = chunks
-        self.positions = positions
-
-    @property
-    def candidate_intervals(self) -> int:
-        if self._later:
-            later, self._later = self._later, []
-            counts = torch.cat(later, 1) if len(later) > 1 else later[0]
-            self._candidates += sum(map(max, *counts.tolist()))
-        return self._candidates
-
-    @candidate_intervals.setter
-    def candidate_intervals(self, value: int) -> None:
-        self._candidates, self._later = value, []
+    candidate_intervals: int = _Candidates()
+    chunks: int = 0
+    positions: int = 0
 
     def add_later(self, counts: torch.Tensor) -> None:
         """Adds the candidates of the windows whose counts int32[2, Q] (mhi -
-        mlo and phi - plo) are ``counts``, read back only when asked for."""
-        self._later.append(counts)
+        mlo and phi - plo) are ``counts``, written on the current stream;
+        they are read back, on that stream, only when asked for."""
+        stream = torch._C._cuda_getCurrentStream(counts.device.index) if counts.is_cuda else None
+        self.__dict__["_later"] = [*self.__dict__.get("_later", ()), (counts, stream)]
 
     def add(self, other: QueryStats) -> None:
         """Adds another query's candidates and chunks, reading nothing."""
-        self._candidates += other._candidates
-        self._later += other._later
+        self.__dict__["_count"] += other.__dict__["_count"]
+        later = other.__dict__.get("_later")
+        if later:
+            self.__dict__["_later"] = [*self.__dict__.get("_later", ()), *later]
         self.chunks += other.chunks
 
     def as_dict(self) -> dict:
-        return {"candidate_intervals": self.candidate_intervals, "chunks": self.chunks,
-                "positions": self.positions}
+        return dataclasses.asdict(self)
 
-    def __repr__(self) -> str:
-        return "QueryStats(" + ", ".join(f"{k}={v}" for k, v in self.as_dict().items()) + ")"
+
+def _read_candidates(later: list) -> int:
+    """The candidates of ``later``'s (counts, stream) pairs, the larger of
+    each window's two counts: the counts written on one stream are read in
+    one copy on that stream, so that the read follows what wrote them."""
+    total = 0
+    for stream in dict.fromkeys(s for _, s in later):
+        counts = [c for c, s in later if s == stream]
+        on = contextlib.nullcontext() if stream is None else torch.cuda.stream(
+            torch.cuda.Stream(stream_id=stream[0], device_index=stream[1], device_type=stream[2]))
+        with on:
+            both = counts[0] if len(counts) == 1 else torch.cat(counts, 1)
+            total += sum(map(max, *both.tolist()))
+    return total
 
 
 def parse_region(region: str) -> tuple[str, int, int]:

@@ -32,18 +32,18 @@ coordinate lies above int32's least value (placement checks it), and keeps
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from memo_tpu_torch.index.placement import I32, DeviceLayout, PlacedStore, kernel_ready
+from memo_tpu_torch.index.placement import I32, DeviceLayout, PlacedStore
 from memo_tpu_torch.index.store import IntervalStore, QueryLayout
 from memo_tpu_torch.ops._build import launch, load_library
 from memo_tpu_torch.ops.fused_query import launch_error
 
 SCAN_PAIRS = 1 << 24  # (window, row) pairs one step of the scan fallback holds
-INLINE_STARTS = 16  # window starts the kernel takes by value (csrc/window_params.cu)
 
 
 class WindowParams(NamedTuple):
@@ -62,6 +62,13 @@ def _views(out: torch.Tensor, n_win: int, C: int) -> WindowParams:
                         out.as_strided((2, n_win), (n_win, 1), 5 * n_win))
 
 
+@functools.cache
+def inline_starts() -> int:
+    """How many window starts the kernel of ``csrc/window_params.cu`` takes
+    by value, in what its 4 KB of parameters leave (``kInlineStarts``)."""
+    return load_library().memo_window_inline_starts()
+
+
 def _clamp32(values: np.ndarray) -> np.ndarray:
     return np.clip(values, I32.min, I32.max)
 
@@ -73,8 +80,8 @@ def window_params(placed: PlacedStore, layout: DeviceLayout, r: int, starts, L: 
     host), found where the placed store is; nothing is read back.
 
     On CUDA tensors this launches the kernel of ``csrc/window_params.cu``
-    (one block a window) on the current stream, with up to INLINE_STARTS
-    starts by value in its parameters and more copied up first, and counts
+    (one block a window) on the current stream, with up to
+    :func:`inline_starts` starts by value in its parameters and more copied up first, and counts
     the launch in ``window_params.launches``; on CPU tensors it runs
     :func:`window_params_reference`. Any other device raises."""
     device = placed.start.device
@@ -86,14 +93,12 @@ def window_params(placed: PlacedStore, layout: DeviceLayout, r: int, starts, L: 
     n_win, C = starts.size, layout.n_docs
     rec_lo, rec_hi = int(layout.rec_offsets[r]), int(layout.rec_offsets[r + 1])
     rows, keys = placed[:4], (layout.s_keys, layout.e_keys)
-    if ((not kernel_ready(placed, keys)
-         and (any(t.device != device or not t.is_contiguous() for t in rows + keys)
-              or any(t.dtype != torch.int32 for t in rows)
-              or any(t.dtype != torch.int64 for t in keys)))
+    if (any(t.device != device or not t.is_contiguous() for t in rows + keys)
+            or any(t.dtype != torch.int32 for t in rows) or any(t.dtype != torch.int64 for t in keys)
             or not 1 <= n_win < 1 << 31 or not 0 <= rec_lo <= rec_hi <= placed.start.numel() < 1 << 31):
         raise ValueError("window_params takes 1 to 2**31 - 1 windows over the placed store's "
                          "contiguous int32 rows (fewer than 2**31) and int64 keys, on one device")
-    if n_win <= INLINE_STARTS:
+    if n_win <= inline_starts():
         on_card, by_value = None, (ctypes.c_int64 * n_win)(*starts.tolist())
     else:
         on_card = torch.from_numpy(starts).pin_memory().to(device, non_blocking=True)

@@ -27,7 +27,9 @@ import torch
 
 from memo_tpu.index.builder import store_from_ms
 from memo_tpu.query.engine import QueryEngine as JaxEngine
+from memo_tpu.query.engine import QueryStats as JaxStats
 from memo_tpu_torch import QueryEngine, cli
+from memo_tpu_torch.query.engine import QueryStats
 from memo_tpu_torch.index.store import IntervalStore
 from memo_tpu_torch.parallel import ResidentShardedQuery
 from memo_tpu_torch.query import engine as engine_mod
@@ -239,6 +241,39 @@ def test_last_stats_read_later_equal_the_eager_read(mixed, logged, path):
             chunks = [(a, min(a + lazy.chunk_positions, REC_LEN))
                       for a in range(0, REC_LEN, lazy.chunk_positions)]
             assert got["candidate_intervals"] == _host_candidates(mixed, chunks, k)
+
+
+def test_query_stats_is_memo_tpus_dataclass(mixed, logged):
+    """``QueryStats`` is memo_tpu's dataclass: the same fields and defaults,
+    equal by value whether the candidate count was read during the query
+    or is read later from the device, and ``dataclasses.asdict``,
+    ``replace`` and ``repr`` give the count read back. Adding stats up
+    reads nothing."""
+    assert ([(f.name, f.default) for f in dataclasses.fields(QueryStats)]
+            == [(f.name, f.default) for f in dataclasses.fields(JaxStats)])
+    assert QueryStats() == QueryStats(0, 0, 0) and QueryStats(1, 2, 3) != QueryStats(1, 2, 4)
+    store = _store(mixed, "conservation")
+    lazy, eager = _make("stratified", store), _make("stratified", store)
+    _set_cap(eager, _unproven(eager))
+    for k in KS:
+        _query("stratified", eager, "conservation", k)
+        _, events = logged(lambda: _query("stratified", lazy, "conservation", k))
+        total, events = logged(lambda: _sum(lazy))
+        assert events == [], events
+        assert lazy.last_stats == eager.last_stats  # the first use reads the counts
+        assert total == dataclasses.replace(eager.last_stats, positions=0)
+        assert dataclasses.asdict(total) == dataclasses.asdict(eager.last_stats) | {"positions": 0}
+        assert repr(total) == repr(dataclasses.replace(eager.last_stats, positions=0))
+        assert dataclasses.replace(lazy.last_stats, chunks=7).as_dict() == (
+            eager.last_stats.as_dict() | {"chunks": 7})
+
+
+def _sum(holder) -> QueryStats:
+    """The buckets' stats of the last query, added up."""
+    total = QueryStats()
+    for engine in _engines(holder):
+        total.add(engine.last_stats)
+    return total
 
 
 def test_cli_stats_line_is_the_host_search_count(mixed, tmp_path, capsys):

@@ -7,8 +7,10 @@ record's rows in every live bucket within ``max_intervals``) a query with
 its output left on the card makes no wait, on one window, eight position
 chunks, the stratified engine at k=51 (two live buckets) and a batch; each
 output equals the same engine's on the CPU (the kernels' plain versions).
-Under a cap it cannot prove, a query waits once. The window step takes up
-to 16 window starts by value and copies more up: both equal the CPU's.
+Under a cap it cannot prove, a query waits once. ``last_stats`` read on
+another stream reads on the query's. The window step takes as many window
+starts by value as its parameters hold and copies more up: both equal the
+CPU's.
 Imports no JAX, so it runs where the card is: ``MEMO_TPU_TEST_REAL_DEVICE=1
 python -m pytest -m cuda tests/test_torch_query_sync_card.py``. Skips
 without a CUDA device. Tolerance: exact (integers)."""
@@ -20,7 +22,7 @@ import torch
 from memo_tpu_torch import QueryEngine
 from memo_tpu_torch.index.builder import store_from_ms
 from memo_tpu_torch.index.placement import place_store_and_layout
-from memo_tpu_torch.query.window import INLINE_STARTS, window_params
+from memo_tpu_torch.query.window import inline_starts, window_params
 from window_cases import lipschitz
 
 REC_LEN = 900
@@ -125,10 +127,32 @@ def test_unproven_cap_query_waits_once(cuda_device, store, waits, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_win", [1, INLINE_STARTS, INLINE_STARTS + 1, 40])
+def test_stats_read_later_follow_the_querys_stream(cuda_device, store):
+    """A query on a side stream held back by a sleep kernel, its
+    ``last_stats`` then read on the default stream: the read is made on the
+    query's stream, so it waits for the query (the side stream is idle
+    after it) and the count equals the CPU's."""
+    eng = QueryEngine(store, device=cuda_device, device_output=True, stratify=False)
+    plain = QueryEngine(store, device="cpu", device_output=True, stratify=False)
+    eng.conservation("chrA", 0, REC_LEN, 31)  # builds and loads the kernels
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(1 << 29)  # a quarter of a second at the H100's clock
+        eng.conservation("chrA", 0, REC_LEN, 31)
+    got = eng.last_stats.as_dict()
+    assert side.query()
+    plain.conservation("chrA", 0, REC_LEN, 31)
+    assert got == plain.last_stats.as_dict()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_win", ["one", "all_by_value", "one_more", "twice"])
 def test_starts_by_value_and_copied_equal_the_cpus(cuda_device, store, n_win):
-    """Up to INLINE_STARTS starts go in the kernel's parameters, more are
-    copied up: params, prefix and counts equal the CPU's either way."""
+    """Up to ``inline_starts()`` starts go in the kernel's parameters, more
+    are copied up: params, prefix and counts equal the CPU's either way."""
+    most = inline_starts()
+    n_win = {"one": 1, "all_by_value": most, "one_more": most + 1, "twice": 2 * most}[n_win]
     on_cpu = place_store_and_layout(store, "cpu", 8)
     on_card = place_store_and_layout(store, cuda_device, 8)
     starts = [int(s) for s in np.linspace(0, REC_LEN + 50, n_win)]

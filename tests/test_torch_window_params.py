@@ -199,8 +199,10 @@ def test_engine_keeps_no_host_rows_and_reads_back_only_counts(mixed_store, owner
     after set-up the host store's rows can go, and the outputs still equal
     the numpy engine's; and a fused query reads back nothing where every
     record's rows in the engine are within its cap, and only its candidate
-    counts, int32 [2, Q] tensors, under a cap it cannot prove (``torch``:
-    the two bounds of each chunk)."""
+    counts, int32 [2, Q] tensors, under a cap it cannot prove: one read a
+    call that launches chunks or a batch, after that call's launches, so
+    as many reads as such calls plus the chunks over the cap that halving
+    reruns (``torch``: the two bounds of each chunk)."""
     def refuse(*args, **kwargs):
         raise AssertionError("the engine searched the host")
 
@@ -227,12 +229,14 @@ def test_engine_keeps_no_host_rows_and_reads_back_only_counts(mixed_store, owner
     for name in ("rec_id", "start", "end", "order", "rec_offsets", "max_interval_len"):
         setattr(store, name, _Refused())
 
-    reads, recording = [], [False]
+    reads, log, recording = [], [], [False]
     for method in ("tolist", "item", "numpy", "__int__", "__index__", "__bool__"):
         def record(self, *args, _real=getattr(torch.Tensor, method), _method=method, **kwargs):
+            out = _real(self, *args, **kwargs)
             if recording[0]:
                 reads.append((_method, self.dtype, tuple(self.shape)))
-            return _real(self, *args, **kwargs)
+                log.append(("read", out))
+            return out
 
         monkeypatch.setattr(torch.Tensor, method, record)
     from memo_tpu_torch.query import engine as engine_mod
@@ -242,6 +246,7 @@ def test_engine_keeps_no_host_rows_and_reads_back_only_counts(mixed_store, owner
     def kernel(*args, **kwargs):  # its plain version reads the parameters on the CPU: not counted
         recording[0] = False
         launches.append(1)
+        log.append(("launch",))
         try:
             return real_kernel(*args, **kwargs)
         finally:
@@ -267,13 +272,60 @@ def test_engine_keeps_no_host_rows_and_reads_back_only_counts(mixed_store, owner
         assert reads and all(r == ("tolist", torch.int64, (2,)) for r in reads), reads
         return
     assert launches and not reads, (reads, launches)  # the default cap holds every record
+
+    # A cap of 64, below chrA's rows in every engine that has some: with the
+    # card's count copy stood in for, every call that launches a query's
+    # chunks (or a batch) makes one wait and one read, after all its
+    # launches; each chunk over the cap is halved by one call of its own
+    # (a batch over the cap runs per window, calls of their own).
+    class Copied:
+        def synchronize(self):
+            log.append(("wait",))
+
+    def framed(kind, real):
+        def run(*args, **kwargs):
+            log.append(("enter", kind))
+            try:
+                return real(*args, **kwargs)
+            finally:
+                log.append(("exit",))
+
+        return run
+
+    monkeypatch.setattr(engine_mod, "_copy_back", lambda t: (t, Copied()))
+    monkeypatch.setattr(engine_mod, "_fused_chunks", framed("chunks", engine_mod._fused_chunks))
+    monkeypatch.setattr(QueryEngine, "_batch_tensor", framed("batch", QueryEngine._batch_tensor))
     for engine in (eng, *(child for _, child in eng._children or [])):
-        engine.max_intervals = 64  # below chrA's rows in every engine that has some
+        engine.max_intervals = 64
     if owner == "resident":
         holder._full_cache.clear()
+    reads.clear()
+    log.clear()
     queries()
     assert reads and all(m == "tolist" and dt == torch.int32 and len(shape) == 2
                          and shape[0] == 2 for m, dt, shape in reads), reads
+    root = {"kind": None, "events": [], "calls": []}
+    stack = [root]
+    for event in log:
+        if event[0] == "enter":
+            stack.append({"kind": event[1], "events": [], "calls": []})
+            stack[-2]["calls"].append(stack[-1])
+        elif event[0] == "exit":
+            stack.pop()
+        else:
+            stack[-1]["events"].append(event)
+    assert stack == [root] and root["events"] == [] and root["calls"], log
+
+    def count(call) -> int:
+        """The reads of ``call`` and of the calls it made."""
+        *own, wait, (what, counts) = call["events"]
+        assert own and all(e == ("launch",) for e in own) and wait == ("wait",), call["events"]
+        over = sum(max(m, p) > 64 for m, p in zip(*counts))
+        assert len(call["calls"]) == (over if call["kind"] == "chunks" else 0), (over, call)
+        return 1 + sum(map(count, call["calls"]))
+
+    halved = sum(count(call) - 1 for call in root["calls"])
+    assert halved and len(reads) == len(root["calls"]) + halved, (len(reads), halved)
 
 
 @pytest.mark.parametrize("cap", ["provable", "small"])
