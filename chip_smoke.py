@@ -27,7 +27,9 @@ and its kernel function (three kernels for v1, one for v2) into CUDA
 graphs, the read of the candidate counts between them (one copy down)
 listed by torch.profiler; the batched-windows path (16 staggered 1 Mbp
 windows, one launch, v1 and v2, counted the same way) through the engine
-and through the CLI's ``--regions-file`` with every strategy; the
+and through the CLI's ``--regions-file`` with every strategy, and through
+resident set up from the saved index, its windows brought to the host in
+one copy (counted) or left on the card, timed apart; the
 HPRC-width store (90 genomes, ~75M intervals; set-up stages and memory,
 bucket 0's card layout and window parameters == numpy, a CLI ``-r`` query
 of its index split into stages), a 160-genome store and dense_small
@@ -44,9 +46,11 @@ longest rows == numpy (eight 2 Mbp windows, windows at and past the
 record's end and past 100M, k in 1/21/31/101), eight 2 Mbp windows with
 each kernel (set-up stages, host RSS, set-up peak and steady device
 bytes), a query of eight position chunks equal to the batch of them,
-resident over the whole record (conservation and membership, one
-launch per bucket), and the CLI's ``-r`` and ``--regions-file`` (auto,
-resolved to resident, and batched). Every output is checked exactly
+resident over the whole record, set up from the saved .npz with no column
+read on the host (set-up stages, host RSS it adds, peak device bytes;
+conservation and membership, one launch per bucket), and the CLI's ``-r``
+and ``--regions-file`` (auto, resolved to resident, and batched; host RSS,
+and no column through numpy's reader). Every output is checked exactly
 against the reference loop below (memo_query.py's per-interval slice
 writes), the port's single-window outputs, the other kernel, the kernels'
 plain version or the port's numpy engine. Each function's device time is
@@ -1451,9 +1455,52 @@ def phase_cli_regions(device, tmp: str, singles: list[np.ndarray], torch_mbp_s: 
     finally:
         cli.log.removeHandler(handler)
     check("--strategy auto resolved to 'resident'" in records, f"auto resolved to resident: {records}")
+    dispatch = resident_dispatch(npz, device, wins, singles)
+    check(dispatch["host_copies_a_call"] == 1 and dispatch["device_copies_a_call"] == 0,
+          f"resident's windows come to the host in one copy: {dispatch}")
     emit("phase9_cli_regions", windows=len(wins), strategies=runs, auto_resolved="resident",
-         byte_identical=True, torch_backend_headline_mbp_s=torch_mbp_s)
+         byte_identical=True, torch_backend_headline_mbp_s=torch_mbp_s, resident_dispatch=dispatch)
     return runs["batched_v2"]["launches_v2"]
+
+
+def resident_dispatch(npz: str, device, wins, singles: list[np.ndarray]) -> dict:
+    """ResidentShardedQuery set up from ``npz`` (the headline store, saved):
+    the 16 batch windows of a new dispatch each time, median wall of
+    WALL_REPS, brought to the host (with the copies to the host counted:
+    through ``engine._copy_back``) and left on the card, checked exact
+    against the single-window outputs."""
+    from memo_tpu_torch.index.store import IntervalStore
+    from memo_tpu_torch.parallel import ResidentShardedQuery
+    from memo_tpu_torch.query import engine as engine_mod
+
+    out, copies, real = {}, [], engine_mod._copy_back
+
+    def counted(t):
+        copies.append(tuple(t.shape))
+        return real(t)
+
+    engine_mod._copy_back = counted
+    try:
+        for where, device_output in (("host", False), ("device", True)):
+            rq = ResidentShardedQuery(IntervalStore.load(npz), device, record="chr1",
+                                      device_output=device_output)
+
+            def dispatch():
+                rq._full_cache.clear()
+                return rq.conservation_windows(wins, K)
+
+            got = dispatch()
+            for (qs, qe), g, one in zip(wins, got, singles):
+                g = g if where == "host" else g.cpu().numpy()
+                check(np.array_equal(g, one), f"resident dispatch to the {where}: {qs}-{qe}")
+            copies.clear()
+            walls = walls_s(dispatch, device)
+            out[f"{where}_ms"] = spread_ms(walls)
+            out[f"{where}_copies_a_call"] = len(copies) / (len(walls) + 1)  # + the warm-up
+            del rq
+    finally:
+        engine_mod._copy_back = real
+    return out
 
 
 def phase_membership(device) -> None:
@@ -1771,31 +1818,42 @@ def function_ms(engine, record: str, windows, k: int, version: str, membership: 
             "ms": ms, "bound_ms": bound, "bound_by": bound_by, "bound_share": bound / ms}
 
 
-def resident_whole_record(store, device, spots) -> tuple[dict, np.ndarray]:
-    """ResidentShardedQuery over the whole record on one device: placement,
-    conservation_full and membership_full at K, each timed, peak device
-    memory; each kernel function's time on the dispatch's windows; the
-    conservation at ``spots`` and the membership at the last spot (past 2^31
-    output elements at C=90 beyond 23.9M positions) against the reference
-    loops; both kernel functions' launches over the record's windows, and
-    resident's outputs, against the plain version window by window
-    (:func:`whole_record_errors`). Returns the timings and launches, and the
-    whole conservation on the host."""
+def resident_whole_record(store, npz: str, device, spots) -> tuple[dict, np.ndarray]:
+    """ResidentShardedQuery over the whole record on one device, set up from
+    ``npz`` (``store`` saved, stored members) as the CLI sets it up: its
+    wall and stages (the slab rows streamed, ``place.upload``; the slab
+    bounds, ``place.bounds``; the placement, ``place.sort_gather``,
+    ``place.pad`` and ``engine.*``), the host RSS it adds (before, peak,
+    after), peak device bytes, and proof that it read no column on the
+    host (numpy's member reader read no large array, the four columns are
+    still only in the file); conservation_full and membership_full at K,
+    each timed, peak device memory; each kernel function's time on the
+    dispatch's windows; the conservation at ``spots`` and the membership at
+    the last spot (past 2^31 output elements at C=90 beyond 23.9M
+    positions) against the reference loops over ``store``; both kernel
+    functions' launches over the record's windows, and resident's outputs,
+    against the plain version window by window (:func:`whole_record_errors`).
+    Returns the timings and launches, and the whole conservation on the
+    host."""
+    from memo_tpu_torch.index.store import COLUMNS, IntervalStore
     from memo_tpu_torch.ops.fused_query import fused_query_rows
     from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2_rows
     from memo_tpu_torch.parallel import ResidentShardedQuery
     from memo_tpu_torch.query.window import window_params
 
     n = store.n_docs
+    loaded = IntervalStore.load(npz)
     torch.cuda.reset_peak_memory_stats()
     fused_query_rows.launches = fused_query_v2_rows.launches = window_params.launches = 0
-    t0 = time.perf_counter()
-    rq = ResidentShardedQuery(store, device, k_max=1024)
-    sync(device)
-    place_s = time.perf_counter() - t0
+    with rss_peak() as host, numpy_array_reads(store.num_records + 1) as big:
+        rq, place_s, stages = timed_stages(
+            lambda: (ResidentShardedQuery(loaded, device, k_max=1024), sync(device))[0])
+    host["rss_after_setup_bytes"] = rss_bytes()
+    host["numpy_large_reads"] = len(big)
     setup_peak = torch.cuda.max_memory_allocated()
     steady = torch.cuda.memory_allocated()
-    rss = rss_bytes()
+    check(not big and loaded.file_columns()[1] == list(COLUMNS),
+          f"resident set-up from {os.path.basename(npz)} read no column on the host")
     t0 = time.perf_counter()
     cons = rq.conservation_full(K)
     sync(device)
@@ -1829,13 +1887,18 @@ def resident_whole_record(store, device, spots) -> tuple[dict, np.ndarray]:
     torch.cuda.empty_cache()
     functions = {f"{v}_{mode}": function_ms(live[0], "chr1", wins, K, v, mode == "membership")
                  for v in ("v1", "v2") for mode in ("conservation", "membership")}
-    stats = rq.stats()
+    # stats() would read the columns on the host (rows_per_shard); its own keys here.
+    placed = [(*c._d, *c._layout.device_tensors()) for c in rq._placed()]
+    stats = {"local_rows": rq.local_rows, "slab_positions": rq.B, "placed_bytes":
+             sum(t.numel() * t.element_size() for d in placed for t in d)}
     cons = cons.cpu().numpy()
-    del rq
+    del rq, placed
     torch.cuda.empty_cache()
-    return {"place_s": place_s, "setup_peak_device_bytes": setup_peak,
-            "steady_device_bytes": steady, "rss_after_setup_bytes": rss,
-            "conservation_dispatch_s": cons_s, "membership_dispatch_s": memb_s,
+    return {"from": os.path.basename(npz), "place_s": place_s, "setup_stages": stages,
+            "setup_host": host, "setup_peak_device_bytes": setup_peak,
+            "steady_device_bytes": steady, "rss_after_setup_bytes": host["rss_after_setup_bytes"],
+            "columns_read_on_host": 0, "conservation_dispatch_s": cons_s,
+            "membership_dispatch_s": memb_s,
             "peak_device_bytes": peak, "launches": launches, "stats": stats,
             "functions": functions, "spots_exact": len(spots),
             "membership_spot_past_2_31": True, "whole_record_windows": len(wins),
@@ -1847,7 +1910,8 @@ def phase_chromosome(device, tmp: str):
     here; the eight 2 Mbp windows through the stratified engine with v1 and
     with v2 (set-up stages and peak memory, walls, each function's time,
     spot windows past 100M against the reference loop); resident over the
-    whole record (conservation and membership, one kernel launch per bucket);
+    whole record, set up from the saved .npz without reading a column on
+    the host (conservation and membership, one kernel launch per bucket);
     the CLI's ``-r`` on one window (stages, bytes) and ``--regions-file``
     with ``auto`` (resolved to resident) and ``batched``, byte-identical.
     Returns the kernel records, each kernel's launches and its error over
@@ -1936,7 +2000,7 @@ def phase_chromosome(device, tmp: str):
         del eng, child
         torch.cuda.empty_cache()
 
-    resident, cons = resident_whole_record(store, device, spots)
+    resident, cons = resident_whole_record(store, npz, device, spots)
     launches["v1"] += resident["launches"]["v1"]
     launches["window"] += resident["launches"]["window"]
     for (qs, qe), out in zip(wins, outs):
@@ -1968,17 +2032,18 @@ def phase_chromosome(device, tmp: str):
     handler = logging.Handler()
     handler.emit = lambda rec: records.append(rec.getMessage())
     cli.log.addHandler(handler)
-    regions_s = {}
+    regions_s, regions_host = {}, {}
     try:
         for strategy in ("auto", "batched"):
             fused_query_rows.launches = window_params.launches = 0
-            t0 = time.perf_counter()
-            rc = cli.main(["query", "-b", npz, "-k", str(K), "--regions-file", regions, "-o",
-                           os.path.join(tmp, f"chrom_{strategy}"), "--strategy", strategy,
-                           "--device", device.type])
-            regions_s[strategy] = time.perf_counter() - t0
+            rc, regions_s[strategy], _, regions_host[strategy] = timed_cli(
+                ["query", "-b", npz, "-k", str(K), "--regions-file", regions, "-o",
+                 os.path.join(tmp, f"chrom_{strategy}"), "--strategy", strategy,
+                 "--device", device.type], R + 1)
             check(rc == 0 and fused_query_rows.launches > 0,
                   f"chromosome --regions-file {strategy} ran the v1 kernel")
+            check(regions_host[strategy]["numpy_large_reads"] == 0,
+                  f"chromosome --regions-file {strategy}: no column through numpy's reader")
             launches["v1"] += fused_query_rows.launches
             launches["window"] += window_params.launches
     finally:
@@ -1998,7 +2063,8 @@ def phase_chromosome(device, tmp: str):
          windows=wins, spot_windows=spots, edge_windows=edges, window_params_vs_numpy=params,
          engines=engines, resident=resident,
          cli_r_window=list(wins[q]), cli_query_s=cli_s, cli_stages_s=cli_stages,
-         cli_host=cli_host, streamed_columns=streamed, cli_bytes_equal=True, regions_cli_s=regions_s, auto_resolved="resident",
+         cli_host=cli_host, streamed_columns=streamed, cli_bytes_equal=True,
+         regions_cli_s=regions_s, regions_cli_host=regions_host, auto_resolved="resident",
          regions_byte_identical=True, launches=launches, window_kernel=window_fn)
     whole = resident["whole_record_max_abs_err"].values()
     return ({v: engines[v]["functions"][q] for v in ("v1", "v2")} | {"window": window_fn}, launches,
@@ -2027,21 +2093,27 @@ def setup_cells(tmp: str) -> int:
     file (so a copy of this script in another tree measures that tree's):
     the headline single-window query wall (fused, result on the card,
     median of WALL_REPS with its spread), the 16 x 1 Mbp batch's wall and
-    the kernels' device times there (:func:`headline_device_ms`); n90's
+    the kernels' device times there (:func:`headline_device_ms`), and
+    resident's dispatch of that batch to the host and on the card, set up
+    from ``tmp``/headline.npz (:func:`resident_dispatch`); n90's
     stratified engine, from ``tmp``/n90.npz, across K_SWEEP
     (:func:`k_sweep`); and at the chromosome scale, its
     store loaded from ``tmp``/chrom.npz (built from the seed and saved there
     by the first run), the stratified engine's set-up with its stages, host
     RSS before and after it, set-up peak and steady device bytes, and the
     wall of a query of eight position chunks (:func:`chunked_query`);
-    ResidentShardedQuery's placement, the same; the CLI ``-r`` of window 3
-    with its stages and host memory; the CLI ``-r`` of the n=90 store's
-    whole window from ``tmp``/n90.npz (stored members) and
+    ResidentShardedQuery's placement from the loaded store, the same, with
+    its host RSS peak, numpy's large reads and the columns it read on the
+    host, and again from the store with its columns read into memory; the
+    CLI ``-r`` of window 3 with its stages and host memory; the CLI
+    ``--regions-file`` of the eight 2 Mbp windows with ``auto``
+    (resident), the same; the CLI ``-r`` of the n=90 store's whole window
+    from ``tmp``/n90.npz (stored members) and
     ``tmp``/n90_deflated.npz (the default ``save()``, the file ``memo
     index`` writes), byte-identical; and how numpy's load of the chromosome
     and of the deflated n=90 file splits on this host (:func:`load_split`).
     Prints one line, ``setup_cells {...}``."""
-    from memo_tpu_torch.index.store import IntervalStore
+    from memo_tpu_torch.index.store import COLUMNS, IntervalStore
     from memo_tpu_torch.parallel import ResidentShardedQuery
     from memo_tpu_torch.query.engine import QueryEngine
 
@@ -2054,10 +2126,15 @@ def setup_cells(tmp: str) -> int:
     wins = batch_windows(PIVOT_LEN)
     batch = spread_ms(walls_s(lambda: eng.conservation_batch("chr1", wins, K), device))
     kernels = headline_device_ms(eng, "chr1", wins)
-    del eng, store
+    singles = [eng.conservation("chr1", qs, qe, K).cpu().numpy() for qs, qe in wins]
+    del eng
+    os.makedirs(tmp, exist_ok=True)
+    headline_npz = os.path.join(tmp, "headline.npz")
+    store.save(headline_npz, compressed=False)
+    dispatch = resident_dispatch(headline_npz, device, wins, singles)
+    del store
     torch.cuda.empty_cache()
 
-    os.makedirs(tmp, exist_ok=True)
     npz = os.path.join(tmp, "chrom.npz")
     n90 = {"stored": os.path.join(tmp, "n90.npz"), "deflated": os.path.join(tmp, "n90_deflated.npz")}
     if not os.path.exists(npz):
@@ -2080,12 +2157,13 @@ def setup_cells(tmp: str) -> int:
     def measured(make, then=None) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        rss0 = rss_bytes()
-        obj, wall, stages = timed_stages(lambda: (make(), sync(device))[0])
+        with rss_peak() as host, numpy_array_reads(2) as big:
+            obj, wall, stages = timed_stages(lambda: (make(), sync(device))[0])
         out = {"s": wall, "stages": stages, "setup_peak_device_bytes":
                torch.cuda.max_memory_allocated(), "steady_device_bytes":
-               torch.cuda.memory_allocated(), "rss_before_bytes": rss0,
-               "rss_after_setup_bytes": rss_bytes()}
+               torch.cuda.memory_allocated(), "rss_before_bytes": host["rss_before_bytes"],
+               "rss_peak_bytes": host["rss_peak_bytes"], "rss_after_setup_bytes": rss_bytes(),
+               "numpy_large_reads": len(big)}
         if then is not None:
             out |= then(obj)
         del obj
@@ -2095,6 +2173,10 @@ def setup_cells(tmp: str) -> int:
                                           chunk_positions=CHROM_WINDOW, device_output=True),
                       lambda eng: {"chunked_query": chunked_query(eng, device, False)})
     resident = measured(lambda: ResidentShardedQuery(store, device, k_max=1024))
+    resident["columns_read_on_host"] = 4 - len(store.file_columns()[1])
+    for name in COLUMNS:  # the store in memory: every column read on the host
+        getattr(store, name)
+    resident_in_memory = measured(lambda: ResidentShardedQuery(store, device, k_max=1024))
     del store
     torch.cuda.empty_cache()
     qs, qe = chromosome_windows()[3]
@@ -2102,6 +2184,14 @@ def setup_cells(tmp: str) -> int:
         ["query", "-b", npz, "-k", str(K), "-r", f"chr1:{qs}-{qe}", "-o",
          os.path.join(tmp, "cli_r.txt"), "--device", "cuda"], 2)
     check(rc == 0, "setup cells: CLI -r exit code")
+    regions = os.path.join(tmp, "chrom_regions.txt")
+    with open(regions, "w") as fh:
+        fh.writelines(f"chr1:{a}-{b}\n" for a, b in chromosome_windows())
+    torch.cuda.empty_cache()
+    rc, regions_s, regions_stages, regions_host = timed_cli(
+        ["query", "-b", npz, "-k", str(K), "--regions-file", regions, "-o",
+         os.path.join(tmp, "chrom_auto"), "--strategy", "auto", "--device", "cuda"], 2)
+    check(rc == 0, "setup cells: CLI --regions-file auto exit code")
     n90_cli = {}
     for kind, path in n90.items():
         torch.cuda.empty_cache()
@@ -2117,7 +2207,10 @@ def setup_cells(tmp: str) -> int:
     emit("setup_cells", card=card, tree=os.path.dirname(os.path.abspath(__file__)),
          headline_query_wall_ms=headline, batch_wall_ms=batch, headline_device_ms=kernels,
          n90_k_sweep=n90_sweep, chrom_load_s=load_s, engine=engine,
-         resident=resident, cli_r_s=cli_s, cli_r_stages=cli_stages, cli_r_host=cli_host,
+         headline_resident_dispatch=dispatch, resident=resident,
+         resident_in_memory=resident_in_memory, regions_auto_s=regions_s,
+         regions_auto_stages=regions_stages, regions_auto_host=regions_host, cli_r_s=cli_s,
+         cli_r_stages=cli_stages, cli_r_host=cli_host,
          n90_cli_r=n90_cli, n90_bytes_equal=True, load_split=split)
     return 0
 

@@ -351,26 +351,33 @@ def _run_regions(args, regions, mesh) -> list:
     with trace_context(args.profile):
         if strategy == "resident":
             # One placement serves every queried record, and all windows of a
-            # (record, k) are slices of one whole-record dispatch.
+            # (record, k) are slices of one whole-record dispatch, brought to
+            # the host in one copy.
             uniq = list(dict.fromkeys(record for record, _, _ in regions))
             placement = {"record": uniq[0]} if len(uniq) == 1 else {"records": uniq}
             rq = ResidentShardedQuery(store, mesh, k_max=max(args.k, 1024), **placement)
-            fn = rq.membership if args.membership else rq.conservation
-            return [fn(qs, qe, args.k, record=record) for record, qs, qe in regions]
+            fn = rq.membership_windows if args.membership else rq.conservation_windows
+            return _by_record(regions, lambda record, wins: fn(wins, args.k, record=record))
         if strategy == "batched":
             # One device's engine; under a group every rank runs it on its own.
             engine = QueryEngine(store, backend=args.backend, device=mesh.device)
             fn = engine.membership_batch if args.membership else engine.conservation_batch
-            by_rec: dict[str, list[tuple[int, int]]] = {}
-            for record, qs, qe in regions:
-                by_rec.setdefault(record, []).append((qs, qe))
-            outs = {}
-            for record, wins in by_rec.items():
-                for (qs, qe), o in zip(wins, fn(record, wins, args.k)):
-                    outs[(record, qs, qe)] = o
-            return [outs[key] for key in regions]
+            return _by_record(regions, lambda record, wins: fn(record, wins, args.k))
         sq = ShardedQuery(store, mesh, strategy=strategy)
         return (sq.membership if args.membership else sq.conservation)(regions, args.k)
+
+
+def _by_record(regions, run) -> list:
+    """Each region's output, in the regions' order, from one ``run(record,
+    windows)`` call per record over its windows."""
+    by_rec: dict[str, list[tuple[int, int]]] = {}
+    for record, qs, qe in regions:
+        by_rec.setdefault(record, []).append((qs, qe))
+    outs = {}
+    for record, wins in by_rec.items():
+        for (qs, qe), o in zip(wins, run(record, wins)):
+            outs[(record, qs, qe)] = o
+    return [outs[key] for key in regions]
 
 
 def cmd_query(args) -> int:

@@ -17,7 +17,10 @@ their offsets; a deflated member is inflated in order, one thread per
 member, so the members inflate at once), and copies it to the device on its
 own stream without waiting; a buffer is filled again only after its last
 copy has completed. Every byte passes once from the file into a buffer and
-once from there to the device.
+once from there to the device. Given row ranges, it sends only those rows:
+a stored member is read at their offsets alone, a deflated one inflated in
+order with the bytes outside them dropped. :meth:`NpzMembers.search` finds a
+row of a stored, sorted column by reading single elements at their offsets.
 
 Members numpy never writes this way (another compression method, a
 ``fortran_order`` array of more than one dimension, an object dtype, a
@@ -50,6 +53,7 @@ CHUNK_BYTES = 16 << 20  # one staging buffer
 RING = 2  # staging buffers a worker fills in turn
 MAX_WORKERS = 8
 INFLATE_INPUT = 4 << 20  # compressed bytes read at a time
+SKIP_BYTES = 4 << 20  # inflated bytes dropped at a time
 _LOCAL_HEADER = struct.Struct("<4s5H3L2H")  # zip local file header, 30 bytes
 _LOCAL_MAGIC = b"PK\x03\x04"
 _ZIP_PREFIXES = (b"PK\x03\x04", b"PK\x05\x06")  # what np.load takes for a zip
@@ -171,14 +175,14 @@ class NpzMembers:
         out = memoryview(arr.reshape(-1).view(np.uint8))
         with self._open() as fd:
             if m.method == zipfile.ZIP_STORED:  # its chunks in parallel, at their offsets
-                def chunk(lo: int) -> int:
+                def chunk(lo: int) -> tuple[int, int]:
                     piece = out[lo : lo + CHUNK_BYTES]
                     _pread_into(fd, piece, m.offset + m.header_len + lo, m)
-                    return zlib.crc32(piece)
+                    return zlib.crc32(piece), len(piece)
 
                 starts = range(0, len(out), CHUNK_BYTES)
                 with ThreadPoolExecutor(max_workers=_workers(len(starts))) as pool:
-                    _check_stored_crc(fd, m, list(pool.map(chunk, starts)), CHUNK_BYTES)
+                    _check_stored_crc(fd, m, list(pool.map(chunk, starts)))
             else:
                 inflater = _Inflater(fd, m)
                 inflater.skip(m.header_len)
@@ -187,26 +191,41 @@ class NpzMembers:
                 inflater.finish()
         return arr
 
-    def stream(self, names, device) -> tuple[dict[str, torch.Tensor], dict[str, float]]:
+    def stream(self, names, device, rows=None) -> tuple[dict[str, torch.Tensor], dict[str, float]]:
         """The direct members ``names`` as tensors on ``device`` (their
         dtypes and shapes), filled through staging buffers of
         ``CHUNK_BYTES``: pinned, with non-blocking copies, on CUDA; plain
-        buffers and copies on the CPU. Returns the tensors and the stage
-        seconds: ``read``, the thread-seconds spent filling buffers (read or
-        inflate, and the CRC), and ``copy``, the copies' seconds (device
-        time on CUDA). Any failure raises."""
+        buffers and copies on the CPU. With ``rows``, [lo, hi) ranges of the
+        members' first axis, ascending and disjoint, each tensor holds only
+        those rows, in that order: a stored member is read at their offsets
+        only, a deflated one is inflated whole and the bytes outside them
+        dropped. Returns the tensors and the stage seconds: ``read``, the
+        thread-seconds spent filling buffers (read or inflate, and the CRC),
+        and ``copy``, the copies' seconds (device time on CUDA).
+
+        A deflated member that any row is read from is checked against its
+        CRC-32, and a stored one wherever it is read whole (``rows`` None,
+        or ranges that cover every row). A stored member read only in part
+        cannot be checked against the CRC-32 of the whole member; its reads
+        are held, as :meth:`read` holds them, to the member's length (a
+        short read raises) and to the file the member table was made from.
+        Any failure raises."""
         device, chunk_bytes = torch.device(device), CHUNK_BYTES
         members = [self.member(n) for n in names]
         for m in members:
             if not m.direct:
                 raise ValueError(f"{self.path}: member {m.name}.npy is not a plain array")
-        dests = {m.name: torch.empty(m.shape, dtype=_torch_dtype(m.dtype), device=device)
+        spans = {m.name: _spans(m, rows) for m in members}
+        dests = {m.name: torch.empty(_rows_shape(m, rows), dtype=_torch_dtype(m.dtype),
+                                     device=device)
                  for m in members}
-        # A deflated member is one job (its stream inflates in order); a
-        # stored member is one job per chunk, read at its offset.
-        jobs = [(m, None) for m in members if m.method == zipfile.ZIP_DEFLATED]
-        jobs += [(m, lo) for m in members if m.method == zipfile.ZIP_STORED
-                 for lo in range(0, m.nbytes, chunk_bytes)]
+        # A deflated member is one job (its stream inflates in order), where
+        # any of it is asked for; a stored member is one job per chunk of
+        # each span, read at its offset.
+        jobs = [(m, None) for m in members if m.method == zipfile.ZIP_DEFLATED and spans[m.name]]
+        jobs += [(m, (lo, min(lo + chunk_bytes, hi), at + lo - a))
+                 for m in members if m.method == zipfile.ZIP_STORED
+                 for a, hi, at in spans[m.name] for lo in range(a, hi, chunk_bytes)]
         n_workers = _workers(len(jobs))
         rings = queue.SimpleQueue()
         all_rings = [_Ring(chunk_bytes, device) for _ in range(n_workers)]
@@ -215,28 +234,29 @@ class NpzMembers:
         stop = threading.Event()
         byte_views = {name: t.view(-1).view(torch.uint8) for name, t in dests.items()}
 
-        def run(m: Member, lo: int | None, fd: int):
+        def run(m: Member, job: tuple[int, int, int] | None, fd: int):
             if stop.is_set():
                 return None
             ring = rings.get()
             try:
                 dest = byte_views[m.name]
-                if lo is None:
-                    return _inflate_job(fd, m, dest, ring, chunk_bytes, stop)
-                return _stored_job(fd, m, lo, min(lo + chunk_bytes, m.nbytes), dest, ring)
+                if job is None:
+                    return _inflate_job(fd, m, dest, ring, chunk_bytes, stop, spans[m.name])
+                lo, hi, at = job
+                return _stored_job(fd, m, lo, hi, dest[at : at + hi - lo], ring)
             finally:
                 rings.put(ring)
 
-        crcs: dict[str, list[int]] = {m.name: [] for m in members}  # a stored member's chunks'
+        crcs: dict[str, list[tuple[int, int]]] = {m.name: [] for m in members}  # stored chunks'
         with self._open() as fd:
             try:
                 with ThreadPoolExecutor(max_workers=n_workers) as pool:
-                    futures = [(m, lo, pool.submit(run, m, lo, fd)) for m, lo in jobs]
+                    futures = [(m, job, pool.submit(run, m, job, fd)) for m, job in jobs]
                     try:
-                        for m, lo, fut in futures:
+                        for m, job, fut in futures:
                             got = fut.result()
-                            if lo is not None:
-                                crcs[m.name].append(got)
+                            if job is not None:
+                                crcs[m.name].append((got, job[1] - job[0]))
                     except BaseException:
                         stop.set()
                         raise
@@ -244,11 +264,83 @@ class NpzMembers:
                 for ring in all_rings:
                     ring.wait()
             for m in members:
-                if m.method == zipfile.ZIP_STORED:
-                    _check_stored_crc(fd, m, crcs[m.name], chunk_bytes)
+                if m.method == zipfile.ZIP_STORED and _covers(spans[m.name], m.nbytes):
+                    _check_stored_crc(fd, m, crcs[m.name])
         times = {"read": sum(r.read_s for r in all_rings),
                  "copy": sum(r.copy_seconds() for r in all_rings)}
         return dests, times
+
+    def search(self, name: str, lo: int, hi: int, values) -> list[int]:
+        """For each of ``values``, the first row in [lo, hi) of the stored
+        integer column ``name`` whose element is not below it, or ``hi``:
+        ``lo + np.searchsorted(column[lo:hi], v)`` over rows in ascending
+        order. A binary search that reads one element a step at its offset
+        in the file, about log2(hi - lo) reads a value. A short read raises,
+        as in :meth:`read`; the CRC-32 of the member cannot be checked."""
+        m = self.member(name)
+        if not (m.direct and m.method == zipfile.ZIP_STORED and len(m.shape) == 1
+                and m.dtype.kind in "iu"):
+            raise ValueError(f"{self.path}: member {name}.npy is not a stored integer column")
+        if not 0 <= lo <= hi <= m.shape[0]:
+            raise ValueError(f"rows [{lo}, {hi}) outside member {name}.npy of {m.shape[0]} rows")
+        size, base = m.dtype.itemsize, m.offset + m.header_len
+        found = []
+        with self._open() as fd:
+            def element(i: int) -> int:
+                raw = os.pread(fd, size, base + i * size)
+                if len(raw) < size:
+                    raise EOFError(f"member {name}.npy is truncated")
+                return int(np.frombuffer(raw, m.dtype)[0])
+
+            for v in values:
+                a, b = lo, hi
+                while a < b:
+                    mid = (a + b) // 2
+                    if element(mid) < v:
+                        a = mid + 1
+                    else:
+                        b = mid
+                found.append(a)
+        return found
+
+
+def _spans(m: Member, rows) -> list[tuple[int, int, int]]:
+    """The array bytes [lo, hi) of ``rows`` of member ``m``, each with its
+    offset in the destination: (lo, hi, at), ascending; the whole array for
+    None. Empty ranges have none."""
+    if rows is None:
+        return [(0, m.nbytes, 0)]
+    if not m.shape:
+        raise ValueError(f"member {m.name}.npy has no rows")
+    row_bytes = m.dtype.itemsize * int(np.prod(m.shape[1:], dtype=np.int64))
+    spans, last, at = [], 0, 0
+    for lo, hi in rows:
+        lo, hi = int(lo), int(hi)
+        if not last <= lo <= hi <= m.shape[0]:
+            raise ValueError(f"row ranges {rows} are not ascending, disjoint ranges of "
+                             f"member {m.name}.npy's {m.shape[0]} rows")
+        if hi > lo:
+            spans.append((lo * row_bytes, hi * row_bytes, at))
+            at += (hi - lo) * row_bytes
+        last = hi
+    return spans
+
+
+def _rows_shape(m: Member, rows) -> tuple[int, ...]:
+    if rows is None:
+        return m.shape
+    return (sum(int(hi) - int(lo) for lo, hi in rows),) + m.shape[1:]
+
+
+def _covers(spans: list[tuple[int, int, int]], n_bytes: int) -> bool:
+    """The spans, in order, are the whole array: each starts where the
+    last ended, from 0 to ``n_bytes``."""
+    end = 0
+    for lo, hi, _ in spans:
+        if lo != end:
+            return False
+        end = hi
+    return end == n_bytes
 
 
 def _workers(n_jobs: int) -> int:
@@ -264,15 +356,15 @@ def _check_crc(m: Member, crc: int) -> None:
         raise zipfile.BadZipFile(f"Bad CRC-32 for file {m.name}.npy")
 
 
-def _check_stored_crc(fd: int, m: Member, chunk_crcs: list[int], chunk_bytes: int) -> None:
-    """A stored member's CRC-32, from its header's and those of its array's
-    chunks of ``chunk_bytes``, in order."""
+def _check_stored_crc(fd: int, m: Member, pieces: list[tuple[int, int]]) -> None:
+    """A stored member's CRC-32, from its header's and the (CRC-32, length)
+    of each piece of its array, in order, pieces that make the whole."""
     header = os.pread(fd, m.header_len, m.offset)
     if len(header) < m.header_len:
         raise EOFError(f"member {m.name}.npy is truncated")
     crc = zlib.crc32(header)
-    for lo, piece in zip(range(0, m.nbytes, chunk_bytes), chunk_crcs, strict=True):
-        crc = _crc32_combine(crc, piece, min(chunk_bytes, m.nbytes - lo))
+    for piece, n in pieces:
+        crc = _crc32_combine(crc, piece, n)
     _check_crc(m, crc)
 
 
@@ -319,8 +411,13 @@ class _Inflater:
         return n
 
     def skip(self, n: int) -> None:
-        if self.readinto(memoryview(bytearray(n))) < n:
-            raise EOFError(f"member {self._m.name}.npy is truncated")
+        """Inflate the next ``n`` bytes and drop them (the CRC-32 counts them)."""
+        scratch = memoryview(bytearray(min(n, SKIP_BYTES)))
+        while n:
+            step = min(n, len(scratch))
+            if self.readinto(scratch[:step]) < step:
+                raise EOFError(f"member {self._m.name}.npy is truncated")
+            n -= step
 
     def finish(self) -> None:
         """The stream must end here, with the member's CRC-32."""
@@ -380,35 +477,45 @@ class _Ring:
 
 
 def _stored_job(fd: int, m: Member, lo: int, hi: int, dest: torch.Tensor, ring: _Ring) -> int:
-    """Array bytes [lo, hi) of a stored member into ``dest``; returns their CRC-32."""
+    """Array bytes [lo, hi) of a stored member into ``dest`` (their
+    ``hi - lo`` bytes); returns their CRC-32."""
     i = ring.take()
     t0 = time.perf_counter()
     out = ring.views[i][: hi - lo]
     _pread_into(fd, out, m.offset + m.header_len + lo, m)
     crc = zlib.crc32(out)
     ring.read_s += time.perf_counter() - t0
-    ring.send(i, dest[lo:hi], hi - lo)
+    ring.send(i, dest, hi - lo)
     return crc
 
 
 def _inflate_job(fd: int, m: Member, dest: torch.Tensor, ring: _Ring, chunk_bytes: int,
-                 stop: threading.Event) -> None:
-    """A deflated member's array into ``dest``, one buffer at a time."""
+                 stop: threading.Event, spans: list[tuple[int, int, int]]) -> None:
+    """A deflated member's array bytes ``spans`` (:func:`_spans`) into
+    ``dest``, one buffer at a time; the bytes between and after them are
+    inflated and dropped, so that the whole stream meets its CRC-32."""
     t0 = time.perf_counter()
     inflater = _Inflater(fd, m)
     inflater.skip(m.header_len)
     ring.read_s += time.perf_counter() - t0
-    for lo in range(0, m.nbytes, chunk_bytes):
-        if stop.is_set():
-            return None
-        n = min(chunk_bytes, m.nbytes - lo)
-        i = ring.take()
+    done = 0  # array bytes inflated so far
+    for a, b, at in spans:
         t0 = time.perf_counter()
-        if inflater.readinto(ring.views[i][:n]) < n:
-            raise EOFError(f"member {m.name}.npy is truncated")
+        inflater.skip(a - done)
         ring.read_s += time.perf_counter() - t0
-        ring.send(i, dest[lo : lo + n], n)
+        for lo in range(a, b, chunk_bytes):
+            if stop.is_set():
+                return None
+            n = min(chunk_bytes, b - lo)
+            i = ring.take()
+            t0 = time.perf_counter()
+            if inflater.readinto(ring.views[i][:n]) < n:
+                raise EOFError(f"member {m.name}.npy is truncated")
+            ring.read_s += time.perf_counter() - t0
+            ring.send(i, dest[at + lo - a : at + lo - a + n], n)
+        done = b
     t0 = time.perf_counter()
+    inflater.skip(m.nbytes - done)
     inflater.finish()
     ring.read_s += time.perf_counter() - t0
     return None

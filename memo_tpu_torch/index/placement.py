@@ -26,6 +26,7 @@ rows there.
 from __future__ import annotations
 
 import contextlib
+import zipfile
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -106,32 +107,85 @@ class Columns(NamedTuple):
     order: torch.Tensor  # int32
 
 
-def upload_columns(store: IntervalStore, device) -> Columns:
-    """The store's columns on ``device``, copied once. The columns of a
-    loaded store that no host code has read go from its file to the device
-    (``NpzMembers.stream``: staging buffers, pinned on CUDA), with the
-    stages ``place.upload.read`` (thread-seconds of reads and inflates) and
+def upload_columns(store: IntervalStore, device, rows=None) -> Columns:
+    """The store's columns on ``device``, copied once; with ``rows`` ([lo,
+    hi) row ranges in store order, ascending and disjoint) only those rows
+    of each column, concatenated in that order. The columns of a loaded
+    store that no host code has read go from its file to the device
+    (``NpzMembers.stream``: staging buffers, pinned on CUDA), read only at
+    the rows asked for where the member is stored, with the stages
+    ``place.upload.read`` (thread-seconds of reads and inflates) and
     ``place.upload.copy`` (the copies' seconds) beside ``place.upload``; any
-    failure there raises. A store built in memory, and a column already on
-    the host or in a member format numpy never writes, goes from its host
-    array."""
+    failure there raises. A deflated member is inflated whole and checked
+    against its CRC-32, a stored one where every row of it is read; a
+    stored member read only in part is held to its length and to the file
+    it was loaded from, not to the CRC-32 of the whole member. A store
+    built in memory, and a column already on the host or in a member format
+    numpy never writes, goes from its host array."""
     device = torch.device(device)
     with _stage("place.upload", device):
         # a memo_tpu store, or any other with the columns, goes from its host arrays
         npz, in_file = store.file_columns() if isinstance(store, IntervalStore) else (None, [])
         direct = [n for n in in_file if npz.member(n).direct]
-        streamed, times = npz.stream(direct, device) if direct else ({}, None)
+        streamed, times = npz.stream(direct, device, rows) if direct else ({}, None)
         cols = []
         for name, dtype in COLUMNS.items():
             col = streamed.pop(name, None)
             if col is None:
-                col = torch.from_numpy(getattr(store, name)).to(device)
+                col = _host_rows(getattr(store, name), rows, device)
             # a writer's other integer width, cast as IntervalStore casts it
             cols.append(col.to(getattr(torch, np.dtype(dtype).name)))
     if times is not None:
         for stage, seconds in times.items():
             GLOBAL_TIMES.add(f"place.upload.{stage}", seconds)
     return Columns(*cols)
+
+
+def _host_rows(a: np.ndarray, rows, device: torch.device) -> torch.Tensor:
+    """Rows ``rows`` of the host array ``a`` (all of it for None) on ``device``."""
+    if rows is None:
+        return torch.from_numpy(a).to(device)
+    got = [torch.from_numpy(a[lo:hi]).to(device) for lo, hi in rows or [(0, 0)]]
+    return got[0] if len(got) == 1 else torch.cat(got)
+
+
+def start_rows(store: IntervalStore, values: dict[int, list[int]], device) -> dict[int, list[int]]:
+    """``IntervalStore.window_bounds``'s search, for each record r of
+    ``values`` and each of its values v: the first row of record r whose
+    start is not below v (``rec_offsets[r] + np.searchsorted(start[rows of
+    r], v)``). A loaded store's start column that no host code has read is
+    not read on the host: a stored member is searched in the file
+    (``NpzMembers.search``, about log2(rows) reads of one element a value),
+    a deflated one streamed to ``device`` for the records' rows only and
+    searched there (``torch.searchsorted``; the rows are freed on return).
+    Otherwise the host column is searched. Stage ``place.bounds``."""
+    device = torch.device(device)
+    offsets = store.rec_offsets
+    spans = {r: (int(offsets[r]), int(offsets[r + 1])) for r in sorted(values)}
+    if not spans:
+        return {}
+    with _stage("place.bounds", device):
+        npz, in_file = store.file_columns() if isinstance(store, IntervalStore) else (None, [])
+        member = npz.member("start") if "start" in in_file else None
+        if member is None or not member.direct:
+            return {r: (lo + np.searchsorted(store.start[lo:hi], values[r], side="left")).tolist()
+                    for r, (lo, hi) in spans.items()}
+        if member.method == zipfile.ZIP_STORED and member.dtype.kind in "iu":
+            return {r: npz.search("start", lo, hi, values[r]) for r, (lo, hi) in spans.items()}
+        streamed, _ = npz.stream(["start"], device, list(spans.values()))
+        start = streamed["start"].to(torch.int64)
+        del streamed
+        found, at = [], 0
+        for r, (lo, hi) in spans.items():
+            want = torch.tensor(values[r], dtype=torch.int64, device=device)
+            found.append(lo + torch.searchsorted(start[at : at + hi - lo], want, side="left"))
+            at += hi - lo
+        del start
+        flat = torch.cat(found).tolist() if found else []
+    out, at = {}, 0
+    for r in spans:
+        out[r], at = flat[at : at + len(values[r])], at + len(values[r])
+    return out
 
 
 def place_store_and_layout(store: IntervalStore, device,

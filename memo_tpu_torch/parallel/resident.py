@@ -11,10 +11,12 @@ each device holds about 1/(dp*sp) of the index. With ``record=`` every dp
 rank holds slab s of the one record, as memo_tpu replicates it over dp.
 
 Where memo_tpu computes a slab's coverage with the diff-array program, each
-rank here uploads its slabs' rows, drops the long ones on the device and
-holds the rest as a :class:`~memo_tpu_torch.query.engine.QueryEngine` on
-the fused backend (placed once, its length buckets and query layout built
-on the device). It answers a slab as windows of at most
+rank here uploads its slabs' rows (from a loaded store's file, only those
+rows, with no host copy of a column; ``index/placement.py``), checks them,
+drops the long ones on the device and holds the rest as a
+:class:`~memo_tpu_torch.query.engine.QueryEngine` on the fused backend
+(placed once, its length buckets and query layout built on the device).
+It answers a slab as windows of at most
 ``chunk_positions`` of one record: one launch of the fused kernel per
 length bucket for the whole slab, whose [windows, L(, C)] output, read as
 consecutive positions, is the slab. The device's work is the placed rows
@@ -26,7 +28,8 @@ A query at a new (k, mode) is one dispatch on every rank: its own slabs
 from its own rows (no halo: the k-1 shadow reach is in the row ranges),
 then all-gathers over ``sp`` and ``dp`` into memo_tpu's layout
 ([n_batch, dp, sp*B(, C)], or [sp*B(, C)] for ``record=``), so every rank
-holds every record's output. Every window is a slice of it.
+holds every record's output. Every window is a slice of it; a call's
+windows come to the host together, in one copy.
 """
 
 from __future__ import annotations
@@ -36,32 +39,27 @@ import functools
 import numpy as np
 import torch
 
-from memo_tpu_torch.index.placement import Columns
+from memo_tpu_torch.index.placement import Columns, start_rows, upload_columns
 from memo_tpu_torch.index.store import IntervalStore
 from memo_tpu_torch.parallel.sharded import _round_up, as_mesh
+from memo_tpu_torch.query import engine as engine_mod
 from memo_tpu_torch.query.engine import QueryEngine
 
-
 class _RowsEngine(QueryEngine):
-    """The fused engine over the store rows ``parts`` ([lo, hi) ranges in
-    store order) less those of length >= k_max - 1, which never mark at
-    any k <= k_max; its outputs are left on the device."""
+    """The fused engine over the rows that ``rows()`` returns (on the
+    device, in store order); its outputs are left on the device."""
 
-    def __init__(self, store: IntervalStore, parts: list[tuple[int, int]], k_max: int, device):
-        self._parts, self._k_max = parts, k_max
+    def __init__(self, store: IntervalStore, rows, device):
+        self._rows = rows
         super().__init__(store, backend="fused", device_output=True, device=device)
 
     def _upload(self, store: IntervalStore) -> Columns:
-        """The rows, uploaded as slices of the store's columns and filtered
-        on the device; only the engine's set-up holds them."""
-        def upload(a: np.ndarray) -> torch.Tensor:
-            got = [torch.from_numpy(a[lo:hi]).to(self.device) for lo, hi in self._parts or [(0, 0)]]
-            return got[0] if len(got) == 1 else torch.cat(got)
-
-        cols = Columns(upload(store.rec_id), upload(store.start), upload(store.end),
-                       upload(store.order))
-        keep = (cols.end - cols.start) < self._k_max - 1
-        return Columns(*(c[keep] for c in cols))
+        """The rows, streamed, checked and filtered by
+        :meth:`ResidentShardedQuery._rows` when asked for, so that only the
+        engine's set-up holds them (the stratified set-up drops them once
+        split into buckets)."""
+        rows, self._rows = self._rows, None
+        return rows()
 
 
 class ResidentShardedQuery:
@@ -115,13 +113,6 @@ class ResidentShardedQuery:
         n_sp = self.n_sp
         self.B = _round_up(max(max(self._rec_lens.values()), 1), n_sp) // n_sp
 
-        # The exactness argument needs end >= start, which every MEM-overlap
-        # store satisfies.
-        for r in rec_idx:
-            seg = slice(int(store.rec_offsets[r]), int(store.rec_offsets[r + 1]))
-            if (store.end[seg] < store.start[seg]).any():
-                raise ValueError("store has end < start rows; cannot shard by coordinate")
-
         d, s = self.mesh.coord("dp"), self.mesh.coord("sp")
         self._s = s
         if self._multi:
@@ -133,8 +124,7 @@ class ResidentShardedQuery:
             self.n_batch = 1
             self._mine = [self.records[0]]
         mine = sorted(store.record_index(name) for name in self._mine if name is not None)
-        self.engine = _RowsEngine(store, [self._slab_rows(r, s) for r in mine], self.k_max,
-                                  self.device)
+        self.engine = _RowsEngine(store, functools.partial(self._rows, mine, s), self.device)
         self.local_rows = sum(c._layout.num_rows for c in self._placed())  # store rows held here
         # Whole-record outputs memoized per (k, mode); a bounded LRU, so a k
         # sweep cannot accumulate stale device memory.
@@ -142,13 +132,58 @@ class ResidentShardedQuery:
         self._full_cache_cap = 4
         self.dispatch_count = 0  # == number of distinct (k, mode) computed
 
-    def _slab_rows(self, r: int, slab: int) -> tuple[int, int]:
-        """Store rows [lo, hi) that slab ``slab`` of record ``r`` may read:
-        those whose coordinates reach it at any k <= k_max."""
-        store, name = self.store, self.store.record_names[r]
-        lo, hi = store.window_bounds(
-            name, slab * self.B, min((slab + 1) * self.B, int(store.record_lens[r])), self.k_max)
-        return lo, max(min(hi, int(store.rec_offsets[r + 1])), lo)
+    def _bounds(self, recs: list[int], slab: int) -> dict[int, tuple[int, int, int, int]]:
+        """For each record r of ``recs``: the store rows [lo, hi) that slab
+        ``slab`` of r may read, those whose coordinates reach it at any k <=
+        k_max (``IntervalStore.window_bounds(s*B, (s+1)*B, k_max)`` clipped
+        to the record), and the rows [c_lo, c_hi) whose end >= start this
+        rank checks: record r's rows cut at each slab's ``lo`` (the first
+        slab's from the record's first row, the last slab's to its last),
+        so that the slabs of all ranks check each row of r once. Found
+        without the host start column (:func:`start_rows`)."""
+        store, B, k_max = self.store, self.B, self.k_max
+        values = {}
+        for r in recs:
+            longest, length = int(store.max_interval_len[r]), int(store.record_lens[r])
+            values[r] = [slab * B - longest, min((slab + 1) * B, length) + k_max]
+            if slab + 1 < self.n_sp:  # the next slab's lo: where this rank's check ends
+                values[r].append((slab + 1) * B - longest)
+        found = start_rows(store, values, self.device)
+        out = {}
+        for r in recs:
+            rec_lo, rec_hi = int(store.rec_offsets[r]), int(store.rec_offsets[r + 1])
+            lo, hi, *nxt = found[r]
+            out[r] = (lo, max(min(hi, rec_hi), lo), rec_lo if slab == 0 else lo,
+                      nxt[0] if nxt else rec_hi)
+        return out
+
+    def _rows(self, recs: list[int], slab: int) -> Columns:
+        """Slab ``slab``'s rows of the records ``recs`` on the device, less
+        those of length >= k_max - 1, which never mark at any k <= k_max.
+        Each record's rows that this rank reads or checks (:meth:`_bounds`)
+        are uploaded once (``upload_columns``: from a loaded store's file,
+        those rows only); the end >= start verdict, which the exactness
+        argument needs and every MEM-overlap store meets, is taken over the
+        mesh, so that every rank raises before any dispatch where any row
+        fails it."""
+        bounds = self._bounds(recs, slab)
+        # The rows read for each record: its check rows and its slab rows.
+        spans = [(min(lo, c_lo), max(hi, c_hi)) for lo, hi, c_lo, c_hi in bounds.values()]
+        cols = upload_columns(self.store, self.device, spans)
+        bad = torch.zeros((), dtype=torch.bool, device=self.device)
+        keep, at = [], 0
+        for (lo, hi, c_lo, c_hi), (a, b) in zip(bounds.values(), spans):
+            bad |= (cols.end[at + c_lo - a : at + c_hi - a]
+                    < cols.start[at + c_lo - a : at + c_hi - a]).any()
+            keep.append((at + lo - a, at + hi - a))
+            at += b - a
+        bad = self.mesh.all_gather(bad.reshape(1).to(torch.int32), "sp")
+        if bool(self.mesh.all_gather(bad, "dp").any()):  # a row of any rank's
+            raise ValueError("store has end < start rows; cannot shard by coordinate")
+        if any((lo, hi) != span for (lo, hi, _, _), span in zip(bounds.values(), spans)):
+            cols = Columns(*(torch.cat([c[a:b] for a, b in keep]) for c in cols))
+        short = (cols.end - cols.start) < self.k_max - 1
+        return Columns(*(c[short] for c in cols))
 
     def _placed(self) -> list[QueryEngine]:
         """The engines that hold this rank's rows: one per length bucket, or
@@ -160,12 +195,13 @@ class ResidentShardedQuery:
         """memo_tpu's padded row width M: the most rows any rank keeps for
         one slab, rounded up to 8. Nominal here (the ranks place their rows
         in the engine's buckets, not in an [n_batch, M] array); computed on
-        first use, from every slab's rows on the host."""
+        first use, from every slab's rows on the host, so on a loaded store
+        it reads the start and end columns from the file. Neither the
+        set-up nor a query calls it; ``stats()`` does."""
+        recs = [self.store.record_index(name) for name in self.records]
         widest = 0
-        for name in self.records:
-            r = self.store.record_index(name)
-            for slab in range(self.n_sp):
-                lo, hi = self._slab_rows(r, slab)
+        for slab in range(self.n_sp):
+            for lo, hi, _, _ in self._bounds(recs, slab).values():
                 lengths = self.store.end[lo:hi] - self.store.start[lo:hi]
                 widest = max(widest, int(np.count_nonzero(lengths < self.k_max - 1)))
         return _round_up(max(1, widest), 8)
@@ -218,18 +254,27 @@ class ResidentShardedQuery:
         return out if self.device_output else out.cpu().numpy()
 
     def conservation_windows(self, windows, k: int, record: str | None = None):
-        """Windows of one record, all served by one whole-record dispatch per k."""
-        full = self.conservation_full(k, record)
-        outs = [full[qs:qe] for qs, qe in windows]
-        return outs if self.device_output else [o.cpu().numpy() for o in outs]
+        """Windows of one record, all served by one whole-record dispatch per
+        k; on the host, all of them come back in one copy and one wait."""
+        return self._windows(self.conservation_full(k, record), windows)
 
     def membership_windows(self, windows, k: int, record: str | None = None):
         """Membership twin of :meth:`conservation_windows`."""
-        full = self.membership_full(k, record)
-        outs = [full[qs:qe] for qs, qe in windows]
-        return outs if self.device_output else [o.cpu().numpy() for o in outs]
+        return self._windows(self.membership_full(k, record), windows)
 
     # ---------------------------------------------------------------- internals
+    def _windows(self, full: torch.Tensor, windows) -> list:
+        """The slices ``windows`` of ``full``: left on the device, or on the
+        host as views of one buffer, filled from the device by one copy
+        (pinned memory on CUDA) and one wait."""
+        outs = [full[qs:qe] for qs, qe in windows]
+        if self.device_output or not outs:
+            return outs
+        host, ready = engine_mod._copy_back(torch.cat(outs))
+        if ready is not None:
+            ready.synchronize()
+        return np.split(host.numpy(), np.cumsum([len(o) for o in outs[:-1]], dtype=np.int64))
+
     def _record_out(self, k: int, record: str | None, membership: bool) -> torch.Tensor:
         record = self._pick(record)
         out = self._full(k, membership)

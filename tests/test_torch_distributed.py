@@ -4,7 +4,10 @@ their size with ShardedQuery (position, interval) and ResidentShardedQuery
 (record=, records=), conservation and membership, at k = 1, 3, 31, on
 tests/dist_common.py's fixture store. Every rank's outputs must equal the
 numpy oracle and memo_tpu.parallel on the same (dp, sp) virtual CPU mesh,
-exactly. Also: each resident rank holds only its own slab's rows, the
+exactly. Also: each resident rank holds only its own slab's rows; at 1 x 2,
+from a stored file loaded anew, each rank reads only its own rows of the
+columns, equals the one-rank outputs and, where a row of the other rank's
+slab has end < start, raises memo_tpu's ValueError as that rank does; the
 dry run passes at world 4, and ``query --mesh 2,2`` under a 4-rank torchrun
 writes the bytes ``python -m memo_tpu query --mesh 2,2`` writes.
 
@@ -43,6 +46,52 @@ def _placed_rows(rq) -> int:
     """The rows a resident rank's engines placed, by their layouts' record
     offsets (counted on the device from the placed rows' records)."""
     return sum(int(c._layout.rec_offsets[-1]) for c in rq._placed())
+
+
+def _streamed_resident(data: pathlib.Path, windows) -> tuple[dict, dict]:
+    """Resident at 1 x 2 (record=) from ``stored.npz`` and ``deflated.npz``,
+    each loaded anew: the file reads of the stored set-up ([offset, bytes]
+    of each multi-element read, and of each single-element one), the
+    columns still only in the files, each output; and the set-up's error
+    on ``bad.npz`` (a row with end < start in the last slab)."""
+    from memo_tpu_torch.index.store import IntervalStore
+    from memo_tpu_torch.parallel import ResidentShardedQuery, make_mesh
+
+    mesh = make_mesh(1, 2, device_type="cpu")
+    reads = {"bulk": [], "single": []}
+    real_preadv, real_pread = os.preadv, os.pread
+
+    def preadv(fd, buffers, offset):
+        got = real_preadv(fd, buffers, offset)
+        reads["bulk"].append([offset, got])
+        return got
+
+    def pread(fd, n, offset):
+        reads["single"].append([offset, n])
+        return real_pread(fd, n, offset)
+
+    outs, rows = {}, {"reads": reads}
+    for kind in ("stored", "deflated"):
+        store = IntervalStore.load(data / f"{kind}.npz")
+        if kind == "stored":
+            os.preadv, os.pread = preadv, pread
+        try:
+            rq = ResidentShardedQuery(store, mesh, record="chr1", k_max=K_MAX)
+        finally:
+            os.preadv, os.pread = real_preadv, real_pread
+        for mode in MODES:
+            for k in KS:
+                wins = [(qs, qe) for _, qs, qe in windows]
+                for i, out in enumerate(getattr(rq, f"{mode}_windows")(wins, k)):
+                    outs[f"streamed/{kind}/{mode}/{k}/{i}"] = out
+        rows[f"{kind}_host_columns"] = [c for c in ("rec_id", "start", "end", "order")
+                                        if c not in store.file_columns()[1]]
+    try:
+        ResidentShardedQuery(IntervalStore.load(data / "bad.npz"), mesh, record="chr1",
+                             k_max=K_MAX)
+    except ValueError as err:
+        rows["bad"] = str(err)
+    return outs, rows
 
 
 def _worker(rank: int, world: int, data: pathlib.Path) -> None:
@@ -91,6 +140,9 @@ def _worker(rank: int, world: int, data: pathlib.Path) -> None:
         rows[lay] = {"record": [rq.local_rows, _placed_rows(rq), rq.rows_per_shard],
                      "records": [rq2.local_rows, _placed_rows(rq2), rq2.rows_per_shard],
                      "dispatches": [rq.dispatch_count, rq2.dispatch_count]}
+    if world == 2:
+        streamed, rows["streamed"] = _streamed_resident(data, windows)
+        outs.update(streamed)
     if world == 4:
         rows["dryrun"] = dryrun_multichip(make_mesh(2, 2, device_type="cpu"))
     np.savez(data / f"out_{world}_{rank}.npz", **outs)
@@ -109,6 +161,17 @@ def stores():
     ms = [rng.integers(0, 25, size=(n, 4)).astype(np.int32) for n in MULTI_LENS.values()]
     multi = store_from_ms(ms, list(MULTI_LENS), list(MULTI_LENS.values()), 5, "conservation")
     return store, multi, windows + EXTRA_WINDOWS
+
+
+def _fields(store) -> dict:
+    return {name: getattr(store, name) for name in ("record_names", "record_lens", "n_docs",
+                                                     "kind", "rec_id", "start", "end", "order")}
+
+
+def _port_store(store):
+    from memo_tpu_torch.index.store import IntervalStore
+
+    return IntervalStore(**_fields(store))
 
 
 def _env() -> dict:
@@ -133,10 +196,18 @@ def _wait(procs, what: str) -> list[str]:
 def worlds(stores, tmp_path_factory):
     """{world: [rank 0's (outputs, rows), ...]} from gloo worlds of 2 and 4
     ranks, run side by side."""
+    from memo_tpu_torch.index.store import IntervalStore
+
     store, multi, windows = stores
     data = tmp_path_factory.mktemp("dist")
     store.save(data / "store.npz")
     multi.save(data / "multi.npz")
+    port = _port_store(store)
+    port.save(data / "stored.npz", compressed=False)
+    port.save(data / "deflated.npz")
+    end = port.end.copy()
+    end[-3] = port.start[-3] - 1  # a row of the last slab only
+    IntervalStore(**(_fields(port) | {"end": end})).save(data / "bad.npz", compressed=False)
     (data / "windows.json").write_text(json.dumps(windows))
     procs = [subprocess.Popen([sys.executable, __file__, str(rank), str(world), str(data)],
                               env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -256,6 +327,66 @@ def test_each_resident_rank_holds_only_its_slab(worlds, stores, world, layout):
         assert local == sum(slab_rows(multi, name, s, Bm) for name in mine)
         assert placed == local and M == Mm
         assert rows[f"{dp}x{sp}"]["dispatches"] == [len(MODES) * len(KS)] * 2
+
+
+def test_resident_ranks_stream_only_their_rows(worlds, stores, tmp_path):
+    """At 1 x 2, from a stored file loaded anew: each rank's multi-element
+    reads are exactly its own rows of each column, once (its slab's rows,
+    which hold the rows it checks), and its single-element reads the few of
+    the slab bounds' search in the start column; no column is read on the
+    host. The outputs from the stored and the deflated file equal the
+    one-rank outputs. A row with end < start in the last slab makes every
+    rank raise memo_tpu's ValueError."""
+    from memo_tpu.parallel import ResidentShardedQuery as JaxResident
+    from memo_tpu.parallel import make_mesh
+    from memo_tpu_torch.index.npz import NpzMembers
+    from memo_tpu_torch.parallel import ResidentShardedQuery
+
+    import jax
+
+    store, _, windows = stores
+    path = tmp_path / "stored.npz"
+    _port_store(store).save(path, compressed=False)
+    members = NpzMembers(path).members
+    n, length, sp = store.num_intervals, int(store.record_lens[0]), 2
+    B = length // sp
+    longest = int(store.max_interval_len[0])
+    lo = np.searchsorted(store.start, [s * B - longest for s in range(sp)] + [n])
+    hi = np.searchsorted(store.start, [min((s + 1) * B, length) + K_MAX for s in range(sp)])
+    one = ResidentShardedQuery(_port_store(store), "cpu", record="chr1", k_max=K_MAX)
+    end = store.end.copy()
+    end[-3] = store.start[-3] - 1
+    with pytest.raises(ValueError) as theirs:
+        JaxResident(type(store)(**(_fields(store) | {"end": end})),
+                    make_mesh(dp=1, sp=2, devices=jax.devices()[:2]), k_max=K_MAX)
+    spans = []
+    for s, (outs, rows) in enumerate(worlds[2]):
+        got = rows["streamed"]
+        a, b = (0 if s == 0 else int(lo[s])), max(int(hi[s]), n if s == sp - 1 else int(lo[s + 1]))
+        assert 0 < b - a < n
+        spans.append((a, b))
+        for name in ("rec_id", "start", "end", "order"):
+            m = members[name]
+            size, base = m.dtype.itemsize, m.offset + m.header_len
+            mine = [(o, c) for o, c in got["reads"]["bulk"] if base <= o < base + m.nbytes]
+            assert all(base + a * size <= o and o + c <= base + b * size for o, c in mine), name
+            assert sum(c for _, c in mine) == (b - a) * size, name
+        single = got["reads"]["single"]
+        start = members["start"]
+        assert 0 < len(single) <= 3 * (n.bit_length() + 1)
+        assert all(c == 8 and start.offset <= o < start.offset + start.size for o, c in single)
+        assert got["stored_host_columns"] == got["deflated_host_columns"] == []
+        assert got["bad"] == str(theirs.value)
+        for kind in ("stored", "deflated"):
+            for mode in MODES:
+                for k in KS:
+                    wins = [(qs, qe) for _, qs, qe in windows]
+                    want = getattr(one, f"{mode}_windows")(wins, k)
+                    for i, w in enumerate(want):
+                        np.testing.assert_array_equal(
+                            outs[f"streamed/{kind}/{mode}/{k}/{i}"], w,
+                            err_msg=f"rank {s} {kind} {mode} k={k} window {i}")
+    assert spans[0] != spans[1]
 
 
 def test_group_is_gloo_for_cpu_and_serves_no_cuda_mesh(worlds):

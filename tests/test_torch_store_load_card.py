@@ -1,7 +1,10 @@
 """A saved store's columns streamed to the card (``index/npz.py`` through
 ``index/placement.upload_columns``: pinned staging buffers, non-blocking
 copies on each worker's stream) against the upload of the same store built
-in memory; ``test_torch_store_load.py`` holds the CPU path to memo_tpu.
+in memory, and ResidentShardedQuery set up from the file (its slab rows
+streamed, its bounds and check found without the host columns) against its
+set-up from the store in memory; ``test_torch_store_load.py`` and
+``test_torch_resident_load.py`` hold the CPU paths to memo_tpu.
 Imports no JAX, so it runs where the card is: ``MEMO_TPU_TEST_REAL_DEVICE=1
 python -m pytest -m cuda tests/test_torch_store_load_card.py``. Skips
 without a CUDA device. Tolerance: exact (integers)."""
@@ -14,7 +17,8 @@ import torch
 
 from memo_tpu_torch.index import npz as npz_mod
 from memo_tpu_torch.index.placement import upload_columns
-from memo_tpu_torch.index.store import IntervalStore
+from memo_tpu_torch.index.store import COLUMNS, IntervalStore
+from memo_tpu_torch.parallel import ResidentShardedQuery
 from window_cases import case_arrays
 
 
@@ -80,3 +84,50 @@ def test_a_corrupt_member_raises_on_the_card(cuda_device, tmp_path, monkeypatch)
     monkeypatch.setattr(npz_mod, "CHUNK_BYTES", 4096)
     with pytest.raises(zipfile.BadZipFile):
         upload_columns(IntervalStore.load(path), cuda_device)
+
+
+def _resident_store() -> IntervalStore:
+    """Two million rows over a record of 4 Mbp at n = 90, some too long to
+    mark at k <= 1024 (the resident placement drops them)."""
+    rng = np.random.default_rng(12)
+    n, length = 2_000_000, 4_000_000
+    start = np.sort(rng.integers(0, length, n))
+    return IntervalStore(record_names=["chr0"], record_lens=[length], n_docs=90,
+                         kind="conservation", rec_id=np.zeros(n, np.int32), start=start,
+                         end=start + rng.integers(0, 1500, n), order=rng.integers(1, 90, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compressed", [False, True], ids=["stored", "deflated"])
+def test_resident_from_the_file_equals_the_in_memory_placement(cuda_device, tmp_path,
+                                                                monkeypatch, compressed):
+    """Set up from the file in 1 MB chunks (pinned rings), with numpy's
+    member reader refusing the columns: the same placed rows as the set-up
+    from the store in memory, no column read on the host, and the same
+    whole-record conservation at k = 31, brought to the host in one copy."""
+    rings = _rings(monkeypatch)
+    store = _resident_store()
+    path = tmp_path / "idx.npz"
+    store.save(path, compressed=compressed)
+    monkeypatch.setattr(npz_mod, "CHUNK_BYTES", 1 << 20)
+    real = np.lib.format.read_array
+
+    def small_only(*args, **kwargs):
+        arr = real(*args, **kwargs)
+        assert arr.size <= 2, f"numpy's reader read an array of {arr.size} elements"
+        return arr
+
+    monkeypatch.setattr(np.lib.format, "read_array", small_only)
+    loaded = IntervalStore.load(path)
+    got = ResidentShardedQuery(loaded, cuda_device, k_max=1024)
+    want = ResidentShardedQuery(store, cuda_device, k_max=1024)
+    assert loaded.file_columns()[1] == list(COLUMNS)
+    assert got.local_rows == want.local_rows > 0
+    for mine, theirs in zip(got._placed(), want._placed(), strict=True):
+        for a, b in zip(mine._d, theirs._d):
+            assert a.device.type == "cuda" and torch.equal(a, b)
+    assert rings and all(b.is_pinned() for ring in rings for b in ring.bufs)
+    windows = [(0, 4_000_000), (1_234_567, 1_300_000), (3_999_999, 4_000_000)]
+    for g, w in zip(got.conservation_windows(windows, 31), want.conservation_windows(windows, 31)):
+        assert isinstance(g, np.ndarray) and np.array_equal(g, w)
+    assert loaded.file_columns()[1] == list(COLUMNS)
