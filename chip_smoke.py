@@ -39,7 +39,8 @@ the multi-device layer (phase 10): this script run again under ``torchrun
 --nproc-per-node <device count>`` in an NCCL process group, where the dry
 run, the CLI's ``--regions-file --mesh 1,<n>`` with three strategies and
 the n=90 store through every strategy run and are timed beside the
-in-process 1 x 1 layout; and last (phase 12) the chromosome-scale index of
+in-process 1 x 1 layout (each strategy's placement and dispatch apart, and
+position's and interval's diff-array ops by CUDA events); and last (phase 12) the chromosome-scale index of
 SCALE_r05.json (128 Mbp x 90 haplotypes, ~430M intervals, built here by
 streaming synth_ms's anchors): the window parameters of its shortest and
 longest rows == numpy (eight 2 Mbp windows, windows at and past the
@@ -49,8 +50,9 @@ bytes), a query of eight position chunks equal to the batch of them,
 resident over the whole record, set up from the saved .npz with no column
 read on the host (set-up stages, host RSS it adds, peak device bytes;
 conservation and membership, one launch per bucket), and the CLI's ``-r``
-and ``--regions-file`` (auto, resolved to resident, and batched; host RSS,
-and no column through numpy's reader). Every output is checked exactly
+and ``--regions-file`` (auto, resolved to resident, batched, position and
+interval; host RSS, peak device bytes, and no column through numpy's
+reader). Every output is checked exactly
 against the reference loop below (memo_query.py's per-interval slice
 writes), the port's single-window outputs, the other kernel, the kernels'
 plain version or the port's numpy engine. Each function's device time is
@@ -1527,14 +1529,39 @@ def phase_membership(device) -> None:
          exact=True)
 
 
+@contextlib.contextmanager
+def slab_events():
+    """CUDA events around every ``parallel.sharded._slab`` call inside the
+    block (the diff-array ops of one bucket's windows on this rank); yields
+    the list of (start, end) event pairs."""
+    from memo_tpu_torch.parallel import sharded
+
+    real, pairs = sharded._slab, []
+
+    def timed(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kwargs)
+        end.record()
+        pairs.append((start, end))
+        return out
+
+    sharded._slab = timed
+    try:
+        yield pairs
+    finally:
+        sharded._slab = real
+
+
 def mesh_walls(store, mesh, singles: list[np.ndarray]) -> dict[str, float]:
     """The 16 batch windows through ShardedQuery (position, interval) and
     ResidentShardedQuery on ``mesh``: each strategy once, checked exact
     against the single-window outputs, then the median wall of MESH_REPS
-    more, each from construction (the host gather, or the placement) to the
-    last window on the host; and resident's placement and its dispatch
-    (from a placed store to the last window on the host, and to the last
-    window left on the device) apart."""
+    more, each from construction (the placement) to the last window on the
+    host; and each one's placement and its dispatch (from a placed store
+    to the last window on the host) apart, with, for position and
+    interval, the diff-array ops' CUDA-event time within the dispatch, and
+    for resident the dispatch to the last window left on the device."""
     from memo_tpu_torch.parallel import ResidentShardedQuery, ShardedQuery
 
     wins = batch_windows(PIVOT_LEN)
@@ -1557,11 +1584,32 @@ def mesh_walls(store, mesh, singles: list[np.ndarray]) -> dict[str, float]:
             sync(mesh.device)
             times.append(time.perf_counter() - t0)
         walls[f"{name}_ms"] = statistics.median(times) * 1e3
+    # Position's and interval's parts: the placement; the dispatch, to the
+    # last window on the host; the ops' device time within it.
+    times = {f"{name}_{part}_ms": [] for name in ("position", "interval")
+             for part in ("place", "dispatch", "ops")}
+    for _ in range(MESH_REPS):
+        for name in ("position", "interval"):
+            sync(mesh.device)
+            t0 = time.perf_counter()
+            sq = ShardedQuery(store, mesh, name)
+            sync(mesh.device)
+            t1 = time.perf_counter()
+            with slab_events() as pairs:
+                outs = sq.conservation(regions, K)
+            sync(mesh.device)
+            t2 = time.perf_counter()
+            check(all(np.array_equal(o, one) for o, one in zip(outs, singles)),
+                  f"mesh {mesh.shape} {name} windows == single")
+            times[f"{name}_place_ms"].append(t1 - t0)
+            times[f"{name}_dispatch_ms"].append(t2 - t1)
+            times[f"{name}_ops_ms"].append(sum(a.elapsed_time(b) for a, b in pairs) / 1e3)
+            del sq
     # Resident's parts: the placement; the windows of its first (k, mode),
     # on the host; and the same with the windows left on the device, as
     # phase 7 times batched.
-    times = {"resident_place_ms": [], "resident_dispatch_ms": [],
-             "resident_device_dispatch_ms": []}
+    times |= {"resident_place_ms": [], "resident_dispatch_ms": [],
+              "resident_device_dispatch_ms": []}
     for _ in range(MESH_REPS):
         for device_output in (False, True):
             sync(mesh.device)
@@ -1913,7 +1961,10 @@ def phase_chromosome(device, tmp: str):
     whole record, set up from the saved .npz without reading a column on
     the host (conservation and membership, one kernel launch per bucket);
     the CLI's ``-r`` on one window (stages, bytes) and ``--regions-file``
-    with ``auto`` (resolved to resident) and ``batched``, byte-identical.
+    with ``auto`` (resolved to resident), ``batched``, ``position`` and
+    ``interval``, byte-identical, each with no column through numpy's
+    reader (walls, host RSS, peak device bytes; position's and interval's
+    stages).
     Returns the kernel records, each kernel's launches and its error over
     the whole record."""
     from memo_tpu_torch import cli
@@ -2032,16 +2083,21 @@ def phase_chromosome(device, tmp: str):
     handler = logging.Handler()
     handler.emit = lambda rec: records.append(rec.getMessage())
     cli.log.addHandler(handler)
-    regions_s, regions_host = {}, {}
+    regions_s, regions_host, regions_stages, regions_peak = {}, {}, {}, {}
+    strategies = ("auto", "batched", "position", "interval")
     try:
-        for strategy in ("auto", "batched"):
+        for strategy in strategies:
             fused_query_rows.launches = window_params.launches = 0
-            rc, regions_s[strategy], _, regions_host[strategy] = timed_cli(
+            torch.cuda.reset_peak_memory_stats()
+            rc, regions_s[strategy], regions_stages[strategy], regions_host[strategy] = timed_cli(
                 ["query", "-b", npz, "-k", str(K), "--regions-file", regions, "-o",
                  os.path.join(tmp, f"chrom_{strategy}"), "--strategy", strategy,
                  "--device", device.type], R + 1)
-            check(rc == 0 and fused_query_rows.launches > 0,
-                  f"chromosome --regions-file {strategy} ran the v1 kernel")
+            regions_peak[strategy] = torch.cuda.max_memory_allocated()
+            check(rc == 0, f"chromosome --regions-file {strategy} exit code {rc}")
+            if strategy in ("auto", "batched"):  # position and interval run the torch ops
+                check(fused_query_rows.launches > 0,
+                      f"chromosome --regions-file {strategy} ran the v1 kernel")
             check(regions_host[strategy]["numpy_large_reads"] == 0,
                   f"chromosome --regions-file {strategy}: no column through numpy's reader")
             launches["v1"] += fused_query_rows.launches
@@ -2051,11 +2107,11 @@ def phase_chromosome(device, tmp: str):
     check("--strategy auto resolved to 'resident'" in records, f"auto resolved to resident: {records}")
     for (qs, qe), out in zip(wins, outs):
         name = f"chr1_{qs}_{qe}.txt"
-        with open(os.path.join(tmp, f"chrom_auto.{name}"), "rb") as a, \
-                open(os.path.join(tmp, f"chrom_batched.{name}"), "rb") as b:
-            got = a.read()
-            check(got == b.read() and got == format_conservation(out),
-                  f"--regions-file auto == batched == the engine's bytes, {name}")
+        want = format_conservation(out)
+        for strategy in strategies:
+            with open(os.path.join(tmp, f"chrom_{strategy}.{name}"), "rb") as fh:
+                check(fh.read() == want,
+                      f"--regions-file {strategy} == batched == the engine's bytes, {name}")
     os.remove(npz)
     emit("phase12_chromosome", L=CHROM_LEN, n_docs=CHROM_DOCS, k=K, gap=CHROM_GAP,
          intervals=n_rows, scale_r05_intervals=CHROM_INTERVALS, bucket_rows=by_bucket.tolist(),
@@ -2064,7 +2120,10 @@ def phase_chromosome(device, tmp: str):
          engines=engines, resident=resident,
          cli_r_window=list(wins[q]), cli_query_s=cli_s, cli_stages_s=cli_stages,
          cli_host=cli_host, streamed_columns=streamed, cli_bytes_equal=True,
-         regions_cli_s=regions_s, regions_cli_host=regions_host, auto_resolved="resident",
+         regions_cli_s=regions_s, regions_cli_host=regions_host,
+         regions_cli_stages_s={k: v for k, v in regions_stages.items()
+                               if k in ("position", "interval")},
+         regions_cli_peak_device_bytes=regions_peak, auto_resolved="resident",
          regions_byte_identical=True, launches=launches, window_kernel=window_fn)
     whole = resident["whole_record_max_abs_err"].values()
     return ({v: engines[v]["functions"][q] for v in ("v1", "v2")} | {"window": window_fn}, launches,
@@ -2095,7 +2154,9 @@ def setup_cells(tmp: str) -> int:
     median of WALL_REPS with its spread), the 16 x 1 Mbp batch's wall and
     the kernels' device times there (:func:`headline_device_ms`), and
     resident's dispatch of that batch to the host and on the card, set up
-    from ``tmp``/headline.npz (:func:`resident_dispatch`); n90's
+    from ``tmp``/headline.npz (:func:`resident_dispatch`), and the batch
+    through every strategy in process from that file (:func:`mesh_walls`:
+    placement, dispatch and position's and interval's ops apart); n90's
     stratified engine, from ``tmp``/n90.npz, across K_SWEEP
     (:func:`k_sweep`); and at the chromosome scale, its
     store loaded from ``tmp``/chrom.npz (built from the seed and saved there
@@ -2107,14 +2168,15 @@ def setup_cells(tmp: str) -> int:
     host, and again from the store with its columns read into memory; the
     CLI ``-r`` of window 3 with its stages and host memory; the CLI
     ``--regions-file`` of the eight 2 Mbp windows with ``auto``
-    (resident), the same; the CLI ``-r`` of the n=90 store's whole window
+    (resident), the same, and with ``position`` and ``interval`` (their
+    peak device bytes too, and bytes == auto's); the CLI ``-r`` of the n=90 store's whole window
     from ``tmp``/n90.npz (stored members) and
     ``tmp``/n90_deflated.npz (the default ``save()``, the file ``memo
     index`` writes), byte-identical; and how numpy's load of the chromosome
     and of the deflated n=90 file splits on this host (:func:`load_split`).
     Prints one line, ``setup_cells {...}``."""
     from memo_tpu_torch.index.store import COLUMNS, IntervalStore
-    from memo_tpu_torch.parallel import ResidentShardedQuery
+    from memo_tpu_torch.parallel import Mesh, ResidentShardedQuery
     from memo_tpu_torch.query.engine import QueryEngine
 
     device = torch.device("cuda")
@@ -2133,6 +2195,8 @@ def setup_cells(tmp: str) -> int:
     store.save(headline_npz, compressed=False)
     dispatch = resident_dispatch(headline_npz, device, wins, singles)
     del store
+    torch.cuda.empty_cache()
+    sharded = mesh_walls(IntervalStore.load(headline_npz), Mesh(1, 1, device), singles)
     torch.cuda.empty_cache()
 
     npz = os.path.join(tmp, "chrom.npz")
@@ -2192,6 +2256,22 @@ def setup_cells(tmp: str) -> int:
         ["query", "-b", npz, "-k", str(K), "--regions-file", regions, "-o",
          os.path.join(tmp, "chrom_auto"), "--strategy", "auto", "--device", "cuda"], 2)
     check(rc == 0, "setup cells: CLI --regions-file auto exit code")
+    regions_sharded = {}
+    for strategy in ("position", "interval"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rc, wall, stages, host = timed_cli(
+            ["query", "-b", npz, "-k", str(K), "--regions-file", regions, "-o",
+             os.path.join(tmp, f"chrom_{strategy}"), "--strategy", strategy, "--device", "cuda"],
+            2)
+        check(rc == 0, f"setup cells: CLI --regions-file {strategy} exit code")
+        regions_sharded[strategy] = {"s": wall, "stages": stages, "host": host,
+                                     "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        for a, b in chromosome_windows():
+            name = f"chr1_{a}_{b}.txt"
+            with open(os.path.join(tmp, f"chrom_auto.{name}"), "rb") as want, \
+                    open(os.path.join(tmp, f"chrom_{strategy}.{name}"), "rb") as got:
+                check(got.read() == want.read(), f"setup cells: {strategy} {name} == auto's")
     n90_cli = {}
     for kind, path in n90.items():
         torch.cuda.empty_cache()
@@ -2209,7 +2289,8 @@ def setup_cells(tmp: str) -> int:
          n90_k_sweep=n90_sweep, chrom_load_s=load_s, engine=engine,
          headline_resident_dispatch=dispatch, resident=resident,
          resident_in_memory=resident_in_memory, regions_auto_s=regions_s,
-         regions_auto_stages=regions_stages, regions_auto_host=regions_host, cli_r_s=cli_s,
+         regions_auto_stages=regions_stages, regions_auto_host=regions_host,
+         headline_sharded=sharded, regions_sharded=regions_sharded, cli_r_s=cli_s,
          cli_r_stages=cli_stages, cli_r_host=cli_host,
          n90_cli_r=n90_cli, n90_bytes_equal=True, load_split=split)
     return 0

@@ -107,10 +107,11 @@ class Columns(NamedTuple):
     order: torch.Tensor  # int32
 
 
-def upload_columns(store: IntervalStore, device, rows=None) -> Columns:
+def upload_columns(store: IntervalStore, device, rows=None, names=tuple(COLUMNS)) -> Columns:
     """The store's columns on ``device``, copied once; with ``rows`` ([lo,
     hi) row ranges in store order, ascending and disjoint) only those rows
-    of each column, concatenated in that order. The columns of a loaded
+    of each column, concatenated in that order; with ``names`` only those
+    columns (the others None). The columns of a loaded
     store that no host code has read go from its file to the device
     (``NpzMembers.stream``: staging buffers, pinned on CUDA), read only at
     the rows asked for where the member is stored, with the stages
@@ -126,10 +127,13 @@ def upload_columns(store: IntervalStore, device, rows=None) -> Columns:
     with _stage("place.upload", device):
         # a memo_tpu store, or any other with the columns, goes from its host arrays
         npz, in_file = store.file_columns() if isinstance(store, IntervalStore) else (None, [])
-        direct = [n for n in in_file if npz.member(n).direct]
+        direct = [n for n in in_file if n in names and npz.member(n).direct]
         streamed, times = npz.stream(direct, device, rows) if direct else ({}, None)
         cols = []
         for name, dtype in COLUMNS.items():
+            if name not in names:
+                cols.append(None)
+                continue
             col = streamed.pop(name, None)
             if col is None:
                 col = _host_rows(getattr(store, name), rows, device)

@@ -165,7 +165,8 @@ class ResidentShardedQuery:
         those rows only); the end >= start verdict, which the exactness
         argument needs and every MEM-overlap store meets, is taken over the
         mesh, so that every rank raises before any dispatch where any row
-        fails it."""
+        fails it. The most rows that any rank keeps for one slab of one
+        record goes over the mesh with the verdict (``rows_per_shard``)."""
         bounds = self._bounds(recs, slab)
         # The rows read for each record: its check rows and its slab rows.
         spans = [(min(lo, c_lo), max(hi, c_hi)) for lo, hi, c_lo, c_hi in bounds.values()]
@@ -177,12 +178,19 @@ class ResidentShardedQuery:
                     < cols.start[at + c_lo - a : at + c_hi - a]).any()
             keep.append((at + lo - a, at + hi - a))
             at += b - a
-        bad = self.mesh.all_gather(bad.reshape(1).to(torch.int32), "sp")
-        if bool(self.mesh.all_gather(bad, "dp").any()):  # a row of any rank's
-            raise ValueError("store has end < start rows; cannot shard by coordinate")
         if any((lo, hi) != span for (lo, hi, _, _), span in zip(bounds.values(), spans)):
             cols = Columns(*(torch.cat([c[a:b] for a, b in keep]) for c in cols))
         short = (cols.end - cols.start) < self.k_max - 1
+        # Rows kept for each record's slab (its rows are consecutive in cols).
+        edges = np.cumsum([0] + [b - a for a, b in keep]).tolist()
+        widest = torch.zeros((), dtype=torch.int64, device=self.device)
+        for a, b in zip(edges[:-1], edges[1:]):
+            widest = torch.maximum(widest, short[a:b].sum())
+        mine = torch.stack([bad.to(torch.int64), widest])
+        both = self.mesh.all_gather(self.mesh.all_gather(mine, "sp"), "dp").reshape(-1, 2)
+        any_bad, self._widest = both.amax(0).tolist()
+        if any_bad:  # a row of any rank's
+            raise ValueError("store has end < start rows; cannot shard by coordinate")
         return Columns(*(c[short] for c in cols))
 
     def _placed(self) -> list[QueryEngine]:
@@ -193,18 +201,12 @@ class ResidentShardedQuery:
     @functools.cached_property
     def rows_per_shard(self) -> int:
         """memo_tpu's padded row width M: the most rows any rank keeps for
-        one slab, rounded up to 8. Nominal here (the ranks place their rows
-        in the engine's buckets, not in an [n_batch, M] array); computed on
-        first use, from every slab's rows on the host, so on a loaded store
-        it reads the start and end columns from the file. Neither the
-        set-up nor a query calls it; ``stats()`` does."""
-        recs = [self.store.record_index(name) for name in self.records]
-        widest = 0
-        for slab in range(self.n_sp):
-            for lo, hi, _, _ in self._bounds(recs, slab).values():
-                lengths = self.store.end[lo:hi] - self.store.start[lo:hi]
-                widest = max(widest, int(np.count_nonzero(lengths < self.k_max - 1)))
-        return _round_up(max(1, widest), 8)
+        one slab of one record, rounded up to 8. Nominal here (the ranks
+        place their rows in the engine's buckets, not in an [n_batch, M]
+        array); each rank counts its own on the device at set-up and
+        :meth:`_rows` takes the most over the mesh, so no host column is
+        read. ``stats()`` reports it."""
+        return _round_up(max(1, self._widest), 8)
 
     def stats(self) -> dict:
         """memo_tpu's keys (``resident_bytes_per_shard`` is its nominal

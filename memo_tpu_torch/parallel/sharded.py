@@ -1,11 +1,15 @@
-"""Batched window queries with host-gathered candidates over a (dp, sp) mesh.
+"""Batched window queries over a (dp, sp) mesh, candidates gathered on the device.
 
 Counterpart of :mod:`memo_tpu.parallel.sharded`. memo_tpu runs a batch of
-windows SPMD over a ``jax.sharding.Mesh`` from one controller; the port uses
+windows SPMD over a ``jax.sharding.Mesh`` from one controller, which finds
+and gathers every window's candidate rows on the host; the port uses
 torch's multi-controller idiom instead: one process per device, all in one
 ``torch.distributed`` process group (NCCL on GPUs, gloo on the CPU), each
-running this same code on the same host store and calling the same
-collectives in the same order. The mesh axes shard what memo_tpu's do:
+running this same code on the same store and calling the same collectives
+in the same order. Each rank places the store's start, end and order
+columns on its device once (a loaded store's streamed from its file, with
+no host copy), and finds and gathers each window's rows there. The mesh
+axes shard what memo_tpu's do:
 
 - ``dp``: the windows of each candidate bucket (padded to a multiple of dp
   with a repeat row); rank (d, s) takes windows [d*W/dp, (d+1)*W/dp).
@@ -36,7 +40,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from memo_tpu_torch.index.placement import I32, _check_int32, _stage, upload_columns
 from memo_tpu_torch.ops import query_ops as Q
+from memo_tpu_torch.query import engine as engine_mod
 from memo_tpu_torch.query.engine import _next_pow2
 from memo_tpu_torch.utils.device import resolve_device
 
@@ -199,11 +205,22 @@ def _slab(mesh, starts, ends, orders, qs, k, L, C, membership, strategy):
 class ShardedQuery:
     """Batched queries over an :class:`IntervalStore` on a (dp, sp) mesh.
 
-    Gathers per-window candidate rows host-side (store.window_bounds), pads
-    them to a shared pow2 bucket, and computes each bucket's windows on the
-    mesh. ``mesh`` is a :class:`Mesh`, None (:func:`make_mesh`'s default) or
-    a device for the 1 x 1 layout on it. Every rank returns every window's
-    output; results are bit-identical to the single-window engine.
+    ``mesh`` is a :class:`Mesh`, None (:func:`make_mesh`'s default) or a
+    device for the 1 x 1 layout on it. At construction each rank places the
+    store's start, end and order columns on its device, int32 in store
+    order, with one pad row after them (start 0, end 0, order -1; stage
+    ``sharded.place``): a loaded store's straight from its file
+    (``index/placement.upload_columns``), so no column is read on the host,
+    which keeps only the R-sized record offsets and longest intervals.
+
+    A call finds each window's candidate rows on the device
+    (``IntervalStore.window_bounds``'s searches), brings the row ranges back
+    in one copy to bucket the windows by pow2 candidate count, gathers each
+    bucket's rows on the device (past a window's last row, the pad row, as
+    memo_tpu pads) and computes its windows on the mesh. Every bucket's
+    output stays on the device until the end of the call, when all of them
+    come to the host in one copy and one wait. Every rank returns every
+    window's output; results are bit-identical to the single-window engine.
     """
 
     def __init__(self, store, mesh=None, strategy: str = "position"):
@@ -215,32 +232,64 @@ class ShardedQuery:
         self.strategy = strategy
         self.dp, self.sp = self.mesh.dp, self.mesh.sp
         self.n_docs = store.n_docs
+        self._start, self._end, self._order = self._place(store)
+
+    def _place(self, store) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The start, end and order columns on the device, int32[n + 1]
+        each, row n the pad row; raises where a coordinate does not fit
+        int32."""
+        device = self.device
+        with _stage("sharded.place", device):
+            cols = upload_columns(store, device, names=("start", "end", "order"))
+            n = cols.start.numel()
+            if n:
+                _check_int32(int(torch.minimum(cols.start.min(), cols.end.min())),
+                             int(torch.maximum(cols.start.max(), cols.end.max())))
+            placed = []
+            for col, pad in ((cols.start, 0), (cols.end, 0), (cols.order, -1)):
+                out = torch.full((n + 1,), pad, dtype=torch.int32, device=device)
+                out[:n] = col
+                placed.append(out)
+            del cols
+        return tuple(placed)
 
     def _window_rows(self, windows: list[tuple[str, int, int]], k: int):
-        """Candidate row range (lo, hi) per (record, qs, qe) window."""
-        st = self.store
-        rows = []
-        for record, qs, qe in windows:
-            lo, hi = st.window_bounds(record, qs, qe, k)
-            rec_end = int(st.rec_offsets[st.record_index(record) + 1])
-            rows.append((lo, min(hi, rec_end)))  # rows past the record are another record's space
-        return rows
+        """Candidate rows (lo, hi) per (record, qs, qe) window, on the host
+        (memo_tpu's list of pairs): ``window_bounds``'s two searches (``qs -
+        max_interval_len`` and ``qe + k``, side left) in the record's start
+        rows, on the device, all windows of a record in one call. A search
+        in the record's own rows never passes its end, so hi is clipped to
+        it. One copy up of the values, one copy back of the rows."""
+        st, W = self.store, len(windows)
+        recs = np.array([st.record_index(record) for record, _, _ in windows], np.int64)
+        qs = np.array([w[1] for w in windows], np.int64)
+        qe = np.array([w[2] for w in windows], np.int64)
+        perm = np.argsort(recs, kind="stable")  # each record's windows together
+        values = np.stack([qs - st.max_interval_len[recs], qe + k])[:, perm]  # [2, W]
+        v = torch.from_numpy(values).to(self.device)
+        # The start rows are int32: search int32 values (no copy of the rows
+        # to a wider type); a value past int32 is past every row.
+        past = v > I32.max
+        v32 = v.clamp(I32.min, I32.max).to(torch.int32)
+        found = torch.empty((2, W), dtype=torch.int64, device=self.device)
+        cuts = np.flatnonzero(np.diff(recs[perm])) + 1
+        for a, b in zip([0, *cuts.tolist()], [*cuts.tolist(), W]):
+            r = int(recs[perm[a]])
+            lo0, hi0 = int(st.rec_offsets[r]), int(st.rec_offsets[r + 1])
+            at = torch.searchsorted(self._start[lo0:hi0], v32[:, a:b].contiguous(), side="left")
+            found[:, a:b] = lo0 + torch.where(past[:, a:b], hi0 - lo0, at)
+        rows = np.empty((2, W), np.int64)
+        rows[:, perm] = found.cpu().numpy()
+        return list(zip(*rows.tolist()))
 
-    def _gather(self, rows: list[tuple[int, int]], M: int, col0: int = 0):
-        """Columns [col0, col0 + M) of the padded candidate rows of ``rows``,
-        as [W, M] tensors on the device."""
-        st = self.store
-        W = len(rows)
-        starts = np.zeros((W, M), np.int32)
-        ends = np.zeros((W, M), np.int32)
-        orders = np.full((W, M), -1, np.int32)  # order<0 rows are dropped
-        for i, (lo, hi) in enumerate(rows):
-            lo, hi = lo + col0, min(hi, lo + col0 + M)
-            m = max(hi - lo, 0)
-            starts[i, :m] = st.start[lo:hi]
-            ends[i, :m] = st.end[lo:hi]
-            orders[i, :m] = st.order[lo:hi]
-        return tuple(torch.from_numpy(a).to(self.device) for a in (starts, ends, orders))
+    def _gather(self, lo: np.ndarray, hi: np.ndarray, M: int, col0: int = 0):
+        """Columns [col0, col0 + M) of the candidate rows [lo, hi) of each
+        window, as [W, M] int32 tensors on the device; a position at or past
+        hi reads the pad row (start 0, end 0, order -1: dropped)."""
+        bounds = torch.from_numpy(np.stack([lo, hi])).to(self.device)
+        rows = bounds[0, :, None] + (col0 + torch.arange(M, dtype=torch.int64, device=self.device))
+        rows = torch.where(rows < bounds[1, :, None], rows, self._start.numel() - 1)
+        return self._start[rows], self._end[rows], self._order[rows]
 
     def _run(self, windows, k: int, membership: bool):
         if not windows:
@@ -249,33 +298,39 @@ class ShardedQuery:
         d, s = mesh.coord("dp"), mesh.coord("sp")
         lens = [qe - qs for _, qs, qe in windows]
         L = _round_up(max(max(lens), 1), self.sp)
-        rows = self._window_rows(windows, k)
+        lo, hi = np.array(self._window_rows(windows, k), np.int64).reshape(-1, 2).T
         # Bucket windows by next-pow2 candidate count, so that one dense
         # window does not inflate every window's padding to the batch max.
         buckets: dict[int, list[int]] = {}
-        for i, (lo, hi) in enumerate(rows):
-            M = _round_up(max(_next_pow2(hi - lo), self.sp), self.sp)
+        for i, m in enumerate((hi - lo).tolist()):
+            M = _round_up(max(_next_pow2(m), self.sp), self.sp)
             buckets.setdefault(M, []).append(i)
         fn = membership_batch if membership else conservation_batch
-        results: list[np.ndarray | None] = [None] * len(windows)
+        outs, order = [], []
         for M, idxs in sorted(buckets.items()):  # the same order on every rank
             W = _round_up(len(idxs), self.dp)
             sel = idxs + [idxs[0]] * (W - len(idxs))  # pad with a repeat row
             W_loc = W // self.dp
-            mine = sel[d * W_loc:(d + 1) * W_loc]
+            mine = np.asarray(sel[d * W_loc:(d + 1) * W_loc])
             if self.strategy == "interval":
                 M_loc = M // self.sp
-                cand = self._gather([rows[i] for i in mine], M_loc, s * M_loc)
+                cand = self._gather(lo[mine], hi[mine], M_loc, s * M_loc)
             else:
-                cand = self._gather([rows[i] for i in mine], M)
+                cand = self._gather(lo[mine], hi[mine], M)
             qs = [windows[i][1] for i in mine]
             out = fn(mesh, *cand, qs, k, L=L, n_docs=self.n_docs, strategy=self.strategy)
             out = mesh.all_gather(out, "sp").transpose(0, 1)  # [W_loc, sp, L/sp(, C)]
             out = out.reshape((W_loc, L) + out.shape[3:])
             out = mesh.all_gather(out, "dp").reshape((W, L) + out.shape[2:])
-            out = out.cpu().numpy()
-            for j, i in enumerate(idxs):
-                results[i] = out[j, : lens[i]]
+            outs.append(out[: len(idxs)])
+            order += idxs
+        host, ready = engine_mod._copy_back(torch.cat(outs))
+        if ready is not None:
+            ready.synchronize()
+        host = host.numpy()
+        results: list[np.ndarray | None] = [None] * len(windows)
+        for j, i in enumerate(order):
+            results[i] = host[j, : lens[i]]
         return results
 
     def conservation(self, windows: list[tuple[str, int, int]], k: int) -> list[np.ndarray]:

@@ -4,7 +4,11 @@ their size with ShardedQuery (position, interval) and ResidentShardedQuery
 (record=, records=), conservation and membership, at k = 1, 3, 31, on
 tests/dist_common.py's fixture store. Every rank's outputs must equal the
 numpy oracle and memo_tpu.parallel on the same (dp, sp) virtual CPU mesh,
-exactly. Also: each resident rank holds only its own slab's rows; at 1 x 2,
+exactly. At 1 x 2 and 2 x 1 each rank also builds ShardedQuery (both
+strategies) from a stored and a deflated file loaded anew, with windows
+whose longest length is odd: it reads no column on the host and its
+outputs equal memo_tpu.parallel's on the same mesh at every k. Also: each
+resident rank holds only its own slab's rows; at 1 x 2,
 from a stored file loaded anew, each rank reads only its own rows of the
 columns, equals the one-rank outputs and, where a row of the other rank's
 slab has end < start, raises memo_tpu's ValueError as that rank does; the
@@ -34,6 +38,8 @@ STRATEGIES = ("position", "interval", "resident_record", "resident_records")
 MODES = ("conservation", "membership")
 EXTRA_WINDOWS = [("chr1", 3, 517), ("chr1", 1023, 1024), ("chr1", 700, 701)]
 MULTI_LENS = {"rA": 300, "rB": 173, "rC": 256}  # 3 records: dp=2 and dp=4 leave a slot empty
+ODD_WINDOWS = [("chr1", 2, 519)]  # the longest window: L rounds up to sp
+FILES = ("stored", "deflated")
 WORKER_TIMEOUT_S = 180
 
 
@@ -94,6 +100,29 @@ def _streamed_resident(data: pathlib.Path, windows) -> tuple[dict, dict]:
     return outs, rows
 
 
+def _streamed_sharded(data: pathlib.Path, windows) -> tuple[dict, dict]:
+    """ShardedQuery, both strategies, on each layout of world 2, from
+    ``stored.npz`` and ``deflated.npz``, each loaded anew: every output, and
+    the columns each store read on the host."""
+    from memo_tpu_torch.index.store import COLUMNS, IntervalStore
+    from memo_tpu_torch.parallel import ShardedQuery, make_mesh
+
+    outs, read = {}, {}
+    for dp, sp in LAYOUTS[2]:
+        mesh = make_mesh(dp, sp, device_type="cpu")
+        for kind in FILES:
+            for strategy in ("position", "interval"):
+                store = IntervalStore.load(data / f"{kind}.npz")
+                sq = ShardedQuery(store, mesh, strategy=strategy)
+                key = f"{dp}x{sp}/{kind}/{strategy}"
+                for mode in MODES:
+                    for k in KS:
+                        for i, out in enumerate(getattr(sq, mode)(windows, k)):
+                            outs[f"{key}/{mode}/{k}/{i}"] = out
+                read[key] = [c for c in COLUMNS if c not in store.file_columns()[1]]
+    return outs, read
+
+
 def _worker(rank: int, world: int, data: pathlib.Path) -> None:
     """One rank: every layout of its world, every strategy, mode and k; saves
     its outputs and resident row counts under ``data``."""
@@ -143,6 +172,8 @@ def _worker(rank: int, world: int, data: pathlib.Path) -> None:
     if world == 2:
         streamed, rows["streamed"] = _streamed_resident(data, windows)
         outs.update(streamed)
+        streamed, rows["sharded_host_columns"] = _streamed_sharded(data, windows + ODD_WINDOWS)
+        outs.update({f"sharded/{key}": out for key, out in streamed.items()})
     if world == 4:
         rows["dryrun"] = dryrun_multichip(make_mesh(2, 2, device_type="cpu"))
     np.savez(data / f"out_{world}_{rank}.npz", **outs)
@@ -387,6 +418,44 @@ def test_resident_ranks_stream_only_their_rows(worlds, stores, tmp_path):
                             outs[f"streamed/{kind}/{mode}/{k}/{i}"], w,
                             err_msg=f"rank {s} {kind} {mode} k={k} window {i}")
     assert spans[0] != spans[1]
+
+
+_SHARDED_MESH: dict = {}
+
+
+@pytest.mark.parametrize("kind", FILES)
+@pytest.mark.parametrize("strategy", ["position", "interval"])
+@pytest.mark.parametrize("layout", LAYOUTS[2], ids=[f"{d}x{s}" for d, s in LAYOUTS[2]])
+def test_sharded_ranks_stream_the_index_and_match_memo_tpu_mesh(worlds, stores, layout,
+                                                                 strategy, kind):
+    """At 1 x 2 and 2 x 1, ShardedQuery from a stored or deflated file
+    loaded anew on each rank: no column read on the host, and every rank's
+    outputs, both modes at every k, == memo_tpu.parallel's ShardedQuery on
+    the same (dp, sp) virtual mesh, with the longest window's odd length
+    rounded up to sp."""
+    import jax
+    from memo_tpu.parallel import ShardedQuery as JaxSharded
+    from memo_tpu.parallel import make_mesh
+
+    dp, sp = layout
+    store, _, windows = stores
+    windows = windows + ODD_WINDOWS
+    assert max(qe - qs for _, qs, qe in windows) % 2  # rounded up at sp = 2
+    key = f"{dp}x{sp}/{kind}/{strategy}"
+    for mode in MODES:
+        for k in KS:
+            if (dp, sp, strategy, mode, k) not in _SHARDED_MESH:
+                jax_mesh = make_mesh(dp=dp, sp=sp, devices=jax.devices()[: dp * sp])
+                ref = getattr(JaxSharded(store, jax_mesh, strategy=strategy), mode)(windows, k)
+                _SHARDED_MESH[dp, sp, strategy, mode, k] = [np.asarray(o) for o in ref]
+            want = _SHARDED_MESH[dp, sp, strategy, mode, k]
+            for rank, (outs, rows) in enumerate(worlds[2]):
+                assert rows["sharded_host_columns"][key] == [], f"rank {rank} {key}"
+                for i, w in enumerate(want):
+                    got = outs[f"sharded/{key}/{mode}/{k}/{i}"]
+                    where = f"rank {rank} {key} {mode} k={k} window {i}"
+                    assert got.dtype == w.dtype, where
+                    np.testing.assert_array_equal(got, w, err_msg=where)
 
 
 def test_group_is_gloo_for_cpu_and_serves_no_cuda_mesh(worlds):
