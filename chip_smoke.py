@@ -20,12 +20,14 @@ and 12: deflated, stored, the chromosome's 10.3 GB), the engine's set-up
 split into stages (upload, the gate, the bucket split, the card's sorts and
 gathers, sentinel padding) and
 the query layout it built and keeps on the card held to the numpy build
-array for array; the window over a candidate cap it exceeds, halved on
-the card, == the reference loop; the device operations of one query of each kernel counted
-exactly by capturing its window-parameter step (a copy up and one kernel)
-and its kernel function (three kernels for v1, one for v2) into CUDA
-graphs, the read of the candidate counts between them (one copy down)
-listed by torch.profiler; the batched-windows path (16 staggered 1 Mbp
+array for array; the window over a candidate cap it exceeds, launched
+whole, == the reference loop, with no copy down and no wait (so too n90's
+2 Mbp window at k=51, over the 2^25 cap in bucket 32, and a chromosome
+window at k=51, each also == the kernels' plain version); the device
+operations of one query of each kernel counted exactly by capturing its
+window-parameter step (a copy up and one kernel) and its kernel function
+(three kernels for v1, one for v2) into CUDA graphs, and the whole query
+listed by torch.profiler (no copy down); the batched-windows path (16 staggered 1 Mbp
 windows, one launch, v1 and v2, counted the same way) through the engine
 and through the CLI's ``--regions-file`` with every strategy, and through
 resident set up from the saved index, its windows brought to the host in
@@ -46,9 +48,11 @@ streaming synth_ms's anchors): the window parameters of its shortest and
 longest rows == numpy (eight 2 Mbp windows, windows at and past the
 record's end and past 100M, k in 1/21/31/101), eight 2 Mbp windows with
 each kernel (set-up stages, host RSS, set-up peak and steady device
-bytes), a query of eight position chunks equal to the batch of them,
+bytes, beside the sentinel pad bytes reckoned from the bucket rows), a
+query of eight position chunks equal to the batch of them,
 resident over the whole record, set up from the saved .npz with no column
-read on the host (set-up stages, host RSS it adds, peak device bytes;
+read on the host (set-up stages, host RSS it adds, peak, steady and pad
+device bytes;
 conservation and membership, one launch per bucket), and the CLI's ``-r``
 and ``--regions-file`` (auto, resolved to resident, batched, position and
 interval; host RSS, peak device bytes, and no column through numpy's
@@ -109,10 +113,8 @@ EDGE_REC_LEN = 200_000  # records of the random stores that phase 2 checks v1 on
 # window-parameter step (query/window.py): csrc/window_params.cu's kernel,
 # after one copy of the window starts up where there are more than its
 # parameters take by value (window_graph); then the kernel function: v1's
-# three kernels (csrc/fused_query.cu) or v2's one. A query under a cap it
-# cannot prove also copies its candidate counts down, behind the step, which
-# a graph cannot hold (the profiler lists it); under a provable cap it
-# copies nothing down.
+# three kernels (csrc/fused_query.cu) or v2's one. A query copies nothing
+# down, at any cap (the profiler lists every operation).
 V1_KERNELS = ("rows_net_kernel", "tile_scan_kernel", "rows_apply_kernel")
 V2_KERNELS = ("fused_query_v2_kernel",)
 V1_GRAPH, V2_GRAPH = {"kernel": 3}, {"kernel": 1}  # the kernel functions
@@ -982,12 +984,11 @@ def copies_of(ops) -> list[int]:
 
 
 def query_graphs(engine, record: str, windows, k: int) -> dict:
-    """The device operations of one query of ``windows`` (one launch) under
-    the engine's provable cap: the window-parameter step and the kernel
-    function each captured into a CUDA graph and counted by node type
-    (exactly), and the whole query listed by torch.profiler: the step, the
-    function and nothing else, no copy down."""
-    check(engine._cap_holds(record), f"{record}'s rows are within the engine's cap")
+    """The device operations of one query of ``windows`` (one launch): the
+    window-parameter step and the kernel function each captured into a CUDA
+    graph and counted by node type (exactly), and the whole query listed by
+    torch.profiler: the step, the function and nothing else, no copy
+    down."""
     kernels = V1_KERNELS if engine.kernel_version == "v1" else V2_KERNELS
     want_fn = V1_GRAPH if engine.kernel_version == "v1" else V2_GRAPH
     L = max(qe - qs for qs, qe in windows)
@@ -1008,38 +1009,58 @@ def query_graphs(engine, record: str, windows, k: int) -> dict:
     ops = device_ops(query, STEP_OPS + kernels, n_ops)
     copies = copies_of(ops)
     check(copies == [step.get("memcpy", 0), 0],
-          f"{step.get('memcpy', 0)} copy up and none down a query under a provable cap: "
-          f"{copies} in {ops}")
+          f"{step.get('memcpy', 0)} copy up and none down a query: {copies} in {ops}")
     return {"step_graph": step, "function_graph": function, "device_ops": n_ops,
             "device_op_list": ops}
 
 
 def capped_query_ops(capped, record: str, window: tuple[int, int], k: int) -> dict:
     """One query of ``window`` through ``capped``, an engine whose cap the
-    record's rows pass but the window's candidates do not: the profiler's
-    device operations are the step, one copy of the counts down and the
-    kernel function, exactly."""
+    record's rows pass (and, at the headline, the window's candidates): the
+    profiler's device operations are the step and the kernel function,
+    exactly, with no copy down: nothing is read whatever the cap."""
     kernels = V1_KERNELS if capped.kernel_version == "v1" else V2_KERNELS
-    check(not capped._cap_holds(record), f"{record}'s rows pass the capped engine's cap")
+    rows = int(np.diff(capped._layout.rec_offsets)[capped.store.record_index(record)])
+    check(rows > capped.max_intervals, f"{record}'s rows pass the capped engine's cap")
     wp = capped._window_params(record, [window[0]], window[1] - window[0], k)
     count = int(wp.counts.max())
-    check(count <= capped.max_intervals, f"window {window}'s {count} candidates within the cap")
-    n_ops = sum(window_graph(1).values()) + 1 + len(kernels)
+    n_ops = sum(window_graph(1).values()) + len(kernels)
     ops = device_ops(lambda: capped.conservation(record, *window, k), STEP_OPS + kernels, n_ops)
     copies = copies_of(ops)
-    check(copies == [0, 1] and len(ops) == n_ops,
-          f"no copy up and one down a query over a provable cap: {copies} in {ops}")
+    check(copies == [0, 0] and len(ops) == n_ops,
+          f"no copy up or down a query over a cap its record's rows pass: {copies} in {ops}")
     return {"window": list(window), "candidates": count, "cap": capped.max_intervals,
-            "device_ops": n_ops, "device_op_list": ops}
+            "record_rows": rows, "device_ops": n_ops, "count_copies_down": copies[1],
+            "device_op_list": ops}
 
 
-def no_wait_query(engine, record: str, qs: int, qe: int, k: int) -> dict:
-    """One query of [qs, qe) through ``engine`` (output left on the card,
-    under a provable cap) with ``torch.cuda.set_sync_debug_mode("error")``,
-    so that any operation that waits on the card raises, and with
+def plain_window(engine, record: str, qs: int, qe: int, k: int) -> torch.Tensor:
+    """The conservation of [qs, qe) from the kernels' plain version
+    (``fused_query_rows_reference``) in each of ``engine``'s engines that
+    can mark at k, min-combined, on the card."""
+    from memo_tpu_torch.ops.fused_query import fused_query_rows_reference
+
+    engines = ([c for lb, c in engine._children if lb < k - 1] if engine._children is not None
+               else [engine])
+    out, C = None, engine.n_docs
+    for child in engines:
+        wp = child._window_params(record, [qs], qe - qs, k)
+        one = fused_query_rows_reference(child._d, wp.params, wp.prefix, k=k, L=qe - qs, C=C,
+                                         n_docs=C, membership=False)[0]
+        out = one if out is None else torch.minimum(out, one)
+    return out
+
+
+def no_wait_query(engine, record: str, qs: int, qe: int, k: int, plain: bool = False) -> dict:
+    """One query of [qs, qe) at k through ``engine`` (output left on the
+    card) with ``torch.cuda.set_sync_debug_mode("error")``, so that any
+    operation that waits on the card raises, and with
     ``torch.cuda.Event.synchronize`` and ``torch.cuda.synchronize`` counting
-    their calls: it must make none, and its output equals the same query's
-    run normally; ``last_stats`` is read after it."""
+    their calls: it must make none, at any cap; its output equals the same
+    query's run normally (and, with ``plain``, the plain version's,
+    :func:`plain_window`). The same query under torch.profiler copies
+    nothing down. Reports the live buckets' candidates and whether any
+    passes its cap; ``last_stats`` is read after it."""
     calls = []
     real_event, real_sync = torch.cuda.Event.synchronize, torch.cuda.synchronize
 
@@ -1060,9 +1081,28 @@ def no_wait_query(engine, record: str, qs: int, qe: int, k: int) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode("default")
         torch.cuda.Event.synchronize, torch.cuda.synchronize = real_event, real_sync
-    check(not calls, f"a query under a provable cap waited: {calls}")
+    check(not calls, f"a query waited: {calls}")
     check(torch.equal(got, want), "the no-wait query's output == the query's")
-    return {"waits": len(calls), "equal": True, "last_stats": engine.last_stats.as_dict()}
+    live = ([(lb, c) for lb, c in engine._children if lb < k - 1] if engine._children is not None
+            else [(0, engine)])
+    kernels = V1_KERNELS if engine.kernel_version == "v1" else V2_KERNELS
+    # Each live bucket's step and kernels, and the buckets' minimum.
+    ops = device_ops(lambda: engine.conservation(record, qs, qe, k),
+                     STEP_OPS + kernels + ("elementwise_kernel",),
+                     len(live) * (1 + len(kernels)) + len(live) - 1)
+    copies = copies_of(ops)
+    check(copies[1] == 0, f"a query copied nothing down: {copies} in {ops}")
+    candidates = {lb: int(c._window_params(record, [qs], qe - qs, k).counts.max())
+                  for lb, c in live}
+    out = {"window": [qs, qe], "k": k, "waits": len(calls), "count_copies_down": copies[1],
+           "equal": True, "candidates_by_bucket": candidates,
+           "over_cap": any(candidates[lb] > c.max_intervals for lb, c in live),
+           "last_stats": engine.last_stats.as_dict()}
+    if plain:
+        check(torch.equal(got, plain_window(engine, record, qs, qe, k)),
+              f"the query of {qs}-{qe} at k={k} == the plain version")
+        out["plain_equal"] = True
+    return out
 
 
 def phase_headline(device, tmp: str):
@@ -1123,15 +1163,19 @@ def phase_headline(device, tmp: str):
     for k in (21, 51, 101):
         check(np.array_equal(fused.conservation("chr1", 0, L, k), oracle.conservation("chr1", 0, L, k)),
               f"fused == numpy engine at k={k}")
-    # Over the cap: the window's kernel is launched before its counts are
-    # read, then the window runs again in halves, down to chunks under it.
+    # Over the cap: the window is launched once, whole; its stats replay
+    # memo_tpu's halving when read.
     capped = QueryEngine(store, backend="fused", device=device, chunk_positions=L,
                          max_intervals_per_chunk=OVER_CAP, device_output=True)
     check(np.array_equal(capped.conservation("chr1", 0, L, K).cpu().numpy(), ref)
           and capped.last_stats.candidate_intervals > OVER_CAP,
-          f"a window over a cap of {OVER_CAP} candidates, halved on the card == reference loop")
+          f"a window over a cap of {OVER_CAP} candidates, launched whole == reference loop")
     over_cap = capped.last_stats.as_dict()
-    capped_ops = capped_query_ops(capped, "chr1", (0, CAPPED_WINDOW), K)
+    capped_ops = {"under": capped_query_ops(capped, "chr1", (0, CAPPED_WINDOW), K),
+                  "over": capped_query_ops(capped, "chr1", (0, L), K)}
+    check(capped_ops["over"]["candidates"] > OVER_CAP, "the whole window passes the cap")
+    capped_no_wait = no_wait_query(capped, "chr1", 0, L, K)
+    check(capped_no_wait["over_cap"], "the capped no-wait window is over the cap")
     del capped
 
     # The device operations of one headline query (result left on the device),
@@ -1164,6 +1208,7 @@ def phase_headline(device, tmp: str):
          reference_loop_s=ref_s, mbp_s=mbp_s, query_wall_ms=query_wall,
          k_sweep_exact=[21, 51, 101], over_cap_exact=over_cap, query_ops=ops,
          query_ops_v2=ops_v2, capped_query_ops=capped_ops, no_wait_query=no_wait,
+         capped_no_wait_query=capped_no_wait,
          layers_ms={"window_params": window_fn["ms"],
                     "window_params_with_count_read": window_fn["wall_with_count_read_ms"]["median"],
                     "v1_function": kern["ms"], "format_output": format_ms},
@@ -1267,6 +1312,9 @@ def phase_hprc(device, tmp: str):
               f"HPRC spot window {sub}")
     buckets = [(lb, child._layout.num_rows) for lb, child in eng._children]
     sweep = k_sweep(eng, "chr1", L, device, store=store)
+    # k=51: bucket 32's 2 Mbp window passes the 2^25 cap and runs whole.
+    no_wait = no_wait_query(eng, "chr1", 0, L, 51, plain=True)
+    check(no_wait["over_cap"], "n90's window at k=51 is over the cap")
     del eng, bucket0
     torch.cuda.empty_cache()
     cli_out = os.path.join(tmp, "hprc_cons.txt")
@@ -1285,7 +1333,7 @@ def phase_hprc(device, tmp: str):
          steady_device_bytes=steady, bucket0_window_params_vs_numpy=params, mbp_s=L / dt / 1e6, last_stats=stats, buckets=buckets, peak_device_bytes=peak,
          spot_windows_exact=2, bucket0_card_layout=layout, cli_query_s=cli_s,
          cli_stages_s=cli_stages, cli_host=cli_host, streamed_columns=streamed,
-         exact_cli_bytes=True, k_sweep=sweep)
+         exact_cli_bytes=True, k_sweep=sweep, no_wait_query_k51=no_wait)
     return store
 
 
@@ -1778,6 +1826,17 @@ def mesh_child(tmp: str) -> int:
     return 0
 
 
+def pad_bytes(engines) -> dict:
+    """The sentinel rows of the engines' six placed int32 tensors, in bytes:
+    as placed, and as a pad of min(2^25, next_pow2(rows)) rows a bucket (the
+    rule that sized them when every reader could slice a whole candidate
+    cap past a range) would place them, reckoned from the bucket rows."""
+    rows = [e._layout.num_rows for e in engines]
+    placed = sum((t.numel() - n) * t.element_size() for e, n in zip(engines, rows) for t in e._d)
+    pow2 = sum(24 * min(1 << 25, 1 if n <= 1 else 1 << (n - 1).bit_length()) for n in rows)
+    return {"bucket_rows": rows, "placed_pad_bytes": placed, "pow2_capped_pad_bytes": pow2}
+
+
 def chromosome_windows() -> list[tuple[int, int]]:
     """SCALE_r05's eight 2 Mbp windows: starts at linspace(0, L - 2^21, 8)."""
     starts = np.linspace(0, CHROM_LEN - CHROM_WINDOW, CHROM_WINDOWS).astype(np.int64)
@@ -1900,6 +1959,7 @@ def resident_whole_record(store, npz: str, device, spots) -> tuple[dict, np.ndar
     host["numpy_large_reads"] = len(big)
     setup_peak = torch.cuda.max_memory_allocated()
     steady = torch.cuda.memory_allocated()
+    pads = pad_bytes(rq._placed())
     check(not big and loaded.file_columns()[1] == list(COLUMNS),
           f"resident set-up from {os.path.basename(npz)} read no column on the host")
     t0 = time.perf_counter()
@@ -1944,7 +2004,8 @@ def resident_whole_record(store, npz: str, device, spots) -> tuple[dict, np.ndar
     torch.cuda.empty_cache()
     return {"from": os.path.basename(npz), "place_s": place_s, "setup_stages": stages,
             "setup_host": host, "setup_peak_device_bytes": setup_peak,
-            "steady_device_bytes": steady, "rss_after_setup_bytes": host["rss_after_setup_bytes"],
+            "steady_device_bytes": steady, "pad": pads,
+            "rss_after_setup_bytes": host["rss_after_setup_bytes"],
             "columns_read_on_host": 0, "conservation_dispatch_s": cons_s,
             "membership_dispatch_s": memb_s,
             "peak_device_bytes": peak, "launches": launches, "stats": stats,
@@ -2033,6 +2094,9 @@ def phase_chromosome(device, tmp: str):
                                        reps=CHROM_REPS))
             rows.append(eng.last_stats.candidate_intervals)
         chunked = chunked_query(eng, device)
+        if version == "v1":  # k=51: buckets 0 and 32 live, whole, with no read or wait
+            no_wait = no_wait_query(eng, "chr1", *wins[3], 51, plain=True)
+            check(len(no_wait["candidates_by_bucket"]) == 2, "two buckets live at k=51")
         launches[version] += (fused_query_rows.launches if version == "v1"
                               else fused_query_v2_rows.launches)
         launches["window"] += window_params.launches
@@ -2042,7 +2106,9 @@ def phase_chromosome(device, tmp: str):
             window_fn = time_window_params(child, "chr1", [wins[3]], K)
         engines[version] = {"engine_init_s": init_s, "engine_init_stages": stages,
                             "setup_peak_device_bytes": setup_peak,
-                            "steady_device_bytes": steady, "rss_after_setup_bytes": rss,
+                            "steady_device_bytes": steady, "pad": pad_bytes(
+                                [c for _, c in eng._children]),
+                            "rss_after_setup_bytes": rss,
                             "buckets": [(lb, c._layout.num_rows) for lb, c in eng._children],
                             "window_wall_ms": [w * 1e3 for w in walls],
                             "window_mbp_s": [CHROM_WINDOW / w / 1e6 for w in walls],
@@ -2124,7 +2190,8 @@ def phase_chromosome(device, tmp: str):
          regions_cli_stages_s={k: v for k, v in regions_stages.items()
                                if k in ("position", "interval")},
          regions_cli_peak_device_bytes=regions_peak, auto_resolved="resident",
-         regions_byte_identical=True, launches=launches, window_kernel=window_fn)
+         regions_byte_identical=True, launches=launches, window_kernel=window_fn,
+         no_wait_query_k51=no_wait)
     whole = resident["whole_record_max_abs_err"].values()
     return ({v: engines[v]["functions"][q] for v in ("v1", "v2")} | {"window": window_fn}, launches,
             {v: max(errors[v] for errors in whole) for v in ("v1", "v2")})
@@ -2235,8 +2302,10 @@ def setup_cells(tmp: str) -> int:
 
     engine = measured(lambda: QueryEngine(store, backend="fused", device=device,
                                           chunk_positions=CHROM_WINDOW, device_output=True),
-                      lambda eng: {"chunked_query": chunked_query(eng, device, False)})
-    resident = measured(lambda: ResidentShardedQuery(store, device, k_max=1024))
+                      lambda eng: {"chunked_query": chunked_query(eng, device, False),
+                                   "pad": pad_bytes([c for _, c in eng._children])})
+    resident = measured(lambda: ResidentShardedQuery(store, device, k_max=1024),
+                        lambda rq: {"pad": pad_bytes(rq._placed())})
     resident["columns_read_on_host"] = 4 - len(store.file_columns()[1])
     for name in COLUMNS:  # the store in memory: every column read on the host
         getattr(store, name)
@@ -2310,6 +2379,7 @@ STAMPED = (
     ("memo_tpu_torch.query.engine", "QueryEngine", "_window_params"),
     ("memo_tpu_torch.query.engine", "QueryEngine", "_run_kernel"),
     ("memo_tpu_torch.query.engine", None, "_fused_chunks"),
+    ("memo_tpu_torch.query.engine", None, "_window_steps"),
     ("memo_tpu_torch.query.engine", None, "_copy_counts"),
     ("memo_tpu_torch.query.engine", None, "_copy_back"),
     ("memo_tpu_torch.query.engine", None, "window_params"),

@@ -202,8 +202,10 @@ def place_columns(cols: Columns, num_records: int, n_docs: int,
                   pad: int) -> tuple[PlacedStore, DeviceLayout]:
     """A store, from its columns on the device (rows of each record
     contiguous, in the store's order), as six int32 tensors there with
-    ``pad`` sentinel rows each (a slice of up to ``pad`` rows from any row
-    stays inside the tensor), and the rest of its query layout. Equal, array
+    ``pad`` sentinel rows each (start 0, end 0, order -1: never live), for
+    a reader that reads a few rows past a window's range (the engine pads
+    by v2's ``ROW_SLACK`` plus one; every other reader stops at the placed
+    rows), and the rest of its query layout. Equal, array
     for array, to ``QueryLayout.build`` and to ``IntervalStore``'s record
     offsets and longest intervals; raises where the composite keys would
     overflow or a coordinate does not fit int32."""

@@ -92,7 +92,8 @@ def prepare_streams(
     """Event streams of windows [qs, qs+L) at k from the placed store
     (``engine.place_store``): M rows from ``mlo`` in start order and from
     ``plo`` in end order, of which ``[mlo, mhi)`` and ``[plo, phi)`` are the
-    window's candidates. A row is a live event when ``end - start < k - 1`` and
+    window's candidates, and the rest dead, also where they would lie past
+    the placed rows. A row is a live event when ``end - start < k - 1`` and
     ``0 <= order < C`` (memo_tpu/ops/pallas_query.py:270-295).
 
     ``mlo, mhi, plo, phi, qs`` are ints for one window, which gives 1-D
@@ -108,30 +109,24 @@ def prepare_streams(
     n_win = len(mlo) if batched else 1
     n_rows = d_start.numel()
     if n_win > 1:
-        # Q windows gather their row ranges, one index for a stream's columns.
         mlo, mhi, plo, phi, qs = (np.asarray(x, np.int64) for x in (mlo, mhi, plo, phi, qs))
         bounds = bounds.expand(n_win, nt + 1).contiguous()
-
-        def row_reader(lo):
-            if int(lo.max()) + M > n_rows:
-                raise ValueError(f"store tensors hold fewer than {M} rows after row {int(lo.max())}")
-            rows = torch.from_numpy(lo).to(dev)[:, None] + idx
-            return lambda src: src[rows]
 
         def per_window(x):
             return torch.from_numpy(x.astype(np.int32)).to(dev)[:, None]
     else:
-        # One window reads slices (views) of the store and Python scalars.
         if batched:
             mlo, mhi, plo, phi, qs = (int(x[0]) for x in (mlo, mhi, plo, phi, qs))
 
-        def row_reader(lo):
-            if lo + M > n_rows:
-                raise ValueError(f"store tensors hold fewer than {M} rows after row {lo}")
-            return lambda src: src[lo : lo + M]
-
         def per_window(x):
             return x
+
+    def row_reader(lo):
+        """The M rows from ``lo`` (each window's), one index for a stream's
+        columns. Rows past the placed ones lie past ``hi`` and are dead: the
+        last placed row is read in their place."""
+        rows = (torch.as_tensor(lo, device=dev)[..., None] + idx).clamp_(max=n_rows - 1)
+        return lambda src: src[rows]
 
     def stream(start, end, order, lo, hi, shift, by_start):
         read = row_reader(lo)

@@ -326,11 +326,8 @@ class ResidentShardedQuery:
         hi = min(lo + B, self._rec_lens[name]) if name is not None else lo
         step = eng.chunk_positions
         windows = [(qs, min(qs + step, hi)) for qs in range(lo, hi, step)]
-        out = eng._batch_tensor(name, windows, k, membership) if windows else None
-        if out is not None:
-            out = out.reshape((-1,) + tuple(out.shape[2:]))
-        elif windows:  # a window's candidates over the engine's cap: per window
-            out = torch.cat(eng._query_batch_windows(name, windows, k, membership))
+        if windows:  # one launch per bucket, whatever the windows' candidate counts
+            out = eng._batch_tensor(name, windows, k, membership).flatten(0, 1)
         else:
             out = eng._unmarked((0,), membership)
         if out.shape[0] < B:

@@ -7,23 +7,25 @@ layout are built and kept there (:mod:`memo_tpu_torch.index.placement`);
 then
 
 1. the candidate row ranges and the prefix of the windows, searched on the
-   device (:mod:`memo_tpu_torch.query.window`); the host reads back each
-   window's two candidate counts only where the record's rows in the
-   engine (or bucket) exceed the cap, and then once, after the query's
-   last launch,
+   device (:mod:`memo_tpu_torch.query.window`); a fused query reads none of
+   them back,
 2. a device step per (window, interval bucket): the fused CUDA kernel
    (backend ``fused``; v1 and v2 both read the placed rows of the candidate
    ranges), or the diff-array tensor ops (backend ``torch``); ``numpy``
    runs on the host,
 3. bit-exact text output (:mod:`memo_tpu_torch.query.output`).
 
-Large windows run in position chunks and oversized candidate sets halve the
-chunk, down to interval pieces combined with an elementwise minimum; dense
-stores split into length buckets (the proofs are in the JAX engine's
-docstrings and in memo_tpu/ops/query_ops.py). A batch of windows of one
-record (``conservation_batch``/``membership_batch``) runs as one launch of
-the kernel. PyTorch runs eagerly, so the pow2 candidate bucket M only
-bounds the working set of one step (the fused kernels do not read it).
+Large windows run in position chunks; dense stores split into length
+buckets (the proofs are in the JAX engine's docstrings and in
+memo_tpu/ops/query_ops.py). A batch of windows of one record
+(``conservation_batch``/``membership_batch``) runs as one launch of the
+kernel. The fused kernels read only a window's candidate ranges, so they
+take a chunk whole whatever its candidate count; memo_tpu's halving of a
+chunk over the cap lives on only in ``last_stats``, replayed from the
+window steps when first read. The ``torch`` backend halves as memo_tpu's
+XLA path does, down to interval pieces combined with an elementwise
+minimum; PyTorch runs eagerly, so there the pow2 candidate bucket M only
+bounds the working set of one step.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import torch
 
 from memo_tpu_torch.index.placement import (
     Columns,
+    DeviceLayout,
     PlacedStore,
     place_columns,
     place_store_and_layout,
@@ -62,68 +65,61 @@ def _next_pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
 
 
-class _Candidates:
-    """``QueryStats.candidate_intervals``: the count so far, plus the
-    candidate counts that queries left on the device
-    (:meth:`QueryStats.add_later`), read back and added on first access."""
+class _Replayed:
+    """A field of :class:`QueryStats` that fused queries may leave to be
+    found: the value so far, plus what the pending replays
+    (:meth:`QueryStats.add_later`) add, found on first access of either
+    field."""
+
+    def __set_name__(self, owner, name):
+        self.key = "_" + name
 
     def __get__(self, stats, owner=None) -> int:
         if stats is None:
             return 0  # the field's default
-        later = stats.__dict__.pop("_later", None)
-        if later:
-            stats.__dict__["_count"] += _read_candidates(later)
-        return stats.__dict__["_count"]
+        _settle(stats)
+        return stats.__dict__[self.key]
 
     def __set__(self, stats, value: int) -> None:
-        stats.__dict__["_count"] = value
-        stats.__dict__.pop("_later", None)
+        _settle(stats)
+        stats.__dict__[self.key] = value
 
 
 @dataclasses.dataclass
 class QueryStats:
-    """Per-query counters, as memo_tpu's engine keeps them. ``chunks`` and
-    ``positions`` are known at once. A fused query that needs no read of its
-    candidate counts leaves them on the device (:meth:`add_later`), and
-    ``candidate_intervals`` reads them back on first access, as does any
-    use of the fields (``==``, ``as_dict``, ``dataclasses.asdict``)."""
+    """Per-query counters, as memo_tpu's engine keeps them. ``positions``
+    is known at once. A fused query launches each chunk whole and leaves
+    its candidate counts on the device (:meth:`add_later`);
+    ``candidate_intervals`` and ``chunks`` replay memo_tpu's halving from
+    them on first access, as does any use of the fields (``==``,
+    ``as_dict``, ``dataclasses.asdict``)."""
 
-    candidate_intervals: int = _Candidates()
-    chunks: int = 0
+    candidate_intervals: int = _Replayed()
+    chunks: int = _Replayed()
     positions: int = 0
 
-    def add_later(self, counts: torch.Tensor) -> None:
-        """Adds the candidates of the windows whose counts int32[2, Q] (mhi -
-        mlo and phi - plo) are ``counts``, written on the current stream;
-        they are read back, on that stream, only when asked for."""
-        stream = torch._C._cuda_getCurrentStream(counts.device.index) if counts.is_cuda else None
-        self.__dict__["_later"] = [*self.__dict__.get("_later", ()), (counts, stream)]
+    def add_later(self, replay: _Replay) -> None:
+        """Adds what ``replay`` finds, when first asked for."""
+        self.__dict__["_later"] = [*self.__dict__.get("_later", ()), replay]
 
     def add(self, other: QueryStats) -> None:
         """Adds another query's candidates and chunks, reading nothing."""
-        self.__dict__["_count"] += other.__dict__["_count"]
+        for key in ("_candidate_intervals", "_chunks"):
+            self.__dict__[key] += other.__dict__[key]
         later = other.__dict__.get("_later")
         if later:
             self.__dict__["_later"] = [*self.__dict__.get("_later", ()), *later]
-        self.chunks += other.chunks
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
 
 
-def _read_candidates(later: list) -> int:
-    """The candidates of ``later``'s (counts, stream) pairs, the larger of
-    each window's two counts: the counts written on one stream are read in
-    one copy on that stream, so that the read follows what wrote them."""
-    total = 0
-    for stream in dict.fromkeys(s for _, s in later):
-        counts = [c for c, s in later if s == stream]
-        on = contextlib.nullcontext() if stream is None else torch.cuda.stream(
-            torch.cuda.Stream(stream_id=stream[0], device_index=stream[1], device_type=stream[2]))
-        with on:
-            both = counts[0] if len(counts) == 1 else torch.cat(counts, 1)
-            total += sum(map(max, *both.tolist()))
-    return total
+def _settle(stats: QueryStats) -> None:
+    """Adds the pending replays' candidates and chunks into ``stats``."""
+    for replay in stats.__dict__.pop("_later", ()):
+        candidates, chunks = replay.run()
+        stats.__dict__["_candidate_intervals"] += candidates
+        stats.__dict__["_chunks"] += chunks
 
 
 def parse_region(region: str) -> tuple[str, int, int]:
@@ -230,9 +226,11 @@ class QueryEngine:
     STRATA_EDGES = (32, 128, 512, 2048)
 
     def _place(self, cols: Columns) -> None:
-        # v2 reads rows in 16-byte copies, up to ROW_SLACK rows past a range.
-        pad = max(min(self.max_intervals, _next_pow2(max(cols.start.numel(), 1))), ROW_SLACK + 1)
-        self._d, self._layout = place_columns(cols, self.store.num_records, self.n_docs, pad)
+        # No reader slices past the placed rows but v2, whose 16-byte copies
+        # read up to ROW_SLACK rows past a range and which wants more than
+        # ROW_SLACK rows.
+        self._d, self._layout = place_columns(cols, self.store.num_records, self.n_docs,
+                                              ROW_SLACK + 1)
 
     def _init_stratified(self, buckets: list[tuple[int, Columns]]) -> None:
         """One child engine per nonempty length bucket, placed from the
@@ -253,8 +251,8 @@ class QueryEngine:
     def _query_stratified(self, record, qs, qe, k, membership):
         """Union of per-bucket marks == elementwise MIN of per-bucket outputs;
         buckets whose minimum length >= k-1 hold no live interval. On the
-        fused backend every live bucket's steps and kernels are queued
-        before the host reads any count (:func:`_fused_chunks`)."""
+        fused backend every live bucket's steps and kernels are queued and
+        nothing is read (:func:`_fused_chunks`)."""
         L = qe - qs
         stats = QueryStats(positions=L)
         live = [child for lb, child in self._children if lb < k - 1]
@@ -302,8 +300,8 @@ class QueryEngine:
         window runs at the batch's longest length L from its own candidate
         ranges and prefix, and keeps its first ``qe - qs`` positions (exact:
         a window's row is what the single-window kernel computes over
-        [qs, qs + L)). Windows longer than ``chunk_positions``, candidate sets
-        over the bucket cap and the other backends run per window."""
+        [qs, qs + L)). Windows longer than ``chunk_positions`` and the other
+        backends run per window."""
         return self._query_batch(record, windows, k, membership=False)
 
     def membership_batch(self, record: str, windows, k: int) -> list:
@@ -330,14 +328,13 @@ class QueryEngine:
             raise ValueError(f"k must be >= 1, got {k}")
         if self._children is not None:
             return self._query_stratified(record, qs, qe, k, membership)
-        stats = QueryStats(positions=qe - qs)
         chunks = self._chunks(qs, qe)
+        stats = QueryStats(chunks=len(chunks), positions=qe - qs)
         if self.backend == "fused":
             outputs = self._query_chunk_fused(record, chunks, k, membership, stats)
         else:
             outputs = [self._query_chunk(record, c_qs, c_qe, k, membership, stats)
                        for c_qs, c_qe in chunks]
-        stats.chunks += len(chunks)
         self.last_stats = stats
         return self._join(outputs, membership)
 
@@ -380,14 +377,12 @@ class QueryEngine:
         """The batch of ``windows`` (checked, nonempty) as one device tensor
         [Q, L(, C)], L the longest window, from one launch of the kernel per
         length bucket that can mark (bucket outputs min-combined as in
-        :meth:`_query_stratified`): row i's first ``qe - qs`` positions are
-        window i's output (exact: a window's row is what the single-window
-        kernel computes over [qs, qs + L)). Every bucket's window step and
-        kernel are queued before the host reads any count, and counts are
-        read, in one copy, only where a bucket's cap is not provable. None
-        where the batch runs per window: another backend, windows longer
-        than ``chunk_positions`` or all empty, or candidate sets over the
-        bucket cap (what was launched is then dropped)."""
+        :meth:`_query_stratified`), whatever the candidate counts: row i's
+        first ``qe - qs`` positions are window i's output (exact: a window's
+        row is what the single-window kernel computes over [qs, qs + L)).
+        Every bucket's window step is queued, then its kernel; nothing is
+        read. None where the batch runs per window: another backend, or
+        windows longer than ``chunk_positions`` or all empty."""
         L = max(qe - qs for qs, qe in windows)
         positions = sum(qe - qs for qs, qe in windows)
         engines = ([self] if self._children is None
@@ -401,27 +396,15 @@ class QueryEngine:
         # memo_tpu pads the window count to a power of two to bound the
         # programs XLA compiles; nothing here compiles per shape, so the
         # batch keeps its own count.
-        parts = [eng._chunk_steps(record, [(qs, qs + L) for qs, _ in windows], k)
-                 for eng in engines]
-        host, ready = _copy_counts(parts)
-        known = _by_chunk(parts, host if ready is None else None)
-        if _over_cap(parts, known):
-            return None
-        outs = [part.engine._run_kernel(part.steps[0][2], k, L, membership) for part in parts]
-        if ready is not None:
-            ready.synchronize()
-            known = _by_chunk(parts, host)
-            if _over_cap(parts, known):
-                return None
+        chunks = [(qs, qs + L) for qs, _ in windows]
+        steps = [eng._chunk_steps(record, chunks, k) for eng in engines]
         stats, acc = QueryStats(positions=positions), None
-        for part, by_window, out in zip(parts, known, outs):
-            part_stats = QueryStats(chunks=len(windows), positions=positions)
-            if by_window is None:
-                part_stats.add_later(part.steps[0][2].counts)
-            else:
-                part_stats.candidate_intervals = sum(by_window.values())
-            part.engine.last_stats = part_stats
-            stats.add(part_stats)
+        for eng, eng_steps in zip(engines, steps):
+            out = eng._run_kernel(eng_steps[0][2], k, L, membership)
+            part = QueryStats(positions=positions)
+            part.add_later(_Replay.of(eng, record, k, chunks, eng_steps, windows))
+            eng.last_stats = part
+            stats.add(part)
             acc = out if acc is None else torch.minimum(acc, out, out=acc)
         self.last_stats = stats
         return acc
@@ -513,74 +496,28 @@ class QueryEngine:
                 acc = np.minimum(acc, out)
         return acc
 
-    def _cap_holds(self, record: str) -> bool:
-        """Whether no window of ``record`` can have more candidates than the
-        cap, known with no read: a window's candidate ranges lie among the
-        record's rows in this engine (or bucket), whose count the host
-        holds (``DeviceLayout.rec_offsets``)."""
-        offsets = self._layout.rec_offsets
-        r = self.store.record_index(record)
-        return int(offsets[r + 1] - offsets[r]) <= self.max_intervals
+    def _chunk_steps(self, record: str, chunks, k: int) -> list:
+        """The window steps of the position chunks [(qs, qe), ...] of
+        ``record`` (:func:`_window_steps`)."""
+        return _window_steps(self._d, self._layout, self.store.record_index(record), chunks, k)
 
-    def _chunk_steps(self, record: str, chunks, k: int) -> _Steps:
-        """The window steps of the position chunks [(qs, qe), ...], found on
-        the device: one step per chunk length (the full chunks, then a
-        shorter last one); nothing is read back."""
-        by_len: dict[int, list[int]] = {}
-        for i, (c_qs, c_qe) in enumerate(chunks):
-            by_len.setdefault(c_qe - c_qs, []).append(i)
-        steps = [(L, rows, self._window_params(record, [chunks[i][0] for i in rows], L, k))
-                 for L, rows in by_len.items()]
-        return _Steps(self, steps, [i for _, rows, _ in steps for i in rows],
-                      self._cap_holds(record))
-
-    def _launch_chunks(self, part: _Steps, k: int, membership: bool, known) -> list:
-        """Each chunk's kernel, one launch a chunk, but for chunks ``known``
-        (counts by chunk, where read before the launches) to be over the
-        cap: the [L(, C)] device outputs by chunk, None where not launched."""
-        outs: list = [None] * len(part.order)
-        for L, rows, wp in part.steps:
+    def _launch_chunks(self, chunks, steps: list, k: int, membership: bool) -> list:
+        """Each chunk's kernel, one launch a chunk, whatever its candidate
+        count (the kernels read only its candidate ranges): the [L(, C)]
+        device outputs, in chunk order."""
+        outs: list = [None] * len(chunks)
+        for L, rows, wp in steps:
             for j, i in enumerate(rows):
-                if known is None or known[i] <= self.max_intervals:
-                    one = wp if len(rows) == 1 else WindowParams(
-                        wp.params[j : j + 1], wp.prefix[j : j + 1], wp.counts[:, j : j + 1])
-                    outs[i] = self._run_kernel(one, k, L, membership)[0]
-        return outs
-
-    def _settle_chunks(self, record, chunks, part: _Steps, outs: list, known, k, membership,
-                       stats: QueryStats) -> list:
-        """The chunks' outputs once launched. Where the cap is provable
-        (``known`` None) they stand, and ``stats`` keeps the counts on the
-        device; otherwise a chunk over the cap runs again in halves (exact
-        either way), down to interval pieces at a single position."""
-        if known is None:
-            for _, _, wp in part.steps:
-                stats.add_later(wp.counts)
-            return [self._finish(out) for out in outs]
-        for i in part.order:
-            count = known[i]
-            if count <= self.max_intervals:
-                stats.candidate_intervals += count
-                outs[i] = self._finish(outs[i])
-                continue
-            c_qs, c_qe = chunks[i]
-            mid = (c_qs + c_qe) // 2
-            if mid == c_qs:
-                # The two event streams do not split by interval subset, so a
-                # single position over the cap goes through the diff-array ops.
-                lo, hi = self._window_bounds(record, c_qs, c_qe, k)
-                outs[i] = self._query_interval_pieces(record, c_qs, c_qe, k, membership, lo, hi,
-                                                      stats)
-            else:
-                left, right = self._query_chunk_fused(record, [(c_qs, mid), (mid, c_qe)], k,
-                                                      membership, stats)
-                outs[i] = self._cat(left, right)
+                one = wp if len(rows) == 1 else WindowParams(
+                    wp.params[j : j + 1], wp.prefix[j : j + 1], wp.counts[:, j : j + 1])
+                outs[i] = self._run_kernel(one, k, L, membership)[0]
         return outs
 
     def _query_chunk_fused(self, record, chunks, k, membership, stats: QueryStats) -> list:
         """The fused backend's position chunks [(qs, qe), ...] of this
         engine (:func:`_fused_chunks`): their outputs, in order."""
-        return _fused_chunks([self], record, chunks, k, membership, [stats])[0]
+        outs = _fused_chunks([self], record, chunks, k, membership, [stats])[0]
+        return [self._finish(out) for out in outs]
 
     def _run_kernel(self, wp: WindowParams, k: int, L: int, membership: bool) -> torch.Tensor:
         """The fused kernel on the Q windows of ``wp`` (their parameters on
@@ -590,67 +527,113 @@ class QueryEngine:
         return run(self._d, wp.params, wp.prefix, k=k, L=L, C=n, n_docs=n, membership=membership)
 
 
-class _Steps(NamedTuple):
-    """One engine's window steps over a query's position chunks (or a
-    batch's windows), queued on the device."""
+class _Replay(NamedTuple):
+    """What a fused query leaves for ``last_stats`` in one engine (or
+    length bucket): the window steps of the chunks it launched whole, on
+    the device, and what memo_tpu's halving of them needs: the engine's
+    placed rows and layout (not the engine, which holds the stats), the
+    record's index, k and the cap. ``windows`` are a batch's own windows,
+    whose ``chunks`` run at the batch's longest length; ``stream`` is the
+    one that wrote the counts."""
 
-    engine: QueryEngine
-    steps: list  # (L, chunk indices, WindowParams), one step per chunk length
-    order: list  # the chunk indices in the order of the steps' counts
-    capped: bool  # no chunk can have more candidates than the cap: no count is read
+    placed: PlacedStore
+    layout: DeviceLayout
+    r: int
+    k: int
+    cap: int
+    chunks: list
+    steps: list
+    windows: list | None
+    stream: tuple | None
+
+    @classmethod
+    def of(cls, engine: QueryEngine, record: str, k: int, chunks, steps: list,
+           windows=None) -> _Replay:
+        device = engine._d.start.device
+        stream = torch._C._cuda_getCurrentStream(device.index) if device.type == "cuda" else None
+        return cls(engine._d, engine._layout, engine.store.record_index(record), k,
+                   engine.max_intervals, chunks, steps, windows, stream)
+
+    def run(self) -> tuple[int, int]:
+        """(candidates, chunks) to add, as memo_tpu's engine counts them,
+        read and searched on the stream that wrote the counts: a query's
+        candidates (its chunks are counted at once); a batch within the cap
+        is one program of its windows, one over it runs window by window,
+        each nonempty window a query of one chunk."""
+        on = contextlib.nullcontext() if self.stream is None else torch.cuda.stream(
+            torch.cuda.Stream(stream_id=self.stream[0], device_index=self.stream[1],
+                              device_type=self.stream[2]))
+        with on:
+            if self.windows is None:
+                return self._halving(self.chunks, self.steps), 0
+            counts = _larger_counts(self.chunks, self.steps)
+            if max(counts) <= self.cap:
+                return sum(counts), len(self.windows)
+            chunks = [(qs, qe) for qs, qe in self.windows if qe > qs]
+            steps = _window_steps(self.placed, self.layout, self.r, chunks, self.k)
+            return self._halving(chunks, steps), len(chunks)
+
+    def _halving(self, chunks, steps: list) -> int:
+        """memo_tpu's candidate count of the position chunks ``chunks``
+        (their window steps ``steps``) as its fused engine halves them at the
+        cap (memo_tpu/query/engine.py:531-568): a chunk within the cap adds
+        the larger of its two candidate counts; one over it counts as its
+        halves at ``(qs + qe) // 2``, whose steps are found here, a level at
+        a time. Both candidate ranges of a single position are empty, so the
+        halving ends above it, and memo_tpu's interval pieces (its
+        ``mid == qs`` branch) never run there."""
+        candidates = 0
+        while chunks:
+            halves = []
+            for (qs, qe), count in zip(chunks, _larger_counts(chunks, steps)):
+                if count <= self.cap:
+                    candidates += count
+                else:
+                    mid = (qs + qe) // 2
+                    halves += [(qs, mid), (mid, qe)]
+            chunks, steps = halves, _window_steps(self.placed, self.layout, self.r, halves, self.k)
+        return candidates
+
+
+def _window_steps(placed: PlacedStore, layout: DeviceLayout, r: int, chunks, k: int) -> list:
+    """The window steps of the position chunks [(qs, qe), ...] of record
+    ``r``, found on the device: (L, chunk indices, WindowParams), one step
+    per chunk length (the full chunks, then a shorter last one); nothing is
+    read back."""
+    by_len: dict[int, list[int]] = {}
+    for i, (c_qs, c_qe) in enumerate(chunks):
+        by_len.setdefault(c_qe - c_qs, []).append(i)
+    return [(L, rows, window_params(placed, layout, r, [chunks[i][0] for i in rows], L, k))
+            for L, rows in by_len.items()]
+
+
+def _larger_counts(chunks, steps: list) -> list[int]:
+    """The larger of each chunk's two candidate counts, in chunk order,
+    from its window step's counts (one read)."""
+    counts = [wp.counts for _, _, wp in steps]
+    both = counts[0] if len(counts) == 1 else torch.cat(counts, 1)
+    out = [0] * len(chunks)
+    for i, m, p in zip((i for _, rows, _ in steps for i in rows), *both.tolist()):
+        out[i] = max(m, p)
+    return out
 
 
 def _fused_chunks(engines: list, record: str, chunks, k: int, membership: bool,
                   stats: list) -> list[list]:
     """The position chunks [(qs, qe), ...] of a query through each of
-    ``engines`` (one, or the live length buckets), each one's outputs in
-    chunk order, its counters in its entry of ``stats``. Every engine's
-    window steps are queued, then the counts that need reading are queued
-    for one copy back behind them (:func:`_copy_counts`: none where every
-    engine's cap is provable), then every chunk's kernel; only then does
-    the host wait, and that wait is for the steps and the copy alone, so the
-    card has the kernels queued while the host reads. A chunk over the cap
-    is then run again in halves (``QueryEngine._settle_chunks``). Where the
-    counts are on the host at once (the CPU), they are read first and a
-    chunk over the cap is not launched."""
+    ``engines`` (one, or the live length buckets), each one's device outputs
+    in chunk order. Every engine's window steps are queued, then every
+    chunk's kernel, whatever its candidate count; nothing is read back, and
+    the host waits on nothing. Each engine's entry of ``stats`` keeps its
+    steps, for memo_tpu's halving to be replayed when first read
+    (:class:`_Replay`)."""
     if not chunks:
         return [[] for _ in engines]
-    parts = [engine._chunk_steps(record, chunks, k) for engine in engines]
-    host, ready = _copy_counts(parts)
-    known = _by_chunk(parts, host if ready is None else None)
-    outs = [part.engine._launch_chunks(part, k, membership, by_chunk)
-            for part, by_chunk in zip(parts, known)]
-    if ready is not None:
-        ready.synchronize()
-        known = _by_chunk(parts, host)
-    return [part.engine._settle_chunks(record, chunks, part, out, by_chunk, k, membership, st)
-            for part, out, by_chunk, st in zip(parts, outs, known, stats)]
-
-
-def _copy_counts(parts: list[_Steps]):
-    """The candidate counts [2, n] of the parts whose cap is not provable,
-    in step order, queued for one copy to the host (:func:`_copy_back`)
-    with the event to wait on, or None where they are there at once; (None,
-    None) where every part's cap is provable."""
-    counts = [wp.counts for part in parts if not part.capped for _, _, wp in part.steps]
-    if not counts:
-        return None, None
-    return _copy_back(counts[0] if len(counts) == 1 else torch.cat(counts, 1))
-
-
-def _by_chunk(parts: list[_Steps], host) -> list[dict[int, int] | None]:
-    """Each part's candidate count by chunk index (the larger of its two),
-    from the counts :func:`_copy_counts` brought back (``host``); None for a
-    part whose cap is provable, and for every part where ``host`` is None."""
-    if host is None:
-        return [None] * len(parts)
-    pairs = map(max, *host.tolist())
-    return [None if part.capped else {i: next(pairs) for i in part.order} for part in parts]
-
-
-def _over_cap(parts: list[_Steps], known) -> bool:
-    return any(by_chunk is not None and max(by_chunk.values()) > part.engine.max_intervals
-               for part, by_chunk in zip(parts, known))
+    steps = [engine._chunk_steps(record, chunks, k) for engine in engines]
+    for engine, engine_steps, engine_stats in zip(engines, steps, stats):
+        engine_stats.add_later(_Replay.of(engine, record, k, chunks, engine_steps))
+    return [engine._launch_chunks(chunks, engine_steps, k, membership)
+            for engine, engine_steps in zip(engines, steps)]
 
 
 def _copy_back(t: torch.Tensor) -> tuple[torch.Tensor, torch.cuda.Event | None]:
@@ -667,12 +650,14 @@ def _copy_back(t: torch.Tensor) -> tuple[torch.Tensor, torch.cuda.Event | None]:
 
 
 def _device_query(d: PlacedStore, lo, rec_end, qs, k, M, L, n, membership):
-    """Diff-array query of M store rows from ``lo`` (memo_tpu engine
-    ``_device_query_fn``). Rows past the record's end belong to another
-    record's coordinates and are dropped."""
-    s = d.start[lo : lo + M]
-    e = d.end[lo : lo + M]
-    idx = lo + torch.arange(s.numel(), dtype=torch.int64, device=s.device)
-    o = torch.where(idx < rec_end, d.order[lo : lo + M], -1)
+    """Diff-array query of up to M store rows from ``lo`` (memo_tpu engine
+    ``_device_query_fn``), the slice ending at the placed rows' end, where
+    memo_tpu's ``dynamic_slice`` needs M sentinel rows there: rows past the
+    window's candidates never mark. Rows past the record's end belong to
+    another record's coordinates and are dropped."""
+    hi = min(lo + M, d.start.numel())
+    s, e = d.start[lo:hi], d.end[lo:hi]
+    idx = torch.arange(lo, hi, dtype=torch.int64, device=s.device)
+    o = torch.where(idx < rec_end, d.order[lo:hi], -1)
     marks = Q.coverage_marks(s, e, o, qs, k, L=L, C=n)
     return Q.membership_from_marks(marks) if membership else Q.conservation_from_marks(marks, n)

@@ -1,13 +1,14 @@
 """memo_tpu_torch QueryEngine.conservation_batch / membership_batch on the
 CPU, for both kernel generations: every window equals the port's
 single-window output and memo_tpu's numpy engine, the fused batch is one
-kernel call, and the fallbacks, the stratified engine, the empty batch and
+kernel call (also over the candidate cap), and the fallbacks, the stratified engine, the empty batch and
 the errors follow memo_tpu/query/engine.py:268-383. Also the kernel_version
 selection. On the CPU both kernels run their plain version."""
 
 import numpy as np
 import pytest
 import torch
+from memo_stats import memo_tpu_stats
 from test_pallas import _store
 from test_torch_engine import mixed_store  # noqa: F401 (fixture)
 
@@ -111,7 +112,11 @@ def test_batch_falls_back_per_window(cons_store, kernel_calls, options):
     single = [eng.conservation("chr0", qs, qe, 31) for qs, qe in WINS]
     calls_single = dict(kernel_calls)
     outs = eng.conservation_batch("chr0", WINS, 31)
-    if eng.backend == "fused":  # as many kernel calls as the per-window queries made
+    if "max_intervals_per_chunk" in options:  # over the cap: still one launch, no fallback
+        assert kernel_calls["v1"] == calls_single["v1"] + 1 == len(WINS) + 1
+        assert eng.last_stats.as_dict() == memo_tpu_stats(cons_store, "chr0", 31, cap=4,
+                                                          windows=WINS)
+    elif eng.backend == "fused":  # as many kernel calls as the per-window queries made
         assert kernel_calls["v1"] == 2 * calls_single["v1"] > len(WINS)
     for (qs, qe), got, one in zip(WINS, outs, single):
         np.testing.assert_array_equal(got, one)

@@ -5,6 +5,7 @@ path (interpret mode) for the slice as a whole."""
 import numpy as np
 import pytest
 import torch
+from memo_stats import memo_tpu_stats
 from test_pallas import WINDOWS, _lipschitz, _store
 
 from memo_tpu.index.builder import store_from_ms
@@ -102,11 +103,12 @@ def test_chunked_equals_unchunked(stores, backend):
 @pytest.mark.parametrize("backend", ["fused", "torch"])
 @pytest.mark.parametrize("device_output", [False, True])
 def test_over_cap_halves_then_splits_interval_pieces(monkeypatch, stores, backend, device_output):
-    """A cap of 4 candidates forces position halving. The torch backend's
-    candidates at one position (every row that may reach it) still exceed
-    the cap, so it also runs min-combined interval pieces; the fused
-    backend's in-window event count at one position is 0, so halving alone
-    resolves it."""
+    """A cap of 4 candidates. The torch backend halves the position chunk,
+    and its candidates at one position (every row that may reach it) still
+    exceed the cap, so it also runs min-combined interval pieces. The fused
+    backend launches each window whole (its kernels read only the candidate
+    ranges), once a query, and its ``last_stats`` replays memo_tpu's
+    halving: equal to memo_tpu's fused engine's at the same cap."""
     calls = {"_query_chunk_fused": 0, "_query_interval_pieces": 0}
     for name in calls:
         orig = getattr(engine_mod.QueryEngine, name)
@@ -125,11 +127,14 @@ def test_over_cap_halves_then_splits_interval_pieces(monkeypatch, stores, backen
             assert isinstance(got, torch.Tensor)
             got = got.numpy()
         np.testing.assert_array_equal(got, oracle.conservation("chr0", qs, qe, k))
+        if backend == "fused":
+            assert eng.last_stats.as_dict() == memo_tpu_stats(stores, "chr0", k, cap=4,
+                                                              region=(qs, qe))
     if backend == "torch":
         assert calls["_query_interval_pieces"] > 0
         assert eng.last_stats.chunks > 1  # each piece is a dispatch
     else:
-        assert calls["_query_chunk_fused"] > 2  # halved below the two windows
+        assert calls == {"_query_chunk_fused": 2, "_query_interval_pieces": 0}
 
 
 @pytest.mark.parametrize("backend", ["fused", "torch"])

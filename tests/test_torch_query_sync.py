@@ -1,22 +1,19 @@
-"""When a fused query's host reads come, on the CPU with the card stood in
-for.
+"""A fused query reads nothing back, on the CPU with the card stood in for.
 
-On CUDA the engine brings its candidate counts back through
-``engine._copy_back``, a pinned copy and an event to wait on. Here that
-function returns the counts with a stand-in event that logs its wait, and
-every read of a tensor on the host, every window step and every kernel
-launch is logged in order. For the single-window, chunked, stratified
-(k = 31, 51 and 200: one, two and three live buckets), batch and resident
-paths, conservation and membership:
+On CUDA the engine would bring tensors back through ``engine._copy_back``,
+a pinned copy and an event to wait on. Here that function returns them with
+a stand-in event that logs its wait, and every read of a tensor on the
+host, every window step and every kernel launch is logged in order. For
+the single-window, chunked, stratified (k = 31, 51 and 200: one, two and
+three live buckets), batch and resident paths, conservation and
+membership, at the default cap, at a cap below the record's rows in a
+bucket and at a cap of 64 that most chunks pass: every window step comes
+before the kernels, the query reads and waits on nothing, each chunk (or
+batch) is launched once, whole, and the outputs equal memo_tpu's numpy
+engine.
 
-- under a provable cap (every live bucket's rows of the record within
-  ``max_intervals``) a query reads nothing and waits on nothing;
-- under a cap it cannot prove, which no chunk passes, every launch comes
-  before the one wait and the one read;
-- over the cap, the outputs still equal memo_tpu's numpy engine.
-
-``last_stats`` read after a query equals what the eager read gives and what
-memo_tpu's host search counts; the CLI's ``--stats`` line is that count.
+``last_stats`` read after a query equals memo_tpu's (``memo_stats.py``)
+and its host-search count; the CLI's ``--stats`` line is that count.
 Tolerance: exact (integers)."""
 
 import dataclasses
@@ -33,6 +30,7 @@ from memo_tpu_torch.query.engine import QueryStats
 from memo_tpu_torch.index.store import IntervalStore
 from memo_tpu_torch.parallel import ResidentShardedQuery
 from memo_tpu_torch.query import engine as engine_mod
+from memo_stats import memo_tpu_stats
 from window_cases import lipschitz
 
 REC_LEN = 900
@@ -169,19 +167,18 @@ def test_provable_cap_reads_nothing(mixed, logged, path, kind):
 @pytest.mark.parametrize("kind", ["conservation", "membership"])
 @pytest.mark.parametrize("path", PATHS)
 def test_unproven_cap_waits_once_after_every_launch(mixed, logged, path, kind):
-    """A cap one below bucket 0's rows of the record: the cap is not
-    provable there, and no chunk's candidates pass it. Every window step
-    and every kernel launch comes first; then one wait on the copy and one
-    read of the counts; the outputs equal memo_tpu's numpy engine."""
+    """A cap one below bucket 0's rows of the record, which no chunk's
+    candidates pass: every window step comes before the kernels, and the
+    query reads and waits on nothing; the outputs equal memo_tpu's numpy
+    engine."""
     store = _store(mixed, kind)
     holder, oracle = _make(path, store), JaxEngine(store, backend="numpy")
     _set_cap(holder, _unproven(holder))
     for k in KS:
         got, events = logged(lambda: _query(path, holder, kind, k))
-        host = [e for e in events if e in ("wait", "read")]
-        assert host == ["wait", "read"], events
-        last_launch = max(i for i, e in enumerate(events) if e == "launch")
-        assert last_launch < events.index("wait") and events[-2:] == host, events
+        assert "read" not in events and "wait" not in events, events
+        last_step = max(i for i, e in enumerate(events) if e == "step")
+        assert "launch" in events and last_step < events.index("launch"), events
         for g, w in zip(got, _want(path, oracle, kind, k)):
             np.testing.assert_array_equal(g.numpy(), w, err_msg=f"{path} k={k}")
 
@@ -189,16 +186,19 @@ def test_unproven_cap_waits_once_after_every_launch(mixed, logged, path, kind):
 @pytest.mark.parametrize("kind", ["conservation", "membership"])
 @pytest.mark.parametrize("path", PATHS)
 def test_over_cap_equals_numpy_engine(mixed, logged, path, kind):
-    """A cap of 64 candidates, which most chunks pass: they are halved (or a
-    batch runs per window) after the launch-first read, and the outputs
-    still equal memo_tpu's numpy engine."""
+    """A cap of 64 candidates, which most chunks pass: the query makes the
+    same window steps and launches as under the default cap (each chunk,
+    or the batch, launched once and whole), reads and waits on nothing,
+    and the outputs still equal memo_tpu's numpy engine."""
     store = _store(mixed, kind)
     holder, oracle = _make(path, store), JaxEngine(store, backend="numpy")
+    uncapped = _make(path, store)
     _set_cap(holder, 64)
     for k in KS:
         got, events = logged(lambda: _query(path, holder, kind, k))
-        first = min(events.index(e) for e in ("wait", "read") if e in events)
-        assert events[:first].count("launch") >= 1 and events[first] == "wait", events
+        _, want_events = logged(lambda: _query(path, uncapped, kind, k))
+        assert events == want_events and "launch" in events, (events, want_events)
+        assert "read" not in events and "wait" not in events, events
         for g, w in zip(got, _want(path, oracle, kind, k)):
             np.testing.assert_array_equal(g.numpy(), w, err_msg=f"{path} k={k}")
 
@@ -212,25 +212,33 @@ def _host_candidates(mixed, chunks, k: int) -> int:
                for p in (jeng._window_params("chrA", qs, qe, k) for qs, qe in chunks))
 
 
+def _memo_tpu_stats(path: str, store, k: int, cap: int | None) -> dict:
+    """memo_tpu's stats of :func:`_query`'s query through ``path``."""
+    window = {"windows": WINDOWS} if path.startswith("batch") else {"region": (0, REC_LEN)}
+    chunk = 128 if path in ("chunked", "stratified") else None
+    return memo_tpu_stats(store, "chrA", k, cap=cap, chunk_positions=chunk,
+                          stratify=path.endswith("stratified"), **window)
+
+
 @pytest.mark.parametrize("path", ["single", "chunked", "stratified", "batch", "batch-stratified"])
 def test_last_stats_read_later_equal_the_eager_read(mixed, logged, path):
-    """``last_stats`` of a query under a provable cap, read after it,
-    equals that of the same query under a cap it cannot prove (whose counts
-    are read during the query, as every fused query read them before) and,
-    unstratified, memo_tpu's host-search count; ``chunks`` and
-    ``positions`` are the query's. Summing the buckets' counters in the
-    query reads nothing."""
+    """``last_stats`` of a query, read after it (the query reads nothing),
+    equals memo_tpu's for the same cap, at the default cap and at a cap
+    below bucket 0's rows of the record, and, unstratified, memo_tpu's
+    host-search count; ``chunks`` and ``positions`` are the query's."""
     store = _store(mixed, "conservation")
-    lazy, eager = _make(path, store), _make(path, store)
-    _set_cap(eager, _unproven(eager))
+    lazy, capped = _make(path, store), _make(path, store)
+    _set_cap(capped, _unproven(capped))
     stratified = path.endswith("stratified")
     for k in KS:
         live = sum(lb < k - 1 for lb, _ in lazy._children) if stratified else 1
-        _, events = logged(lambda: _query(path, lazy, "conservation", k))
-        assert "read" not in events
-        _query(path, eager, "conservation", k)
-        got, want = lazy.last_stats.as_dict(), eager.last_stats.as_dict()
-        assert got == want, (k, got, want)
+        for holder in (lazy, capped):
+            _, events = logged(lambda: _query(path, holder, "conservation", k))
+            assert "read" not in events
+            cap = None if holder is lazy else _engines(holder)[0].max_intervals
+            got = holder.last_stats.as_dict()
+            assert got == _memo_tpu_stats(path, store, k, cap), (k, cap, got)
+        assert got == lazy.last_stats.as_dict()
         if path.startswith("batch"):
             assert got["chunks"] == len(WINDOWS) * live
             assert got["positions"] == sum(qe - qs for qs, qe in WINDOWS)
@@ -245,10 +253,10 @@ def test_last_stats_read_later_equal_the_eager_read(mixed, logged, path):
 
 def test_query_stats_is_memo_tpus_dataclass(mixed, logged):
     """``QueryStats`` is memo_tpu's dataclass: the same fields and defaults,
-    equal by value whether the candidate count was read during the query
-    or is read later from the device, and ``dataclasses.asdict``,
-    ``replace`` and ``repr`` give the count read back. Adding stats up
-    reads nothing."""
+    equal by value whether its counts are read right after the query
+    (under a cap below bucket 0's rows) or later, after the buckets' stats
+    are added up, and ``dataclasses.asdict``, ``replace`` and ``repr`` give
+    the counts read back. Adding stats up reads nothing."""
     assert ([(f.name, f.default) for f in dataclasses.fields(QueryStats)]
             == [(f.name, f.default) for f in dataclasses.fields(JaxStats)])
     assert QueryStats() == QueryStats(0, 0, 0) and QueryStats(1, 2, 3) != QueryStats(1, 2, 4)
@@ -257,6 +265,7 @@ def test_query_stats_is_memo_tpus_dataclass(mixed, logged):
     _set_cap(eager, _unproven(eager))
     for k in KS:
         _query("stratified", eager, "conservation", k)
+        eager.last_stats.as_dict()  # read at once
         _, events = logged(lambda: _query("stratified", lazy, "conservation", k))
         total, events = logged(lambda: _sum(lazy))
         assert events == [], events

@@ -7,7 +7,10 @@ record's rows in every live bucket within ``max_intervals``) a query with
 its output left on the card makes no wait, on one window, eight position
 chunks, the stratified engine at k=51 (two live buckets) and a batch; each
 output equals the same engine's on the CPU (the kernels' plain versions).
-Under a cap it cannot prove, a query waits once. ``last_stats`` read on
+Under a cap below the record's rows, and under a cap of 16 that the
+windows pass (each launched whole), a query waits on nothing too, and its
+output and ``last_stats`` equal the CPU's at the same cap. The placed
+tensors hold ``ROW_SLACK + 1`` sentinel rows. ``last_stats`` read on
 another stream reads on the query's. The window step takes as many window
 starts by value as its parameters hold and copies more up: both equal the
 CPU's.
@@ -22,6 +25,7 @@ import torch
 from memo_tpu_torch import QueryEngine
 from memo_tpu_torch.index.builder import store_from_ms
 from memo_tpu_torch.index.placement import place_store_and_layout
+from memo_tpu_torch.ops.fused_query_v2 import ROW_SLACK
 from memo_tpu_torch.query.window import inline_starts, window_params
 from window_cases import lipschitz
 
@@ -104,26 +108,69 @@ def test_provable_cap_query_waits_on_nothing(cuda_device, store, waits, case):
     assert stats == plain.last_stats.as_dict()
 
 
+def _capped(store, device, options: dict, cap) -> tuple:
+    """The engine of ``options`` on ``device`` and its engines that hold
+    rows, each capped at ``cap`` (a callable of the engines' rows of the
+    record, or a number)."""
+    eng = QueryEngine(store, device=device, device_output=True,
+                      **({"stratify": False} | options))
+    engines = [c for _, c in eng._children] if eng._children else [eng]
+    cap = cap([int(np.diff(e._layout.rec_offsets)[0]) for e in engines]) if callable(cap) else cap
+    for e in engines:
+        e.max_intervals = cap
+    return eng, engines
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["one_window", "stratified_k51", "batch"])
 def test_unproven_cap_query_waits_once(cuda_device, store, waits, case):
     """A cap one below bucket 0's rows of the record, above every chunk's
-    candidates: one wait, on the counts' copy, after every launch."""
+    candidates: the query waits on nothing, and its output and
+    ``last_stats`` equal the CPU's at the same cap."""
     options, query = CASES[case]
-    eng = QueryEngine(store, device=cuda_device, device_output=True,
-                      **({"stratify": False} | options))
-    engines = [c for _, c in eng._children] if eng._children else [eng]
-    cap = max(int(np.diff(e._layout.rec_offsets)[0]) for e in engines) - 1
-    for e in engines:
-        e.max_intervals = cap
+    eng, _ = _capped(store, cuda_device, options, lambda rows: max(rows) - 1)
+    plain, _ = _capped(store, "cpu", options, lambda rows: max(rows) - 1)
     query(eng)
     torch.cuda.synchronize()
     waits.clear()
-    got = query(eng)
-    assert waits == ["event"], waits
-    plain = QueryEngine(store, device="cpu", device_output=True, **({"stratify": False} | options))
+    got = _no_wait(lambda: query(eng))
+    assert waits == [], waits
     for g, w in zip(got, query(plain)):
         assert torch.equal(g.cpu(), w), case
+    assert eng.last_stats.as_dict() == plain.last_stats.as_dict()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CASES))
+def test_window_over_a_small_cap_runs_whole(cuda_device, store, waits, case):
+    """A cap of 16 candidates, which the windows pass: each chunk (or the
+    batch) is launched once, whole, with no wait; the output equals the
+    plain version's on the CPU, and ``last_stats`` (memo_tpu's halving,
+    replayed when read) equals the CPU's."""
+    options, query = CASES[case]
+    eng, engines = _capped(store, cuda_device, options, 16)
+    plain, _ = _capped(store, "cpu", options, 16)
+    query(eng)
+    torch.cuda.synchronize()
+    waits.clear()
+    got = _no_wait(lambda: query(eng))
+    assert waits == [], waits
+    for g, w in zip(got, query(plain)):
+        assert torch.equal(g.cpu(), w), case
+    assert eng.last_stats.as_dict() == plain.last_stats.as_dict()
+    assert plain.last_stats.candidate_intervals > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stratify", [False, True], ids=["whole", "stratified"])
+def test_placed_rows_hold_row_slack_plus_one(cuda_device, store, stratify):
+    """Each placed tensor on the card holds its rows and ``ROW_SLACK + 1``
+    sentinel rows (start 0, end 0, order -1)."""
+    eng = QueryEngine(store, device=cuda_device, stratify=stratify)
+    for child in ([c for _, c in eng._children] if eng._children else [eng]):
+        n = child._layout.num_rows
+        for t, fill in zip(child._d, (0, 0, -1, 0, 0, -1)):
+            assert t.is_cuda and t.shape == (n + ROW_SLACK + 1,) and bool((t[n:] == fill).all())
 
 
 @pytest.mark.cuda

@@ -25,6 +25,7 @@ from memo_tpu_torch.index.store import IntervalStore, QueryLayout
 from memo_tpu_torch.parallel import ResidentShardedQuery
 from memo_tpu_torch.query import window
 from memo_tpu_torch.query.window import window_params, window_params_numpy
+from memo_stats import memo_tpu_stats
 from window_cases import CASES, HUGE_K, REC_LEN, WINDOWS, case_arrays, lipschitz
 
 @pytest.fixture(scope="module", params=CASES)
@@ -197,12 +198,11 @@ def test_engine_keeps_no_host_rows_and_reads_back_only_counts(mixed_store, owner
     the host window search; no array the engine, its buckets or its layouts
     hold has more than R + 1 elements (the store is the caller's, shared);
     after set-up the host store's rows can go, and the outputs still equal
-    the numpy engine's; and a fused query reads back nothing where every
-    record's rows in the engine are within its cap, and only its candidate
-    counts, int32 [2, Q] tensors, under a cap it cannot prove: one read a
-    call that launches chunks or a batch, after that call's launches, so
-    as many reads as such calls plus the chunks over the cap that halving
-    reruns (``torch``: the two bounds of each chunk)."""
+    the numpy engine's; and a fused query reads back nothing, at the
+    default cap and at a cap of 64 that chunks pass (launching as many
+    kernels at either), while its ``last_stats``, read after it, reads
+    only candidate counts, int32 [2, Q] tensors (``torch``: the two bounds
+    of each chunk)."""
     def refuse(*args, **kwargs):
         raise AssertionError("the engine searched the host")
 
@@ -254,6 +254,8 @@ def test_engine_keeps_no_host_rows_and_reads_back_only_counts(mixed_store, owner
 
     monkeypatch.setattr(engine_mod, "fused_query_rows", kernel)
 
+    stats_reads = []
+
     def queries():
         for k, outs in want.items():
             recording[0] = True
@@ -266,66 +268,42 @@ def test_engine_keeps_no_host_rows_and_reads_back_only_counts(mixed_store, owner
             recording[0] = False
             for g, w in zip(got, outs):
                 np.testing.assert_array_equal(g.numpy(), w)
+            n_reads = len(reads)
+            recording[0] = True
+            eng.last_stats.as_dict()
+            recording[0] = False
+            stats_reads.extend(reads[n_reads:])
+            del reads[n_reads:]
 
     queries()
     if owner.startswith("torch"):
         assert reads and all(r == ("tolist", torch.int64, (2,)) for r in reads), reads
         return
-    assert launches and not reads, (reads, launches)  # the default cap holds every record
+    assert launches and not reads, (reads, launches)
+    count_reads = [r for r in stats_reads if r[0] == "tolist" and r[1] == torch.int32
+                   and len(r[2]) == 2 and r[2][0] == 2]
+    assert count_reads and count_reads == stats_reads, stats_reads
 
-    # A cap of 64, below chrA's rows in every engine that has some: with the
-    # card's count copy stood in for, every call that launches a query's
-    # chunks (or a batch) makes one wait and one read, after all its
-    # launches; each chunk over the cap is halved by one call of its own
-    # (a batch over the cap runs per window, calls of their own).
+    # A cap of 64, below chrA's rows in every engine that has some, which
+    # chunks pass: with the card's count copy stood in for, the queries make
+    # as many launches and read and wait on nothing; their stats, read
+    # after each, read only candidate counts (more of them: the halving's).
     class Copied:
         def synchronize(self):
             log.append(("wait",))
 
-    def framed(kind, real):
-        def run(*args, **kwargs):
-            log.append(("enter", kind))
-            try:
-                return real(*args, **kwargs)
-            finally:
-                log.append(("exit",))
-
-        return run
-
     monkeypatch.setattr(engine_mod, "_copy_back", lambda t: (t, Copied()))
-    monkeypatch.setattr(engine_mod, "_fused_chunks", framed("chunks", engine_mod._fused_chunks))
-    monkeypatch.setattr(QueryEngine, "_batch_tensor", framed("batch", QueryEngine._batch_tensor))
     for engine in (eng, *(child for _, child in eng._children or [])):
         engine.max_intervals = 64
     if owner == "resident":
         holder._full_cache.clear()
-    reads.clear()
-    log.clear()
+    n_launches, n_count_reads = len(launches), len(stats_reads)
+    for held in (reads, log, launches, stats_reads):
+        held.clear()
     queries()
-    assert reads and all(m == "tolist" and dt == torch.int32 and len(shape) == 2
-                         and shape[0] == 2 for m, dt, shape in reads), reads
-    root = {"kind": None, "events": [], "calls": []}
-    stack = [root]
-    for event in log:
-        if event[0] == "enter":
-            stack.append({"kind": event[1], "events": [], "calls": []})
-            stack[-2]["calls"].append(stack[-1])
-        elif event[0] == "exit":
-            stack.pop()
-        else:
-            stack[-1]["events"].append(event)
-    assert stack == [root] and root["events"] == [] and root["calls"], log
-
-    def count(call) -> int:
-        """The reads of ``call`` and of the calls it made."""
-        *own, wait, (what, counts) = call["events"]
-        assert own and all(e == ("launch",) for e in own) and wait == ("wait",), call["events"]
-        over = sum(max(m, p) > 64 for m, p in zip(*counts))
-        assert len(call["calls"]) == (over if call["kind"] == "chunks" else 0), (over, call)
-        return 1 + sum(map(count, call["calls"]))
-
-    halved = sum(count(call) - 1 for call in root["calls"])
-    assert halved and len(reads) == len(root["calls"]) + halved, (len(reads), halved)
+    assert not reads and ("wait",) not in log and len(launches) == n_launches, (reads, log)
+    assert all(r[0] == "tolist" and r[1] == torch.int32 and len(r[2]) == 2 and r[2][0] == 2
+               for r in stats_reads) and len(stats_reads) > n_count_reads, stats_reads
 
 
 @pytest.mark.parametrize("cap", ["provable", "small"])
@@ -334,16 +312,14 @@ def test_engine_keeps_no_host_rows_and_reads_back_only_counts(mixed_store, owner
 @pytest.mark.parametrize("stratify", [True, False], ids=["stratified", "whole"])
 def test_chunked_query_reads_counts_once(mixed_store, stratify, kind, counts_on, cap, monkeypatch):
     """A query over seven full position chunks and a shorter last one finds
-    every chunk's parameters first, with one launch a chunk in every live
-    bucket. Where every live bucket's rows of the record are within the cap
-    ("provable"), it reads no count and waits on nothing. Under a cap below
-    bucket 0's rows but above every chunk's candidates ("small"), it reads
-    the counts of the buckets it cannot bound, an int32 [2, 8] tensor, once:
-    where the counts are on the host at once (the CPU) the read comes
-    first; where they come back from the card ("card": the copy's event
-    stood in for) every live bucket's eight kernels are launched before the
-    host waits on the copy and reads. The output equals memo_tpu's numpy
-    engine."""
+    every chunk's parameters first, then launches one kernel a chunk in
+    every live bucket, and reads no count and waits on nothing, at the
+    default cap ("provable": every live bucket's rows of the record within
+    it) and at a cap of 64 that chunks pass ("small"), where the counts are
+    on the host at once (the CPU) and where they would come back from the
+    card ("card": the copy's event stood in for). The output equals
+    memo_tpu's numpy engine; ``last_stats``, read after it, reads int32
+    [2, n] counts and equals memo_tpu's at the same cap."""
     from memo_tpu_torch.query import engine as engine_mod
 
     store = _copy(mixed_store, kind=kind)
@@ -351,13 +327,12 @@ def test_chunked_query_reads_counts_once(mixed_store, stratify, kind, counts_on,
                       device="cpu", device_output=True)
     oracle = JaxEngine(store, backend="numpy")
     engines = [child for _, child in eng._children] if stratify else [eng]
-    rows = [int(np.diff(e._layout.rec_offsets)[0]) for e in engines]  # chrA's rows in each
     if cap == "small":
         for engine in (eng, *engines):
-            engine.max_intervals = rows[0] - 1
+            engine.max_intervals = 64
         worst = max(int(engines[0]._window_params("chrA", [qs], 128, k).counts.max())
                     for qs in range(0, 900, 128) for k in (31, 200))
-        assert worst <= rows[0] - 1, (worst, rows)  # no chunk over the cap: no halving
+        assert worst > 64, worst  # chunks over the cap, launched whole
     events, recording = [], [False]
 
     class Copied:
@@ -391,12 +366,12 @@ def test_chunked_query_reads_counts_once(mixed_store, stratify, kind, counts_on,
         recording[0] = False
         np.testing.assert_array_equal(got.numpy(), getattr(oracle, kind)("chrA", 0, 900, k))
         live = [e for lb, e in eng._children or [(0, eng)] if lb < k - 1]
-        launches = [("launch",)] * (8 * len(live))
-        unbounded = sum(int(np.diff(e._layout.rec_offsets)[0]) > e.max_intervals for e in live)
-        if cap == "provable":
-            assert unbounded == 0 and events == launches, events
-            continue
-        assert unbounded == 1
-        read = [("read", torch.int32, (2, 8))]
-        want = read + launches if counts_on == "host" else launches + [("wait",)] + read
-        assert events == want, events
+        assert events == [("launch",)] * (8 * len(live)), events
+        events.clear()
+        recording[0] = True
+        stats = eng.last_stats.as_dict()
+        recording[0] = False
+        assert events and all(e[:2] == ("read", torch.int32) and e[2][0] == 2 for e in events)
+        assert stats == memo_tpu_stats(store, "chrA", k, chunk_positions=128, stratify=stratify,
+                                       cap=engines[0].max_intervals, region=(0, 900),
+                                       membership=kind == "membership")
