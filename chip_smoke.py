@@ -7,8 +7,9 @@ Builds the CUDA kernels from ``memo_tpu_torch/csrc`` (v1 ``fused_query_rows``
 and v2 ``fused_query_v2_rows``, both reading the placed store's rows, and
 ``window_params``, which finds their parameters on the card), holds each
 against its plain PyTorch version on random stores with edge cases, one and
-three windows per launch (the window parameters also against the numpy
-searches, at every launch this script makes), runs the twin of
+three windows per launch, up to 1000 columns in two column groups (the
+window parameters also against the numpy searches, at every launch this
+script makes), runs the twin of
 ``__graft_entry__.entry()`` (phase 11), and drives the query paths: the
 single-window path through the CLI at the headline size (2 Mbp pivot, 16
 genomes, k=31), its wall split into stages (store load, engine set-up,
@@ -36,7 +37,10 @@ HPRC-width store (90 genomes, ~75M intervals; set-up stages and memory,
 bucket 0's card layout and window parameters == numpy, a CLI ``-r`` query
 of its index split into stages), a 160-genome store and dense_small
 (tools/kernel_lab.py's 256 Kbp, 90-genome store) through the stratified
-engine with v2, bucket 0 timed with both kernels; a membership store; and
+engine with v2, bucket 0 timed with both kernels; a 1000-genome store
+(phase 13), wider than one launch takes, through the engine with each
+kernel in column groups, both modes, spot windows against the reference
+loops; a membership store; and
 the multi-device layer (phase 10): this script run again under ``torchrun
 --nproc-per-node <device count>`` in an NCCL process group, where the dry
 run, the CLI's ``--regions-file --mesh 1,<n>`` with three strategies and
@@ -49,7 +53,9 @@ longest rows == numpy (eight 2 Mbp windows, windows at and past the
 record's end and past 100M, k in 1/21/31/101), eight 2 Mbp windows with
 each kernel (set-up stages, host RSS, set-up peak and steady device
 bytes, beside the sentinel pad bytes reckoned from the bucket rows), a
-query of eight position chunks equal to the batch of them,
+query of eight position chunks equal to the batch of them, the record as
+one batch of 128,000 1 kbp tiles (two window groups a launch) equal to
+the windows, the reference loop and resident's whole record,
 resident over the whole record, set up from the saved .npz with no column
 read on the host (set-up stages, host RSS it adds, peak, steady and pad
 device bytes;
@@ -105,6 +111,11 @@ MEMB_LEN = 200_000  # membership store pivot length
 MEMB_DOCS = 16
 BATCH_WINDOWS, BATCH_LEN = 16, 1 << 20
 WIDE_DOCS, WIDE_LEN = 160, 1 << 19
+# The wide cell (phase 13): 1000 genomes over a 256 Kbp pivot, wider than
+# one launch of either kernel takes (v1 854 columns, v2 819).
+C1000_DOCS, C1000_LEN, C1000_GAP = 1000, 1 << 18, 30
+C1000_GROUPS = 2  # launches of either kernel a call takes at C = 1000
+C1000_SPOT = 1 << 13
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores, for int32 ALU work
 OVER_CAP = 1 << 20  # a candidate cap the headline window exceeds (phase 3)
@@ -128,6 +139,8 @@ MESH_TIMEOUT_S = 300  # the torchrun of phase 10, start to end
 MESH_CHILD = "--mesh-child"  # argv[1] of the ranks phase 10 starts
 SETUP_CELLS = "--setup-cells"  # argv[1]: the set-up cells alone, for an A/B of two trees
 HOST_SPLIT = "--host-split"  # argv[1]: how a headline query's host time splits, alone
+DENSE_FUNCTION = "--dense-function"  # argv[1]: dense_small's kernel functions alone, for an A/B
+DENSE_ROUNDS = 10  # rounds of dense_function: one CUDA-event timing and one trace a function
 # The chromosome-scale index (phase 12): SCALE_r05.json's configuration, a
 # 128 Mbp pivot at HPRC width (90 haplotypes, 432,249,312 intervals there),
 # from synth_ms's anchors at the gap that gives its density.
@@ -136,6 +149,7 @@ CHROM_INTERVALS = 432_249_312  # SCALE_r05.json "intervals"
 CHROM_CHUNK = 1 << 22  # MS rows generated and extracted at a time
 CHROM_WINDOWS, CHROM_WINDOW = 8, 1 << 21  # SCALE_r05's eight 2 Mbp windows
 CHROM_REPS = 5
+CHROM_TILE = 1000  # the record in 1 kbp tiles: 128,000 windows in one batch
 # A query longer than the engine's position chunk: seven full 2 Mbp chunks
 # and a shorter last one, from window 3's start.
 CHUNKED_CHUNKS, CHUNKED_TAIL_CUT = 8, 12_345
@@ -676,7 +690,8 @@ def phase_build() -> None:
     check(load_libms() is not None, f"libms (the index builder's MS library) built: {build_error()}")
     libms_s = time.perf_counter() - t0
     log = (lib.parent / "build.log").read_text() if (lib.parent / "build.log").exists() else ""
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "Compiling entry" in ln]
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if any(word in ln for word in ("registers", "Compiling entry", "spill"))]
     emit("phase1_build", seconds=seconds, libms_seconds=libms_s, library=os.path.relpath(lib),
          ptxas=ptxas)
 
@@ -764,12 +779,15 @@ def kernel_functions() -> dict:
 
 def phase_kernels(device) -> dict[str, int]:
     """Both kernels (v1 fused_query_rows, v2 fused_query_v2_rows) against
-    fused_query_rows_reference on random stores at C = 16/90/160 (256-position
-    tiles) and 257 (128): k in {1, 2, 31}, one window at a record's start, at
-    its end (the rows after it are the next record's), of one position, of
-    an empty record and of a whole 200 Kbp record, and three windows per
-    launch at the longest length (one runs past the record's end); both
-    kinds. Prints one line for v1 (phase 2) and one for v2 (phase 6)."""
+    fused_query_rows_reference over all columns, on random stores at
+    C = 16/90/160 (256-position tiles), 257 (128) and 1000 (the wrapper
+    launches two column groups of 500, 64-position tiles; the launches of
+    each call counted): k in {1, 2, 31}, one window at a
+    record's start, at its end (the rows after it are the next record's),
+    of one position, of an empty record and of a whole 200 Kbp record, and
+    three windows per launch at the longest length (one runs past the
+    record's end); both kinds. Prints one line for v1 (phase 2) and one for
+    v2 (phase 6)."""
     from memo_tpu_torch.query.engine import QueryEngine
 
     rng = np.random.default_rng(SEED)
@@ -777,10 +795,12 @@ def phase_kernels(device) -> dict[str, int]:
     singles = (("chr0", [(0, 4096 + 17)]), ("chr0", [(rec_len - 777, rec_len)]),
                ("chr1", [(5555, 5556)]), ("chr2", [(0, 1000)]), ("chr1", [(0, rec_len)]))
     batch = ("chr0", [(0, 3000), (rec_len - 1000, rec_len), (77_777, 77_778)])
-    widths = (16, 90, 160, 257)
+    widths = (16, 90, 160, 257, 1000)
     kernels = kernel_functions()
     errors = {name: [] for name in kernels}
+    groups = {name: [] for name in kernels}
     for C in widths:
+        before = {name: fn.launches for name, fn in kernels.items()}
         for kind in ("conservation", "membership"):
             eng = QueryEngine(random_store(rng, C, kind, rec_len), device=device, stratify=False)
             for k in (1, 2, 31):
@@ -789,10 +809,16 @@ def phase_kernels(device) -> dict[str, int]:
                                                  kernels).items():
                         errors[name].append(err)
             del eng
+        calls = 2 * 3 * (len(singles) + 1)
+        for name, fn in kernels.items():
+            launched = fn.launches - before[name]
+            want = (C1000_GROUPS if C == C1000_DOCS else 1) * calls
+            check(launched == want, f"{name} C={C}: {launched} launches, want {want}")
+            groups[name].append(launched // calls)
     worst = {name: max(errs) for name, errs in errors.items()}
     for phase, name in (("phase2_kernels", "v1"), ("phase6_kernels_v2", "v2")):
         emit(phase, cases=len(errors[name]), max_abs_err=worst[name], widths=list(widths),
-             k=[1, 2, 31], windows_per_launch=[1, 3])
+             column_groups=groups[name], k=[1, 2, 31], windows_per_launch=[1, 3])
     return worst
 
 
@@ -1837,6 +1863,127 @@ def pad_bytes(engines) -> dict:
     return {"bucket_rows": rows, "placed_pad_bytes": placed, "pow2_capped_pad_bytes": pow2}
 
 
+def wide_function(engine, version: str, membership: bool, wp, L: int) -> dict:
+    """``version``'s kernel function (:func:`kernel_functions`, its
+    column groups' launches counted) on the windows of ``wp``: exact
+    against the plain version over all columns; its device operations
+    counted by CUDA graph capture (the groups' kernels alone); its device time,
+    the plain version's and its bound (12 bytes a candidate row read once,
+    plus the output)."""
+    from memo_tpu_torch.ops.fused_query import fused_query_rows_reference
+
+    C = engine.n_docs
+    fn = kernel_functions()[version]
+    kw = dict(k=K, L=L, C=C, n_docs=C, membership=membership)
+
+    def run():
+        return fn(engine._d, wp.params, wp.prefix, **kw)
+
+    want = fused_query_rows_reference(engine._d, wp.params, wp.prefix, **kw)
+    before = fn.launches
+    got = run()
+    groups = fn.launches - before
+    err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+    where = f"C={C} {version} membership={membership}"
+    check(err == 0, f"{where}: the grouped kernel function != the plain version")
+    check(groups == C1000_GROUPS, f"{where}: {groups} launches, want {C1000_GROUPS}")
+    del got, want
+    per_group = len(V1_KERNELS) if version == "v1" else len(V2_KERNELS)
+    graph = graph_ops(run)
+    want_graph = {"kernel": groups * per_group}
+    check(graph == want_graph, f"{where}: device operations {graph}, want {want_graph}")
+    ms = kernel_ms(run, reps=5)
+    plain = kernel_ms(lambda: fused_query_rows_reference(engine._d, wp.params, wp.prefix, **kw),
+                      reps=2)
+    n_win = wp.params.shape[0]
+    rows = int(wp.counts.sum())
+    n_bytes = rows * 12 + n_win * L * (C if membership else 4) + (5 + C) * n_win * 4
+    n_ops = n_win * L * C + rows  # one scan add per (position, column), one atomic per row
+    bound, bound_by = bound_ms(n_bytes, n_ops)
+    return {"version": version, "membership": membership, "C": C, "L": L, "windows": n_win,
+            "candidate_rows": rows, "column_groups": groups, "graph": graph,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain, "bytes": n_bytes, "ops": n_ops,
+            "bound_ms": bound, "bound_by": bound_by, "bound_share": bound / ms}
+
+
+def phase_wide(device, card: str) -> dict:
+    """The wide cell: synth_ms at 1000 genomes over a 256 Kbp pivot (gap
+    30, as phase 8 builds n160), through the default engine with v1 and with
+    v2: the whole pivot in both modes (the kernel launched per column
+    group; launches counted), spot windows exact against the reference
+    loops, v2 == v1; walls; then on the bucket that marks at k=31, each
+    kernel function in both modes (:func:`wide_function`). Prints its line
+    beside the card's name and power limit."""
+    from memo_tpu_torch.index.builder import store_from_ms
+    from memo_tpu_torch.ops.fused_query import fused_query_rows
+    from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2_rows
+    from memo_tpu_torch.query.engine import QueryEngine
+    from memo_tpu_torch.query.window import window_params
+
+    L, C = C1000_LEN, C1000_DOCS
+    t0 = time.perf_counter()
+    ms = synth_ms(np.random.default_rng(SEED), L, C - 1, K, gap=C1000_GAP)
+    build_ms_s = time.perf_counter() - t0
+    store = store_from_ms([ms], ["chr1"], [L], C, "conservation")
+    del ms
+    build_s = time.perf_counter() - t0
+    spots = ((L // 4, C1000_SPOT), (L - C1000_SPOT - 5, C1000_SPOT))
+    engines, first, functions = {}, None, {}
+    for version in ("v1", "v2"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng, init_s, stages = timed_stages(lambda: QueryEngine(
+            store, device=device, device_output=True, kernel_version=version))
+        steady = torch.cuda.memory_allocated()
+        live = [c for lb, c in (eng._children or [(0, eng)]) if lb < K - 1]
+        fused_query_rows.launches = fused_query_v2_rows.launches = window_params.launches = 0
+        outs = (eng.conservation("chr1", 0, L, K), eng.membership("chr1", 0, L, K))
+        sync(device)
+        launched = (fused_query_rows if version == "v1" else fused_query_v2_rows).launches
+        window_launches = window_params.launches
+        want = 2 * C1000_GROUPS * len(live)
+        check(launched == want, f"C={C} {version}: {launched} launches, want {want} "
+                                "(both modes, each column group of each live bucket)")
+        check(tuple(outs[0].shape) == (L,) and tuple(outs[1].shape) == (L, C),
+              f"C={C} {version} output shapes")
+        outs = tuple(o.cpu().numpy() for o in outs)
+        for qs, n in spots:
+            check(np.array_equal(outs[0][qs:qs + n], reference_query_np(store, qs, qs + n, K)),
+                  f"C={C} {version} conservation spot {qs}-{qs + n} == reference loop")
+            check(np.array_equal(outs[1][qs:qs + n],
+                                 reference_membership_np(store, qs, qs + n, K)),
+                  f"C={C} {version} membership spot {qs}-{qs + n} == reference loop")
+        if first is None:
+            first = outs
+        else:
+            check(all(np.array_equal(a, b) for a, b in zip(first, outs)), f"C={C} v2 == v1")
+        walls = {mode: spread_ms(walls_s(lambda: getattr(eng, mode)("chr1", 0, L, K), device,
+                                         reps=HPRC_REPS))
+                 for mode in ("conservation", "membership")}
+        if version == "v1":  # both kernel functions on the bucket that marks
+            wp, n = v1_inputs(live[0], "chr1", [(0, L)], K)
+            functions = {f"{v}_{mode}": wide_function(live[0], v, mode == "membership", wp, n)
+                         for v in ("v1", "v2") for mode in ("conservation", "membership")}
+            del wp
+        engines[version] = {"engine_init_s": init_s, "engine_init_stages": stages,
+                            "stratified": eng._children is not None, "live_buckets": len(live),
+                            "steady_device_bytes": steady,
+                            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                            "launches": launched, "window_launches": window_launches,
+                            "wall_ms": walls, "mbp_s": {m: L / w["median"] / 1e3
+                                                        for m, w in walls.items()}}
+        del eng, live, outs
+    del first
+    torch.cuda.empty_cache()
+    fields = {"C": C, "L": L, "k": K, "gap": C1000_GAP, "intervals": store.num_intervals,
+              "ms_build_s": build_ms_s, "store_build_s": build_s,
+              "column_groups": C1000_GROUPS,
+              "spot_windows_exact": [list(s) for s in spots], "engines": engines,
+              "functions": functions}
+    emit("phase13_wide", card=card, **fields)
+    return fields
+
+
 def chromosome_windows() -> list[tuple[int, int]]:
     """SCALE_r05's eight 2 Mbp windows: starts at linspace(0, L - 2^21, 8)."""
     starts = np.linspace(0, CHROM_LEN - CHROM_WINDOW, CHROM_WINDOWS).astype(np.int64)
@@ -1861,6 +2008,64 @@ def chunked_query(engine, device, check_batch: bool = True) -> dict:
     walls = walls_s(lambda: engine.conservation("chr1", qs, qe, K), device)
     return {"window": [qs, qe], "chunks": CHUNKED_CHUNKS, "equal_to_batch": check_batch,
             "wall_ms": spread_ms(walls)}
+
+
+def tile_batch(engine, device, store, wins, outs) -> tuple[dict, np.ndarray]:
+    """The chromosome record as one batch of 1 kbp tiles (128,000 windows,
+    more than one launch takes) through ``conservation_batch``: one window
+    step per live bucket, the kernel launched per window group; the tiles
+    inside the eight 2 Mbp windows ``wins`` == the engine's outputs ``outs``
+    of them, spot tiles == the reference loop; walls of the call (a list of
+    per-tile views) and of its one device tensor (``_batch_tensor``).
+    Returns the record and the tiles' conservation on the host, [128M]."""
+    from memo_tpu_torch.ops import fused_query
+    from memo_tpu_torch.ops.fused_query import fused_query_rows
+    from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2_rows
+    from memo_tpu_torch.query.window import window_params
+
+    tiles = [(qs, qs + CHROM_TILE) for qs in range(0, CHROM_LEN, CHROM_TILE)]
+    n = len(tiles)
+    check(n > fused_query.MAX_WINDOWS, f"{n} tiles: more than one launch takes")
+    live = [c for lb, c in engine._children if lb < K - 1]
+    run = fused_query_rows if engine.kernel_version == "v1" else fused_query_v2_rows
+    launches, steps = run.launches, window_params.launches
+    got = engine.conservation_batch("chr1", tiles, K)
+    sync(device)
+    groups = -(-n // fused_query.MAX_WINDOWS)
+    launches, steps = run.launches - launches, window_params.launches - steps
+    check(launches == groups * len(live) and steps == len(live),
+          f"{n} tiles: {launches} launches and {steps} window steps, want {groups} a bucket "
+          f"and one, over {len(live)} live bucket(s)")
+    check(len(got) == n and all(tuple(t.shape) == (CHROM_TILE,) for t in got), "tile shapes")
+    host = torch.stack(got).cpu().numpy()
+    del got
+    inside = 0
+    for (ws, we), out in zip(wins, outs):
+        t0, t1 = -(-ws // CHROM_TILE), we // CHROM_TILE
+        check(np.array_equal(host[t0:t1].reshape(-1), out[t0 * CHROM_TILE - ws:t1 * CHROM_TILE - ws]),
+              f"tiles {t0}-{t1} == the engine's window {ws}-{we}")
+        inside += t1 - t0
+    spot_tiles = (0, n * 25 // 32 + 1, n - 1)  # the middle one past 100M at 128 Mbp
+    for t in spot_tiles:
+        check(np.array_equal(host[t], reference_query_np(store, *tiles[t], K)),
+              f"tile {tiles[t]} == reference loop")
+    walls = walls_s(lambda: engine.conservation_batch("chr1", tiles, K), device, reps=3)
+    tensor_walls = walls_s(lambda: engine._batch_tensor("chr1", tiles, K, False), device, reps=3)
+    # The bucket's window step and kernel function apart (back-to-back calls).
+    starts = [qs for qs, _ in tiles]
+    wp = live[0]._window_params("chr1", starts, CHROM_TILE, K)
+    step_ms = kernel_ms(lambda: live[0]._window_params("chr1", starts, CHROM_TILE, K), reps=3)
+    function_ms = kernel_ms(lambda: live[0]._run_kernel(wp, K, CHROM_TILE, False), reps=3)
+    rows = int(wp.counts.sum())
+    bound, bound_by = bound_ms(rows * 12 + n * CHROM_TILE * 4 + wp.params.numel() * 4
+                               + wp.prefix.numel() * 4, n * CHROM_TILE * engine.n_docs + rows)
+    return {"version": engine.kernel_version, "windows": n, "window_len": CHROM_TILE,
+            "launches": launches, "window_groups": groups, "window_steps": steps,
+            "tiles_inside_windows_exact": inside, "spot_tiles_exact": list(spot_tiles),
+            "batch_wall_ms": spread_ms(walls), "batch_tensor_wall_ms": spread_ms(tensor_walls),
+            "mbp_s": CHROM_LEN / statistics.median(walls) / 1e6, "window_step_ms": step_ms,
+            "function_ms": function_ms, "candidate_rows": rows, "function_bound_ms": bound,
+            "function_bound_by": bound_by}, host.reshape(-1)
 
 
 def rss_bytes() -> int:
@@ -2061,7 +2266,7 @@ def phase_chromosome(device, tmp: str):
     edges = [(CHROM_LEN - 1000, CHROM_LEN), (CHROM_LEN - 7, CHROM_LEN + 5000),
              (CHROM_LEN, CHROM_LEN + 64), (CHROM_LEN + 100_000, CHROM_LEN + 100_001)]
     launches = {"v1": 0, "v2": 0, "window": 0}
-    engines, outs = {}, None
+    engines, outs, tiled, tiles_host = {}, None, {}, None
     for version in ("v1", "v2"):
         torch.cuda.reset_peak_memory_stats()
         fused_query_rows.launches = fused_query_v2_rows.launches = 0
@@ -2094,6 +2299,12 @@ def phase_chromosome(device, tmp: str):
                                        reps=CHROM_REPS))
             rows.append(eng.last_stats.candidate_intervals)
         chunked = chunked_query(eng, device)
+        tiled[version], tiles = tile_batch(eng, device, store, wins, outs)
+        if tiles_host is None:
+            tiles_host = tiles
+        else:
+            check(np.array_equal(tiles, tiles_host), "v2's tiles == v1's")
+        del tiles
         if version == "v1":  # k=51: buckets 0 and 32 live, whole, with no read or wait
             no_wait = no_wait_query(eng, "chr1", *wins[3], 51, plain=True)
             check(len(no_wait["candidates_by_bucket"]) == 2, "two buckets live at k=51")
@@ -2122,7 +2333,8 @@ def phase_chromosome(device, tmp: str):
     launches["window"] += resident["launches"]["window"]
     for (qs, qe), out in zip(wins, outs):
         check(np.array_equal(cons[qs:qe], out), f"resident window {qs}-{qe} == the engine's")
-    del cons
+    check(np.array_equal(cons, tiles_host), "the 128,000 tiles == resident's whole record")
+    del cons, tiles_host
     torch.cuda.empty_cache()
     streamed = streamed_columns_check(store, npz, device)
     R = store.num_records
@@ -2191,7 +2403,7 @@ def phase_chromosome(device, tmp: str):
                                if k in ("position", "interval")},
          regions_cli_peak_device_bytes=regions_peak, auto_resolved="resident",
          regions_byte_identical=True, launches=launches, window_kernel=window_fn,
-         no_wait_query_k51=no_wait)
+         no_wait_query_k51=no_wait, tile_batch=tiled, tiles_equal_resident=True)
     whole = resident["whole_record_max_abs_err"].values()
     return ({v: engines[v]["functions"][q] for v in ("v1", "v2")} | {"window": window_fn}, launches,
             {v: max(errors[v] for errors in whole) for v in ("v1", "v2")})
@@ -2387,8 +2599,12 @@ STAMPED = (
     ("memo_tpu_torch.query.engine", None, "fused_query_v2_rows"),
     ("memo_tpu_torch.query.window", None, "launch"),
     ("memo_tpu_torch.ops.fused_query", None, "check_rows_launch"),
+    ("memo_tpu_torch.ops.fused_query", None, "launch_groups"),
+    ("memo_tpu_torch.ops.fused_query", None, "_launch_group"),
     ("memo_tpu_torch.ops.fused_query", None, "launch"),
     ("memo_tpu_torch.ops.fused_query_v2", None, "check_rows_launch"),
+    ("memo_tpu_torch.ops.fused_query_v2", None, "launch_groups"),
+    ("memo_tpu_torch.ops.fused_query_v2", None, "_launch_group"),
     ("memo_tpu_torch.ops.fused_query_v2", None, "launch"),
 )
 
@@ -2610,6 +2826,7 @@ def main() -> int:
         large = phase_hprc(device, tmp)
         wide = phase_full_width(device, large)
         del large
+        c1000 = phase_wide(device, card)
         phase_membership(device)
         phase_mesh(tmp, singles)
         chrom, chrom_launches, chrom_err = phase_chromosome(device, tmp)
@@ -2631,9 +2848,11 @@ def main() -> int:
         "route": "cuda",
         "source": "memo_tpu_torch/csrc/fused_query.cu",
         "replaces": "memo_tpu/ops/pallas_query.py:236",
-        "launches": launches["v1"] + chrom_launches["v1"],
+        "launches": launches["v1"] + chrom_launches["v1"] + c1000["engines"]["v1"]["launches"],
         "max_abs_err": max(kernel_err["v1"], chrom_err["v1"],
-                           *(c["max_abs_err"] for c in cells["v1"].values())),
+                           *(c["max_abs_err"] for c in cells["v1"].values()),
+                           *(f["max_abs_err"] for f in c1000["functions"].values()
+                             if f["version"] == "v1")),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
@@ -2644,9 +2863,11 @@ def main() -> int:
         "route": "cuda",
         "source": "memo_tpu_torch/csrc/fused_query_v2.cu",
         "replaces": "memo_tpu/ops/pallas_query_v2.py:301",
-        "launches": v2_launches + chrom_launches["v2"],
+        "launches": v2_launches + chrom_launches["v2"] + c1000["engines"]["v2"]["launches"],
         "max_abs_err": max(kernel_err["v2"], chrom_err["v2"],
-                           *(c["max_abs_err"] for c in cells["v2"].values())),
+                           *(c["max_abs_err"] for c in cells["v2"].values()),
+                           *(f["max_abs_err"] for f in c1000["functions"].values()
+                             if f["version"] == "v2")),
         "ms": head_v2["ms"],
         "plain_ms": head_v2["plain_ms"],
         "bound_ms": head_v2["bound_ms"],
@@ -2658,7 +2879,8 @@ def main() -> int:
         "source": "memo_tpu_torch/csrc/window_params.cu",
         # No TPU kernel: memo_tpu searches the host (engine.py:385-400).
         "replaces": "memo_tpu/query/engine.py:385",
-        "launches": launches["window"] + chrom_launches["window"],
+        "launches": launches["window"] + chrom_launches["window"]
+        + sum(e["window_launches"] for e in c1000["engines"].values()),
         "max_abs_err": WINDOW_CHECKS["max_abs_err"],
         "ms": head_window["ms"],
         "plain_ms": head_window["plain_ms"],
@@ -2673,6 +2895,49 @@ def main() -> int:
     return 0
 
 
+def dense_function_main() -> int:
+    """``--dense-function``: the v1 and v2 functions on dense_small's
+    bucket-0 window (as phase 8 runs them), on the ``memo_tpu_torch`` beside
+    this file (so a copy of this script in another tree measures that
+    tree's), each exact against the plain version, then DENSE_ROUNDS
+    rounds, v1 and v2 in turn: the function's device time by CUDA events
+    over KERNEL_REPS back-to-back calls (:func:`kernel_ms`) and each of its
+    kernels' device time from one profiler trace (:func:`device_ops`), so
+    that a slower call with the same kernel times is told apart as host
+    time. Prints one line, ``dense_function {...}``, beside the card."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    from memo_tpu_torch.index.builder import store_from_ms
+    from memo_tpu_torch.query.engine import QueryEngine
+
+    device = torch.device("cuda")
+    ms = synth_ms(np.random.default_rng(SEED), DENSE_LEN, DENSE_DOCS - 1, K, gap=25)
+    store = store_from_ms([ms], ["chr1"], [DENSE_LEN], DENSE_DOCS, "conservation")
+    del ms
+    eng = QueryEngine(store, backend="fused", device=device, chunk_positions=DENSE_LEN,
+                      max_intervals_per_chunk=1 << 25, device_output=True, kernel_version="v2")
+    child = eng._children[0][1] if eng._children else eng
+    fns = kernel_functions()
+    exact = kernel_case(child, "chr1", [(0, DENSE_LEN)], K, False, fns)
+    wp, L = v1_inputs(child, "chr1", [(0, DENSE_LEN)], K)
+    C = child.n_docs
+    out = {version: {"ms": [], "kernels_us": []} for version in fns}
+    for _ in range(DENSE_ROUNDS):
+        for version, fn in fns.items():
+            def run(fn=fn):
+                return fn(child._d, wp.params, wp.prefix, k=K, L=L, C=C, n_docs=C,
+                          membership=False)
+
+            out[version]["ms"].append(kernel_ms(run))
+            out[version]["kernels_us"].append(
+                device_ops(run, V1_KERNELS if version == "v1" else V2_KERNELS))
+    emit("dense_function", tree=os.path.dirname(os.path.abspath(__file__)),
+         card=gpu_name_and_power(), L=L, C=C, candidate_rows=int(wp.counts.sum()),
+         max_abs_err=exact, rounds=DENSE_ROUNDS, reps=KERNEL_REPS, **out)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == [MESH_CHILD]:
         raise SystemExit(mesh_child(sys.argv[2]))
@@ -2680,4 +2945,6 @@ if __name__ == "__main__":
         raise SystemExit(setup_cells(sys.argv[2]))
     if sys.argv[1:2] == [HOST_SPLIT]:
         raise SystemExit(host_split_main())
+    if sys.argv[1:2] == [DENSE_FUNCTION]:
+        raise SystemExit(dense_function_main())
     raise SystemExit(main())

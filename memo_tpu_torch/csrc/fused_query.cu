@@ -62,7 +62,10 @@
 //     wrapper's), then the three kernels; about 30 before.
 //
 // The store and the tile's scan and reduce live in tile.cuh, shared with v2
-// (csrc/fused_query_v2.cu).
+// (csrc/fused_query_v2.cu). A launch covers one column group of the store
+// (tile.cuh says how) and at most kMaxGridY windows; the wrapper
+// (memo_tpu_torch/ops/fused_query.py, launch_groups) launches wider stores
+// and larger batches as groups.
 //
 // The launcher runs on the caller's stream, does not synchronise and does not
 // allocate: the wrapper passes the scratch and the output.
@@ -115,43 +118,49 @@ __device__ void find_bounds(const Window& w, int p0, int p1, int* found) {
 }
 
 // Add the live events of rows [lo, hi) at positions [base, base + T) into
-// dst[c * S + (p - base) * P]: a diff tile with P = 1, per-column sums with
-// S = 1 and P = 0. Reads the rows from device memory.
+// dst[c * S + (p - base) * P] (c within the column group [c0, c0 + C)): a
+// diff tile with P = 1, per-column sums with S = 1 and P = 0. Reads the rows
+// from device memory.
 template <bool kPlus>
-__device__ void scatter(const Stream& st, int lo, int hi, int base, int T, int k, int C, int* dst,
-                        int S, int P) {
+__device__ void scatter(const Stream& st, int lo, int hi, int base, int T, int k, int c0, int C,
+                        int* dst, int S, int P) {
   for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
     const int key = st.key[i];
-    const int c = live_column<kPlus>(key, st.partner[i], st.order[i], k, C);
+    const int c = live_column<kPlus>(key, st.partner[i], st.order[i], k, c0, C);
     const int p = key - st.shift - base;
     if (c >= 0 && p >= 0 && p < T) atomicAdd(&dst[c * S + p * P], kPlus ? 1 : -1);
   }
 }
 
 // Reduce the scattered diff tile cov[C][T + 1] from carry[C] (first[T] all
-// n_docs) and write the output of its first `rows` positions from out_row
-// (an index into out's Q * L positions). The caller has synchronised.
+// `none`) and write the output of its first `rows` positions from out_row
+// (an index into out's Q * L positions; membership rows ld bytes apart,
+// conservation plus c0, min-combined with out where c0 > 0). The caller has
+// synchronised.
 template <bool kMembership>
-__device__ void finish_tile(int* cov, int* carry, int* first, int T, int C, int rows, int n_docs,
-                            void* out, size_t out_row) {
+__device__ void finish_tile(int* cov, int* carry, int* first, int T, int C, int rows, int none,
+                            void* out, size_t out_row, int ld, int c0) {
   const int S = T + 1;
   const int warp = threadIdx.x >> 5;
   if constexpr (kMembership) {
     scan_tile<kWarps>(cov, carry, T, S, C, warp);
     __syncthreads();
-    reduce_membership<kWarps>(cov, S, C, rows, static_cast<int8_t*>(out) + out_row * C, warp);
+    reduce_membership<kWarps>(cov, S, C, rows, static_cast<int8_t*>(out) + out_row * ld, ld,
+                              warp);
   } else {
-    scan_conservation<kWarps>(cov, carry, first, T, S, C, n_docs, warp);
+    scan_conservation<kWarps>(cov, carry, first, T, S, C, none, warp);
     __syncthreads();
     int32_t* o = static_cast<int32_t*>(out) + out_row;
-    for (int p = threadIdx.x; p < rows; p += blockDim.x) o[p] = first[p];
+    for (int p = threadIdx.x; p < rows; p += blockDim.x) {
+      o[p] = conservation_out(o[p], first[p], c0);
+    }
   }
 }
 
 // One block per (tile, window): the tile's rows (minus lo, hi, plus lo, hi)
 // into bounds[q, t, 4] and its net events per column into delta[q, c, t].
 __global__ void __launch_bounds__(kNetThreads)
-rows_net_kernel(Store store, const int32_t* __restrict__ params, int C, int T, int k,
+rows_net_kernel(Store store, const int32_t* __restrict__ params, int c0, int C, int T, int k,
                 int32_t* __restrict__ bounds, int32_t* __restrict__ delta) {
   extern __shared__ int smem[];
   int* net = smem;       // [C]
@@ -164,8 +173,8 @@ rows_net_kernel(Store store, const int32_t* __restrict__ params, int C, int T, i
   for (int c = threadIdx.x; c < C; c += blockDim.x) net[c] = 0;
   find_bounds(w, base, base + T, found);
   __syncthreads();
-  scatter<false>(w.minus, found[0], found[1], base, T, k, C, net, 1, 0);
-  scatter<true>(w.plus, found[2], found[3], base, T, k, C, net, 1, 0);
+  scatter<false>(w.minus, found[0], found[1], base, T, k, c0, C, net, 1, 0);
+  scatter<true>(w.plus, found[2], found[3], base, T, k, c0, C, net, 1, 0);
   __syncthreads();
   const size_t tile = static_cast<size_t>(q) * nt + t;
   if (threadIdx.x < 4) bounds[tile * 4 + threadIdx.x] = found[threadIdx.x];
@@ -174,19 +183,19 @@ rows_net_kernel(Store store, const int32_t* __restrict__ params, int C, int T, i
   }
 }
 
-// carry[q, c, t] = prefix[q, c] + sum of delta[q, c, t'] over t' < t: one
-// block per (column, window), reading and writing its row of tiles
+// carry[q, c, t] = prefix[q * ld + c] + sum of delta[q, c, t'] over t' < t:
+// one block per (column, window), reading and writing its row of tiles
 // contiguously.
 __global__ void __launch_bounds__(kScanThreads)
 tile_scan_kernel(const int32_t* __restrict__ delta, const int32_t* __restrict__ prefix, int nt,
-                 int C, int32_t* __restrict__ carry) {
+                 int C, int ld, int32_t* __restrict__ carry) {
   __shared__ int warp_sum[kScanWarps];
   const int c = blockIdx.x;
   const int q = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const size_t row = (static_cast<size_t>(q) * C + c) * nt;
-  int running = prefix[static_cast<size_t>(q) * C + c];
+  int running = prefix[static_cast<size_t>(q) * ld + c];
   for (int first = 0; first < nt; first += kScanThreads) {
     const int t = first + threadIdx.x;
     const int v = t < nt ? delta[row + t] : 0;
@@ -219,7 +228,7 @@ template <bool kMembership>
 __global__ void __launch_bounds__(kThreads)
 rows_apply_kernel(Store store, const int32_t* __restrict__ params,
                   const int32_t* __restrict__ bounds, const int32_t* __restrict__ tile_carry,
-                  int L, int C, int T, int k, int n_docs, void* __restrict__ out) {
+                  int L, int c0, int C, int ld, int T, int k, int none, void* __restrict__ out) {
   extern __shared__ int smem[];
   int* cov = smem;                 // [C][T + 1]
   int* carry = cov + C * (T + 1);  // [C]
@@ -231,47 +240,50 @@ rows_apply_kernel(Store store, const int32_t* __restrict__ params,
   const int32_t* b = bounds + (static_cast<size_t>(q) * nt + t) * 4;
   const int base = t * T;
   for (int i = threadIdx.x; i < C * (T + 1); i += blockDim.x) cov[i] = 0;
-  for (int p = threadIdx.x; p < T; p += blockDim.x) first[p] = n_docs;
+  for (int p = threadIdx.x; p < T; p += blockDim.x) first[p] = none;
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     carry[c] = tile_carry[(static_cast<size_t>(q) * C + c) * nt + t];
   }
   __syncthreads();
-  scatter<false>(w.minus, b[0], b[1], base, T, k, C, cov, T + 1, 1);
-  scatter<true>(w.plus, b[2], b[3], base, T, k, C, cov, T + 1, 1);
+  scatter<false>(w.minus, b[0], b[1], base, T, k, c0, C, cov, T + 1, 1);
+  scatter<true>(w.plus, b[2], b[3], base, T, k, c0, C, cov, T + 1, 1);
   __syncthreads();
-  finish_tile<kMembership>(cov, carry, first, T, C, min(T, L - base), n_docs, out,
-                           static_cast<size_t>(q) * L + base);
+  finish_tile<kMembership>(cov, carry, first, T, C, min(T, L - base), none, out,
+                           static_cast<size_t>(q) * L + base, ld, c0);
 }
 
 template <bool kMembership>
 cudaError_t launch_apply(dim3 grid, size_t smem, cudaStream_t stream, const Store& store,
                          const int32_t* params, const int32_t* bounds, const int32_t* carry,
-                         int L, int C, int T, int k, int n_docs, void* out) {
+                         int L, int c0, int C, int ld, int T, int k, int none, void* out) {
   const cudaError_t err = cudaFuncSetAttribute(rows_apply_kernel<kMembership>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   rows_apply_kernel<kMembership><<<grid, kThreads, smem, stream>>>(store, params, bounds, carry, L,
-                                                                   C, T, k, n_docs, out);
+                                                                   c0, C, ld, T, k, none, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Query Q windows of L positions on `stream` from the placed store's six
-// row arrays (n_rows rows each). params is int32[Q, 5] (mlo, mhi, plo, phi,
-// qs per window), prefix int32[Q, C], out int32[Q, L] (conservation) or
-// int8[Q, L, C] (membership); scratch holds Q * nt * (4 + 2 * C) int32 words
-// with nt = ceil(L / tile). Returns the CUDA error code of the first call
-// that failed, 0 when all were accepted.
+// row arrays (n_rows rows each), over the store's columns [c0, c0 + G) of
+// its C. params is int32[Q, 5] (mlo, mhi, plo, phi, qs per window), prefix
+// int32[Q, C], out int32[Q, L] (conservation: c0 plus the group's first
+// marked column, or n_docs, min-combined with out where c0 > 0) or
+// int8[Q, L, C] (membership: columns [c0, c0 + G) written); scratch holds Q * nt * (4 + 2 * G) int32 words with
+// nt = ceil(L / tile). Returns the CUDA error code of the first call that
+// failed, 0 when all were accepted.
 extern "C" int memo_fused_query_rows(const int32_t* start, const int32_t* end,
                                      const int32_t* order, const int32_t* end_s,
                                      const int32_t* start_by_end, const int32_t* order_by_end,
                                      const int32_t* params, const int32_t* prefix,
                                      int32_t* scratch, void* out, int n_rows, int Q, int L, int C,
-                                     int k, int tile, int n_docs, int membership, void* stream) {
-  if (n_rows < 0 || Q < 1 || Q > kMaxGridY || L < 1 || C < 1 || k < 1 || tile < 32 ||
-      tile % 32 != 0 || tile > 32 * kMaxChunks) {
+                                     int c0, int G, int k, int tile, int n_docs, int membership,
+                                     void* stream) {
+  if (n_rows < 0 || Q < 1 || Q > kMaxGridY || L < 1 || c0 < 0 || G < 1 || c0 + G > C || k < 1 ||
+      tile < 32 || tile % 32 != 0 || tile > 32 * kMaxChunks) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -280,21 +292,24 @@ extern "C" int memo_fused_query_rows(const int32_t* start, const int32_t* end,
   const int nt = (L + T - 1) / T;
   const size_t tiles = static_cast<size_t>(Q) * nt;
   int32_t* bounds = scratch;            // [Q, nt, 4]
-  int32_t* delta = bounds + tiles * 4;  // [Q, C, nt]
-  int32_t* carry = delta + tiles * C;   // [Q, C, nt]
+  int32_t* delta = bounds + tiles * 4;  // [Q, G, nt]
+  int32_t* carry = delta + tiles * G;   // [Q, G, nt]
   const dim3 grid(nt, Q);
-  rows_net_kernel<<<grid, kNetThreads, (C + 4) * sizeof(int), s>>>(store, params, C, T, k, bounds,
-                                                                   delta);
+  rows_net_kernel<<<grid, kNetThreads, (G + 4) * sizeof(int), s>>>(store, params, c0, G, T, k,
+                                                                   bounds, delta);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  tile_scan_kernel<<<dim3(C, Q), kScanThreads, 0, s>>>(delta, prefix, nt, C, carry);
+  tile_scan_kernel<<<dim3(G, Q), kScanThreads, 0, s>>>(delta, prefix + c0, nt, G, C, carry);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem = (static_cast<size_t>(C) * (T + 1) + C + T) * sizeof(int);
+  const size_t smem = (static_cast<size_t>(G) * (T + 1) + G + T) * sizeof(int);
+  const int none = n_docs - c0;
   if (membership) {
-    return launch_apply<true>(grid, smem, s, store, params, bounds, carry, L, C, T, k, n_docs, out);
+    return launch_apply<true>(grid, smem, s, store, params, bounds, carry, L, c0, G, C, T, k,
+                              none, static_cast<int8_t*>(out) + c0);
   }
-  return launch_apply<false>(grid, smem, s, store, params, bounds, carry, L, C, T, k, n_docs, out);
+  return launch_apply<false>(grid, smem, s, store, params, bounds, carry, L, c0, G, C, T, k, none,
+                             out);
 }
 
 extern "C" const char* memo_cuda_error_string(int err) {

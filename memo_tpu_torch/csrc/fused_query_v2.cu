@@ -46,7 +46,8 @@
 // PERF.md).
 //
 // Bank conflicts as in v1: the tile is cov[C][T + 1], word (c, p) in bank
-// (c + p) % 32.
+// (c + p) % 32. As in v1, a launch covers one column group of the store
+// (tile.cuh), and the wrapper launches wider stores as groups.
 //
 // What it does not copy: the TPU kernel's band/full fold split
 // (pallas_query_v2.py:26-43, :175-263) exists because a step fold on the TPU
@@ -118,7 +119,8 @@ __device__ __forceinline__ void publish(int* status, int value) {
 
 // Run j of a window (its runs are first .. first + n - 1 of the status
 // words and of sums[.., 2, C]) publishes its aggregate net[C] and gets its
-// carry[C] from the prefix (j == 0) or by walking back over the window's
+// carry[C] from the prefix (the window's row of the group's C columns) when
+// j == 0, or by walking back over the window's
 // earlier runs, 32 at a time: warp 0 waits until the 32 nearest unread
 // predecessors have published, each lane acquiring one status, and finds
 // the nearest inclusive among them (`code` in shared memory: n > 0, the
@@ -396,15 +398,16 @@ __device__ void produce(Ring r, const Store& store, const int32_t* params, int* 
   }
 }
 
-// A stage's live rows into net[C] (aggregate) or into the diff tile at
-// position key - off.
+// A stage's live rows of the column group [c0, c0 + C) into net[C]
+// (aggregate) or into the diff tile at position key - off.
 template <bool kPlus, bool kApply>
-__device__ void consume_rows(const int* rows, int lo, int hi, int a, int off, int T, int k, int C,
-                             int* cov, int* net) {
+__device__ void consume_rows(const int* rows, int lo, int hi, int a, int off, int T, int k, int c0,
+                             int C, int* cov, int* net) {
   for (int i = lo + threadIdx.x; i < hi; i += kConsumers) {
     const int x = i - a;
     const int key = rows[x];
-    const int c = live_column<kPlus>(key, rows[kStageRows + x], rows[2 * kStageRows + x], k, C);
+    const int c =
+        live_column<kPlus>(key, rows[kStageRows + x], rows[2 * kStageRows + x], k, c0, C);
     if (c < 0) continue;
     if (kApply) {
       const int p = key - off;
@@ -417,10 +420,13 @@ __device__ void consume_rows(const int* rows, int lo, int hi, int a, int off, in
 
 // The consumer warps: take stages until the end stage; after a run's last
 // aggregate stage, look back; after a tile's last stage, finish the tile.
+// The group's columns are [c0, c0 + C) of ld; membership rows lie ld bytes
+// apart in out, and conservation writes first + c0, min-combined with out
+// where c0 > 0 (first[T] holds none).
 template <bool kMembership>
-__device__ void consume(Ring r, int* status, int32_t* sums, const int32_t* prefix, int L, int C,
-                        int T, int k, int n_docs, int runs, int epoch, int* cov, int* carry,
-                        int* net, int* first, int* code, void* out) {
+__device__ void consume(Ring r, int* status, int32_t* sums, const int32_t* prefix, int L, int c0,
+                        int C, int ld, int T, int k, int none, int runs, int epoch, int* cov,
+                        int* carry, int* net, int* first, int* code, void* out) {
   const int warp = threadIdx.x >> 5;
   const int S = T + 1;
   for (;;) {
@@ -432,11 +438,11 @@ __device__ void consume(Ring r, int* status, int32_t* sums, const int32_t* prefi
     const bool plus = head & 4;
     const int* rows = r.stage_rows();
     if (kind == kAggStage) {
-      if (plus) consume_rows<true, false>(rows, lo, hi, a, off, T, k, C, cov, net);
-      else consume_rows<false, false>(rows, lo, hi, a, off, T, k, C, cov, net);
+      if (plus) consume_rows<true, false>(rows, lo, hi, a, off, T, k, c0, C, cov, net);
+      else consume_rows<false, false>(rows, lo, hi, a, off, T, k, c0, C, cov, net);
     } else if (kind == kApplyStage) {
-      if (plus) consume_rows<true, true>(rows, lo, hi, a, off, T, k, C, cov, net);
-      else consume_rows<false, true>(rows, lo, hi, a, off, T, k, C, cov, net);
+      if (plus) consume_rows<true, true>(rows, lo, hi, a, off, T, k, c0, C, cov, net);
+      else consume_rows<false, true>(rows, lo, hi, a, off, T, k, c0, C, cov, net);
     }
     __syncwarp();
     if ((threadIdx.x & 31) == 0) arrive(&r.empty[r.stage]);
@@ -445,7 +451,7 @@ __device__ void consume(Ring r, int* status, int32_t* sums, const int32_t* prefi
     if (!(head & 8)) continue;
     consumer_sync();
     if (kind == kAggStage) {
-      look_back(status, sums, prefix + static_cast<size_t>(q) * C, static_cast<size_t>(q) * runs,
+      look_back(status, sums, prefix + static_cast<size_t>(q) * ld, static_cast<size_t>(q) * runs,
                 j, net, carry, C, epoch, code);
       for (int c = threadIdx.x; c < C; c += kConsumers) net[c] = 0;
       continue;  // the tile's scatter ends in a consumer_sync before carry is read
@@ -457,17 +463,17 @@ __device__ void consume(Ring r, int* status, int32_t* sums, const int32_t* prefi
       scan_tile<kConsumerWarps, true>(cov, carry, T, S, C, warp);
       consumer_sync();
       reduce_membership<kConsumerWarps>(cov, S, C, rows_out,
-                                        static_cast<int8_t*>(out) + out_row * C, warp);
+                                        static_cast<int8_t*>(out) + out_row * ld, ld, warp);
       consumer_sync();
       for (int i = threadIdx.x; i < C * S; i += kConsumers) cov[i] = 0;
       consumer_sync();
     } else {
-      scan_conservation<kConsumerWarps, true, true>(cov, carry, first, T, S, C, n_docs, warp);
+      scan_conservation<kConsumerWarps, true, true>(cov, carry, first, T, S, C, none, warp);
       consumer_sync();
       int32_t* o = static_cast<int32_t*>(out) + out_row;
       for (int p = threadIdx.x; p < T; p += kConsumers) {
-        if (p < rows_out) o[p] = first[p];
-        first[p] = n_docs;
+        if (p < rows_out) o[p] = conservation_out(o[p], first[p], c0);
+        first[p] = none;
       }
     }
   }
@@ -476,8 +482,8 @@ __device__ void consume(Ring r, int* status, int32_t* sums, const int32_t* prefi
 template <bool kMembership>
 __global__ void __launch_bounds__(kThreads)
 fused_query_v2_kernel(Store store, const int32_t* __restrict__ params, const int32_t* __restrict__ prefix,
-               int* __restrict__ state, int32_t* __restrict__ sums, int Q, int L, int C, int T,
-               int k, int n_docs, int R, int S, void* __restrict__ out) {
+               int* __restrict__ state, int32_t* __restrict__ sums, int Q, int L, int c0, int C,
+               int ld, int T, int k, int none, int R, int S, void* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
   uint64_t* empty = full + kMaxStages;
@@ -503,15 +509,15 @@ fused_query_v2_kernel(Store store, const int32_t* __restrict__ params, const int
   }
   for (int i = threadIdx.x; i < C * (T + 1); i += blockDim.x) cov[i] = 0;
   for (int c = threadIdx.x; c < C; c += blockDim.x) net[c] = 0;
-  for (int p = threadIdx.x; p < T; p += blockDim.x) first[p] = n_docs;
+  for (int p = threadIdx.x; p < T; p += blockDim.x) first[p] = none;
   __syncthreads();
   const int epoch = *epoch_word;
   const Ring r{full, empty, meta, ring, S, 0, 0};
   if (threadIdx.x >= kConsumers) {
     produce(r, store, params, &state[kTicket], Q, nt, runs, R, T, k);
   } else {
-    consume<kMembership>(r, state + kStatus, sums, prefix, L, C, T, k, n_docs, runs, epoch, cov,
-                         carry, net, first, code, out);
+    consume<kMembership>(r, state + kStatus, sums, prefix, L, c0, C, ld, T, k, none, runs, epoch,
+                         cov, carry, net, first, code, out);
   }
   leave(state, epoch);
 }
@@ -523,11 +529,12 @@ size_t smem_bytes(int C, int T, int S) {
          (static_cast<size_t>(C) * (T + 1) + 2 * C + T + 2) * sizeof(int);
 }
 
+// The kernel over the column group [c0, c0 + G) of the store's C columns.
 template <bool kMembership>
 cudaError_t launch(cudaStream_t stream, const Store& store, const int32_t* params,
-                   const int32_t* prefix, int* state, int32_t* sums, int Q, int L, int C, int T,
-                   int S, int k, int n_docs, void* out) {
-  const size_t smem = smem_bytes(C, T, S);
+                   const int32_t* prefix, int* state, int32_t* sums, int Q, int L, int C, int c0,
+                   int G, int T, int S, int k, int n_docs, void* out) {
+  const size_t smem = smem_bytes(G, T, S);
   cudaError_t err = cudaFuncSetAttribute(fused_query_v2_kernel<kMembership>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -548,8 +555,10 @@ cudaError_t launch(cudaStream_t stream, const Store& store, const int32_t* param
   const long long tiles = static_cast<long long>(Q) * ((L + T - 1) / T);
   long long R = (tiles + grid - 1) / grid;
   R = R < 1 ? 1 : (R > kMaxRun ? kMaxRun : R);
+  void* group_out = kMembership ? static_cast<void*>(static_cast<int8_t*>(out) + c0) : out;
   fused_query_v2_kernel<kMembership><<<grid, kThreads, smem, stream>>>(
-      store, params, prefix, state, sums, Q, L, C, T, k, n_docs, static_cast<int>(R), S, out);
+      store, params, prefix + c0, state, sums, Q, L, c0, G, C, T, k, n_docs - c0,
+      static_cast<int>(R), S, group_out);
   return cudaGetLastError();
 }
 
@@ -557,28 +566,30 @@ cudaError_t launch(cudaStream_t stream, const Store& store, const int32_t* param
 
 // Query Q windows of L positions on `stream` from the placed store's six
 // row arrays, each holding n_rows + 3 rows (the bulk copies read up to 3
-// rows past a window's last). params is int32[Q, 5] (mlo, mhi, plo,
-// phi, qs per window), prefix int32[Q, C]; state is int32[4 + Q * nt]
-// (nt = ceil(L / tile)), zeroed once when it was allocated and left for the
-// next launch on this device; sums is int32[Q * nt * 2 * C] scratch; out is
-// int32[Q, L] or int8[Q, L, C]; the ring has `stages` stages. Returns the CUDA error code of the first call that failed,
-// 0 when all were accepted.
+// rows past a window's last), over the store's columns [c0, c0 + G) of its
+// C. params is int32[Q, 5] (mlo, mhi, plo, phi, qs per window), prefix
+// int32[Q, C]; state is int32[4 + Q * nt] (nt = ceil(L / tile)), zeroed
+// once when it was allocated and left for the next launch on this device;
+// sums is int32[Q * nt * 2 * G] scratch; out is int32[Q, L] (c0 plus the
+// group's first marked column, or n_docs, min-combined with out where
+// c0 > 0) or int8[Q, L, C] (columns [c0, c0 + G) written); the ring has `stages` stages. Returns the CUDA error code of
+// the first call that failed, 0 when all were accepted.
 extern "C" int memo_fused_query_v2_rows(const int32_t* start, const int32_t* end,
                                         const int32_t* order, const int32_t* end_s,
                                         const int32_t* start_by_end,
                                         const int32_t* order_by_end, const int32_t* params,
                                         const int32_t* prefix, int32_t* state, int32_t* sums,
-                                        void* out, int n_rows, int Q, int L, int C, int k,
-                                        int tile, int stages, int n_docs, int membership,
-                                        void* stream) {
-  if (n_rows < 0 || Q < 1 || L < 1 || C < 1 || k < 1 || tile < 32 || tile % 32 != 0 ||
-      tile > 32 * kMaxChunks || stages < 2 || stages > kMaxStages) {
+                                        void* out, int n_rows, int Q, int L, int C, int c0,
+                                        int G, int k, int tile, int stages, int n_docs,
+                                        int membership, void* stream) {
+  if (n_rows < 0 || Q < 1 || L < 1 || c0 < 0 || G < 1 || c0 + G > C || k < 1 || tile < 32 ||
+      tile % 32 != 0 || tile > 32 * kMaxChunks || stages < 2 || stages > kMaxStages) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Store store{start, end, order, end_s, start_by_end, order_by_end, n_rows};
-  return membership ? launch<true>(s, store, params, prefix, state, sums, Q, L, C, tile, stages, k,
-                                   n_docs, out)
-                    : launch<false>(s, store, params, prefix, state, sums, Q, L, C, tile, stages,
-                                    k, n_docs, out);
+  return membership ? launch<true>(s, store, params, prefix, state, sums, Q, L, C, c0, G, tile,
+                                   stages, k, n_docs, out)
+                    : launch<false>(s, store, params, prefix, state, sums, Q, L, C, c0, G, tile,
+                                    stages, k, n_docs, out);
 }

@@ -6,6 +6,17 @@
 // The finish functions run on kWarps warps numbered 0 .. kWarps - 1 (`warp`
 // is the caller's warp index among them); warp w takes columns w, w + kWarps,
 // ... (scan) or positions w, w + kWarps, ... (membership).
+//
+// A launch covers one group of columns [c0, c0 + G) of a store C wide (the
+// whole store where it fits the block's shared memory): its tile, carry and
+// sums are G columns wide, a row of another column is no event, and the
+// prefix and the membership output keep the store's row stride C. The
+// tile's conservation is the group's first marked column, or "none" =
+// n_docs - c0; the launch writes it plus c0 (conservation_out): as it is
+// for the first group, else the minimum of that and what out holds. Each
+// position has one writer in a launch and the groups' launches run in
+// stream order, so after the last group out holds the store's first marked
+// column, or n_docs.
 #pragma once
 
 #include <cstddef>
@@ -54,12 +65,21 @@ __device__ inline Window load_window(const Store& s, const int32_t* params, int 
            qs + k - 1}};
 }
 
-// A row's event column, or -1 when the row is not live. end - start is
-// key - partner in end order and partner - key in start order.
+// A row's event column within the launch's column group [c0, c0 + G), or
+// -1 when the row is not live there. end - start is key - partner in end
+// order and partner - key in start order.
 template <bool kPlus>
-__device__ __forceinline__ int live_column(int key, int partner, int o, int k, int C) {
+__device__ __forceinline__ int live_column(int key, int partner, int o, int k, int c0, int G) {
   const int span = kPlus ? key - partner : partner - key;
-  return span < k - 1 && o >= 0 && o < C ? o : -1;
+  const int c = o - c0;
+  return span < k - 1 && c >= 0 && c < G ? c : -1;
+}
+
+// What a launch over the column group from c0 writes at a conservation
+// position whose group's first marked column is `first` (or none), where out
+// holds `held`: the first group writes c0 + first, a later one the minimum.
+__device__ __forceinline__ int conservation_out(int held, int first, int c0) {
+  return c0 > 0 ? min(held, first + c0) : first;
 }
 
 // Coverage along each column of the tile from carry[c]: one warp per column.
@@ -145,13 +165,14 @@ __device__ void scan_conservation(int* cov, int* carry, int* first, int T, int S
 
 // Membership of the tile from its scanned coverage (scan_tile): one warp per
 // position, lanes over columns, coalesced int8 stores of the first `rows`
-// positions from out.
+// positions from out, whose positions lie ld bytes apart.
 template <int kWarps>
-__device__ void reduce_membership(const int* cov, int S, int C, int rows, int8_t* out, int warp) {
+__device__ void reduce_membership(const int* cov, int S, int C, int rows, int8_t* out, int ld,
+                                  int warp) {
   const int lane = threadIdx.x & 31;
   for (int p = warp; p < rows; p += kWarps) {
     for (int c = lane; c < C; c += 32) {
-      out[static_cast<size_t>(p) * C + c] = cov[c * S + p] > 0 ? 0 : 1;
+      out[static_cast<size_t>(p) * ld + c] = cov[c * S + p] > 0 ? 0 : 1;
     }
   }
 }

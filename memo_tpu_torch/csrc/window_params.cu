@@ -22,7 +22,9 @@
 //
 // One block per window. Threads 0-3 run the four range searches and thread
 // 4 writes qs; the block's threads take the columns, two searches each over
-// the composite keys, or scan the record's rows into a shared histogram.
+// the composite keys, or scan the record's rows into a histogram: in shared
+// memory up to kMaxHistBytes / 4 = 12,288 columns, else in the window's
+// prefix row itself, zeroed first (its atomics then go to device memory).
 // Comparisons are in 64 bits, so no probe is clamped. The output is one
 // int32 buffer: params [Q][5] (mlo, mhi, plo, phi, qs), the candidate
 // counts [2][Q] (mhi - mlo, phi - plo) and the prefix [Q][C]. The window
@@ -42,6 +44,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMaxHistBytes = 48 * 1024;  // shared memory without an opt-in
+constexpr int kMaxHistInts = kMaxHistBytes / static_cast<int>(sizeof(int));
 constexpr int kParamBytes = 4096;         // a kernel's parameter space on every CUDA 12 toolkit
 
 template <typename T>
@@ -84,7 +87,7 @@ static_assert(sizeof(Args) <= kParamBytes, "the kernel's parameters must fit its
 // __grid_constant__: the window's start is read from the parameters where
 // they lie, at an index known only at run time, with no per-thread copy.
 __global__ void __launch_bounds__(kThreads) window_params_kernel(const __grid_constant__ Args a) {
-  extern __shared__ int hist[];  // [C], the scan's histogram
+  extern __shared__ int shared_hist[];  // [C], the scan's histogram where it fits
   __shared__ long long found[4];
   const int w = blockIdx.x;
   const long long qs = a.starts != nullptr ? a.starts[w] : a.inline_starts[w];
@@ -110,6 +113,8 @@ __global__ void __launch_bounds__(kThreads) window_params_kernel(const __grid_co
       prefix[c] = static_cast<int32_t>(v > 0 ? v : 0);
     }
   } else {
+    const bool in_shared = a.C <= kMaxHistInts;
+    int* hist = in_shared ? shared_hist : prefix;
     for (int c = t; c < a.C; c += kThreads) hist[c] = 0;
     __syncthreads();
     const long long e0 = qs + a.k - 1;
@@ -119,7 +124,9 @@ __global__ void __launch_bounds__(kThreads) window_params_kernel(const __grid_co
       if (o >= 0 && o < a.C && a.end[row] <= e0 && a.start[row] > qs) atomicAdd(&hist[o], 1);
     }
     __syncthreads();
-    for (int c = t; c < a.C; c += kThreads) prefix[c] = hist[c];
+    if (in_shared) {
+      for (int c = t; c < a.C; c += kThreads) prefix[c] = hist[c];
+    }
   }
   __syncthreads();
   if (t == 0) {
@@ -139,8 +146,8 @@ extern "C" int memo_window_params(const int32_t* start, const int32_t* end, cons
                                   long long rec_n, long long n_keys, long long L, long long k,
                                   long long stride, long long first_key, int Q, int C,
                                   int monotone, void* stream) {
-  const size_t hist_bytes = monotone ? 0 : static_cast<size_t>(C) * sizeof(int);
-  if (Q < 1 || C < 1 || rec_lo < 0 || rec_n < 0 || n_keys < 0 || hist_bytes > kMaxHistBytes ||
+  const size_t hist_bytes = monotone || C > kMaxHistInts ? 0 : static_cast<size_t>(C) * sizeof(int);
+  if (Q < 1 || C < 1 || rec_lo < 0 || rec_n < 0 || n_keys < 0 ||
       (starts == nullptr && (host_starts == nullptr || Q > kInlineStarts))) {
     return cudaErrorInvalidValue;
   }

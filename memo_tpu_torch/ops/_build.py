@@ -90,12 +90,12 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     # v1: 6 store row pointers, params, prefix, scratch, out; n_rows, Q, L,
-    # C, k, tile, n_docs, membership; the stream.
-    lib.memo_fused_query_rows.argtypes = [ptr] * 10 + [i32] * 8 + [ptr]
+    # C, c0, G, k, tile, n_docs, membership; the stream.
+    lib.memo_fused_query_rows.argtypes = [ptr] * 10 + [i32] * 10 + [ptr]
     lib.memo_fused_query_rows.restype = i32
     # v2: 6 store row pointers, params, prefix, state, sums, out; n_rows, Q,
-    # L, C, k, tile, stages, n_docs, membership; the stream.
-    lib.memo_fused_query_v2_rows.argtypes = [ptr] * 11 + [i32] * 9 + [ptr]
+    # L, C, c0, G, k, tile, stages, n_docs, membership; the stream.
+    lib.memo_fused_query_v2_rows.argtypes = [ptr] * 11 + [i32] * 11 + [ptr]
     lib.memo_fused_query_v2_rows.restype = i32
     # window parameters: 4 store row pointers, 2 key pointers, the starts on
     # the card (or null), the starts on the host (by value), out; rec_lo,

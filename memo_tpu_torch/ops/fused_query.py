@@ -21,6 +21,15 @@ finds each tile's rows itself. Its plain PyTorch version is
 M rows from ``mlo`` and ``plo``) followed by :func:`fused_query_reference`.
 The v2 kernel (:mod:`memo_tpu_torch.ops.fused_query_v2`) has the same
 contract and the same plain version.
+
+One launch takes at most :data:`MAX_WINDOWS` windows and the columns one
+block's shared memory holds (:data:`MAX_COLUMNS`; v2's own); the wrappers
+take any Q and any C by launching groups (:func:`launch_groups`). A
+launch covers a group of columns ``[c0, c0 + G)`` of the store's C: rows
+of other columns are no events, membership fills those G columns of the
+[Q, L, C] output, and conservation is c0 plus the group's first marked
+column, or ``n_docs``, min-combined into the output, so that after the
+last group it holds the store's.
 """
 
 from __future__ import annotations
@@ -37,19 +46,21 @@ from memo_tpu_torch.ops._build import launch, load_library
 SEG = 16  # segment sums in kernel_constants' tile budget, which sets v1's widest C
 TILES = (256, 128, 64)  # position tiles the kernels are built for, widest first
 MAX_SMEM_BYTES = 232_448  # dynamic shared memory one Hopper block may use
-MAX_WINDOWS = 65_535  # the kernels put the window on grid axis y
+MAX_WINDOWS = 65_535  # windows of one launch: v1 puts the window on grid axis y
+# Columns of one v1 launch: the widest C that kernel_constants takes (854).
+MAX_COLUMNS = MAX_SMEM_BYTES // ((TILES[-1] + TILES[-1] // SEG) * 4)
 CPU = torch.device("cpu")
 
 
 def kernel_constants(C: int) -> int:
     """Position tile T for ``C`` columns at which the plain version builds
     its streams: the widest tile whose int32 (T x C) tile plus segment sums
-    (T/SEG x C) fits one block. It bounds the widths v1 takes (C <= 854)."""
+    (T/SEG x C) fits one block. It bounds the widths one v1 launch takes
+    (C <= MAX_COLUMNS = 854)."""
     for tile in TILES:
         if (tile + tile // SEG) * C * 4 <= MAX_SMEM_BYTES:
             return tile
-    widest = MAX_SMEM_BYTES // ((TILES[-1] + TILES[-1] // SEG) * 4)
-    raise ValueError(f"fused query supports at most {widest} columns, got C={C}")
+    raise ValueError(f"fused query supports at most {MAX_COLUMNS} columns, got C={C}")
 
 
 def _rows_smem_bytes(tile: int, C: int) -> int:
@@ -87,14 +98,15 @@ class Streams(NamedTuple):
 def prepare_streams(
     d_start, d_end, d_order, d_end_s, d_start_by_end, d_order_by_end,
     mlo, mhi, plo, phi, qs, k: int,
-    *, M: int, L: int, C: int, tile: int,
+    *, M: int, L: int, C: int, tile: int, c0: int = 0,
 ) -> Streams:
     """Event streams of windows [qs, qs+L) at k from the placed store
     (``engine.place_store``): M rows from ``mlo`` in start order and from
     ``plo`` in end order, of which ``[mlo, mhi)`` and ``[plo, phi)`` are the
     window's candidates, and the rest dead, also where they would lie past
     the placed rows. A row is a live event when ``end - start < k - 1`` and
-    ``0 <= order < C`` (memo_tpu/ops/pallas_query.py:270-295).
+    ``c0 <= order < c0 + C`` (memo_tpu/ops/pallas_query.py:270-295), in
+    column ``order - c0``: the streams of the column group [c0, c0 + C).
 
     ``mlo, mhi, plo, phi, qs`` are ints for one window, which gives 1-D
     streams and tile offsets [nt + 1], or equal-length sequences for Q
@@ -133,8 +145,8 @@ def prepare_streams(
         s, e, o = read(start), read(end), read(order)
         live = idx < per_window(hi - lo)
         pos = torch.where(live, (s if by_start else e) - per_window(shift), l_pad)
-        ok = live & (e - s < k - 1) & (o >= 0) & (o < C)
-        return pos, torch.where(ok, o + 1, 0)
+        ok = live & (e - s < k - 1) & (o >= c0) & (o < c0 + C)
+        return pos, torch.where(ok, o - c0 + 1, 0)
 
     pos_m, val_m = stream(d_start, d_end, d_order, mlo, mhi, qs, True)
     pos_p, val_p = stream(d_start_by_end, d_end_s, d_order_by_end, plo, phi, qs + k - 1, False)
@@ -146,14 +158,17 @@ def prepare_streams(
     return Streams(*parts, L, tile)
 
 
-def fused_query_reference(streams: Streams, prefix: torch.Tensor, *, n_docs: int, membership: bool):
+def fused_query_reference(streams: Streams, prefix: torch.Tensor, *, n_docs: int, membership: bool,
+                          c0: int = 0):
     """Plain PyTorch version of the kernel: a diff array over [Q, C, L] from
     the live events, a cumulative sum from ``prefix`` over positions, and the
     conservation (int32[L] or [Q, L]) or membership (int8[L, C] or
     [Q, L, C]) reduction, for 1-D or batched streams. The diff is laid out
     window by window and column by column (see ``query_ops.row_cumsum``);
     dead events add into sink slots of their own past it
-    (``query_ops.coverage_counts`` says why)."""
+    (``query_ops.coverage_counts`` says why). Streams of the column group
+    from ``c0`` (:func:`prepare_streams`) give conservation as the kernel
+    writes it: ``c0`` plus the group's first marked column, or ``n_docs``."""
     batched = streams.pos_m.dim() == 2
     L, C = streams.L, prefix.shape[-1]
     prefix = prefix.reshape(-1, C)
@@ -173,15 +188,19 @@ def fused_query_reference(streams: Streams, prefix: torch.Tensor, *, n_docs: int
         sink += pos.numel()
     cov = prefix.view(n_win, C, 1) + Q.row_cumsum(diff[:flat].view(n_win * C, L)).view(n_win, C, L)
     marks = (cov > 0).transpose(1, 2)
-    out = Q.membership_from_marks(marks) if membership else Q.conservation_from_marks(marks, n_docs)
+    if membership:
+        out = Q.membership_from_marks(marks)
+    else:
+        out = Q.conservation_from_marks(marks, n_docs - c0)
+        out = out + c0 if c0 else out
     return out if batched else out[0]
 
 
 def check_rows_launch(name: str, placed, params: torch.Tensor, prefix: torch.Tensor, *, k: int,
-                      L: int, C: int) -> tuple[int, int] | None:
-    """Validate a kernel launch on the placed store's six row tensors, the
-    parameter block [Q, 5] and the prefix [Q, C]: returns (Q, rows per
-    store tensor), or None where every tensor is on the CPU (the plain
+                      L: int, C: int) -> int | None:
+    """Validate a call on the placed store's six row tensors, the parameter
+    block [Q, 5] (any Q >= 1) and the prefix [Q, C]: returns the rows per
+    store tensor, or None where every tensor is on the CPU (the plain
     version's case). Raises on anything the kernels do not take, so that a
     CUDA tensor never reaches a plain version."""
     tensors = (*placed, params, prefix)
@@ -193,10 +212,8 @@ def check_rows_launch(name: str, placed, params: torch.Tensor, prefix: torch.Ten
     n_win = params.shape[0] if params.dim() == 2 else 0
     if L < 1 or k < 1:
         raise ValueError(f"{name} needs L >= 1 and k >= 1, got L={L}, k={k}")
-    if params.shape != (n_win, 5) or not 1 <= n_win <= MAX_WINDOWS:
-        raise ValueError(
-            f"params must be [Q, 5] with 1 <= Q <= {MAX_WINDOWS}, got {tuple(params.shape)}"
-        )
+    if params.shape != (n_win, 5) or n_win < 1:
+        raise ValueError(f"params must be [Q, 5] with Q >= 1, got {tuple(params.shape)}")
     if prefix.shape != (n_win, C):
         raise ValueError(f"prefix must be [Q, C] = [{n_win}, {C}], got {tuple(prefix.shape)}")
     n_rows = placed[0].numel()
@@ -205,7 +222,7 @@ def check_rows_launch(name: str, placed, params: torch.Tensor, prefix: torch.Ten
             raise ValueError(f"{name} takes contiguous int32 tensors")
     if any(t.dim() != 1 or t.numel() != n_rows for t in placed) or n_rows >= 2**31:
         raise ValueError("the placed store needs six 1-D row tensors of one length below 2**31")
-    return n_win, n_rows
+    return n_rows
 
 
 def output_tensor(lead: tuple, L: int, C: int, membership: bool, device) -> torch.Tensor:
@@ -220,17 +237,84 @@ def launch_error(name: str, lib, err: int) -> RuntimeError:
     )
 
 
+def launch_groups(launch_group, placed, params, prefix, n_rows, *, widest: int, k: int, L: int,
+                  C: int, n_docs: int, membership: bool) -> torch.Tensor:
+    """A wrapper's call as launches of ``launch_group`` over groups of at
+    most :data:`MAX_WINDOWS` consecutive windows (rows of ``params`` and
+    ``prefix``, no copy) and of at most ``widest`` columns (as few as fit,
+    of equal width), each into its rows of the one output, which it
+    returns. Membership groups fill their columns; a conservation group
+    from c0 > 0 writes the minimum of the output and its own (launches run
+    in stream order). A call that fits one launch is that launch alone.
+    Both limits are read here, at the call."""
+    n_win = params.shape[0]
+    out = output_tensor((n_win,), L, C, membership, params.device)
+    G = -(-C // -(-C // widest))
+    for g0 in range(0, n_win, MAX_WINDOWS):
+        rows = slice(g0, g0 + MAX_WINDOWS)  # one group of every window takes the tensors as given
+        part = (params, prefix, out) if n_win <= MAX_WINDOWS else (params[rows], prefix[rows],
+                                                                    out[rows])
+        for c0 in range(0, C, G):
+            launch_group(placed, *part, n_rows, k=k, L=L, C=C, c0=c0, G=min(G, C - c0),
+                         n_docs=n_docs, membership=membership)
+    return out
+
+
 def fused_query_rows_reference(placed, params, prefix, *, k: int, L: int, C: int, n_docs: int,
-                               membership: bool):
-    """Plain PyTorch version of :func:`fused_query_rows`: the event streams
-    of every window (:func:`prepare_streams`, over as many rows as the
-    largest candidate range) and their diff-array query
-    (:func:`fused_query_reference`). Output [Q, L] or [Q, L, C]."""
+                               membership: bool, c0: int = 0, G: int | None = None):
+    """Plain PyTorch version of :func:`fused_query_rows`, over the column
+    group [c0, c0 + G) (all C columns by default): the event streams of
+    every window (:func:`prepare_streams`, over as many rows as the largest
+    candidate range) and their diff-array query
+    (:func:`fused_query_reference`) from the group's prefix columns. Output
+    [Q, L] (c0 plus the group's first marked column, or ``n_docs``), or
+    [Q, L, G] for membership: the group's columns alone. It takes any
+    width: the tile only lays out the streams."""
+    G = C - c0 if G is None else G
     mlo, mhi, plo, phi, qs = params.cpu().numpy().astype(np.int64).T
     M = max(int((mhi - mlo).max()), int((phi - plo).max()), 1)
-    streams = prepare_streams(*placed, mlo, mhi, plo, phi, qs, k, M=M, L=L, C=C,
-                              tile=kernel_constants(C))
-    return fused_query_reference(streams, prefix, n_docs=n_docs, membership=membership)
+    tile = kernel_constants(G) if G <= MAX_COLUMNS else TILES[-1]
+    streams = prepare_streams(*placed, mlo, mhi, plo, phi, qs, k, M=M, L=L, C=G, tile=tile, c0=c0)
+    return fused_query_reference(streams, prefix[:, c0 : c0 + G], n_docs=n_docs,
+                                 membership=membership, c0=c0)
+
+
+def plain_group(placed, params, prefix, out, *, k: int, L: int, C: int, c0: int, G: int,
+                n_docs: int, membership: bool) -> None:
+    """A launch's plain version (CPU tensors): the column group
+    [c0, c0 + G) of ``params``' windows into ``out`` as the kernels write
+    it (:func:`launch_groups`)."""
+    got = fused_query_rows_reference(placed, params, prefix, k=k, L=L, C=C, n_docs=n_docs,
+                                     membership=membership, c0=c0, G=G)
+    if membership:
+        out[..., c0 : c0 + G] = got
+    elif c0:
+        torch.minimum(out, got, out=out)
+    else:
+        out.copy_(got)
+
+
+def _launch_group(placed, params, prefix, out, n_rows, *, k: int, L: int, C: int, c0: int, G: int,
+                  n_docs: int, membership: bool) -> None:
+    """One launch of the kernels of ``csrc/fused_query.cu`` over
+    ``params``' windows and the column group [c0, c0 + G) into ``out``
+    (:func:`launch_groups`), counted in ``fused_query_rows.launches``; its
+    plain version where ``n_rows`` is None (CPU tensors)."""
+    if n_rows is None:
+        return plain_group(placed, params, prefix, out, k=k, L=L, C=C, c0=c0, G=G,
+                           n_docs=n_docs, membership=membership)
+    n_win = params.shape[0]
+    tile = rows_tile(G)
+    lib = load_library()
+    device = params.device
+    nt = -(-L // tile)
+    scratch = torch.empty(n_win * nt * (4 + 2 * G), dtype=torch.int32, device=device)
+    err = launch(lib.memo_fused_query_rows, device,
+                 *(t.data_ptr() for t in (*placed, params, prefix)), scratch.data_ptr(),
+                 out.data_ptr(), n_rows, n_win, L, C, c0, G, k, tile, n_docs, int(membership))
+    if err != 0:
+        raise launch_error("fused_query_rows", lib, err)
+    fused_query_rows.launches += 1
 
 
 def fused_query_rows(placed, params: torch.Tensor, prefix: torch.Tensor, *, k: int, L: int, C: int,
@@ -238,31 +322,19 @@ def fused_query_rows(placed, params: torch.Tensor, prefix: torch.Tensor, *, k: i
     """Conservation int32[Q, L] or membership int8[Q, L, C] of Q windows of
     L positions at k, from the placed store (``engine.PlacedStore``, six
     int32 row tensors), the parameter block ``params`` int32[Q, 5] and the
-    prefix int32[Q, C] (``query/window.py`` finds both on the device).
+    prefix int32[Q, C] (``query/window.py`` finds both on the device), for
+    any Q and any C.
 
     On CUDA tensors this launches the kernels of ``csrc/fused_query.cu`` on
-    the current stream, once for the whole batch, and counts the launch in
-    ``fused_query_rows.launches``; a tensor the kernels do not take raises.
-    On CPU tensors it runs :func:`fused_query_rows_reference`.
+    the current stream, once where the call fits one launch, else once per
+    window and column group (:func:`launch_groups`), and counts each launch
+    in ``fused_query_rows.launches``; a tensor the kernels do not take
+    raises. On CPU tensors each group runs
+    :func:`fused_query_rows_reference`.
     """
-    checked = check_rows_launch("fused_query_rows", placed, params, prefix, k=k, L=L, C=C)
-    if checked is None:
-        return fused_query_rows_reference(placed, params, prefix, k=k, L=L, C=C, n_docs=n_docs,
-                                          membership=membership)
-    n_win, n_rows = checked
-    tile = rows_tile(C)
-    lib = load_library()
-    device = params.device
-    nt = -(-L // tile)
-    scratch = torch.empty(n_win * nt * (4 + 2 * C), dtype=torch.int32, device=device)
-    out = output_tensor((n_win,), L, C, membership, device)
-    err = launch(lib.memo_fused_query_rows, device,
-                 *(t.data_ptr() for t in (*placed, params, prefix)), scratch.data_ptr(),
-                 out.data_ptr(), n_rows, n_win, L, C, k, tile, n_docs, int(membership))
-    if err != 0:
-        raise launch_error("fused_query_rows", lib, err)
-    fused_query_rows.launches += 1
-    return out
+    n_rows = check_rows_launch("fused_query_rows", placed, params, prefix, k=k, L=L, C=C)
+    return launch_groups(_launch_group, placed, params, prefix, n_rows, widest=MAX_COLUMNS, k=k,
+                         L=L, C=C, n_docs=n_docs, membership=membership)
 
 
 fused_query_rows.launches = 0

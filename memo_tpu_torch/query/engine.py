@@ -22,7 +22,9 @@ memo_tpu/ops/query_ops.py). A batch of windows of one record
 kernel. The fused kernels read only a window's candidate ranges, so they
 take a chunk whole whatever its candidate count; memo_tpu's halving of a
 chunk over the cap lives on only in ``last_stats``, replayed from the
-window steps when first read. The ``torch`` backend halves as memo_tpu's
+window steps when first read. The kernel wrappers take any window count
+and any width (``fused_query.launch_groups`` launches a larger batch or a
+wider store as groups). The ``torch`` backend halves as memo_tpu's
 XLA path does, down to interval pieces combined with an elementwise
 minimum; PyTorch runs eagerly, so there the pow2 candidate bucket M only
 bounds the working set of one step.
@@ -296,7 +298,7 @@ class QueryEngine:
 
     def conservation_batch(self, record: str, windows, k: int) -> list:
         """Conservation of each window ``(qs, qe)`` of one record. On the
-        ``fused`` backend the batch is one launch of the kernel: every
+        ``fused`` backend the batch is one call of the kernel wrapper: every
         window runs at the batch's longest length L from its own candidate
         ranges and prefix, and keeps its first ``qe - qs`` positions (exact:
         a window's row is what the single-window kernel computes over

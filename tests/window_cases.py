@@ -9,6 +9,9 @@ from memo_tpu_torch.index.builder import store_from_ms
 
 REC_LEN = 400
 HUGE_K = (1 << 31) + 7  # probes past int32 and past every key stride
+# One column past the 12,288 int32 counters of the window kernel's shared
+# histogram (csrc/window_params.cu): its scan then counts in device memory.
+WIDE_SCAN_C = 12_289
 
 
 def lipschitz(ms: np.ndarray) -> np.ndarray:
@@ -36,9 +39,11 @@ def case_arrays(case: str) -> dict:
         st = store_from_ms(ms, names[:n_rec], [REC_LEN] * n_rec, C, "conservation")
         return dict(record_names=names[:n_rec], record_lens=[REC_LEN] * n_rec, n_docs=C,
                     rec_id=st.rec_id, start=st.start, end=st.end, order=st.order)
-    C = 7
+    C = WIDE_SCAN_C if case == "non_monotone_wide" else 7
     if case == "non_monotone":
         rows = random_rows(rng, [0, 1, 2], 900, 150, C)
+    elif case == "non_monotone_wide":  # the last 4 of 12,289 columns, many rows each
+        rows = random_rows(rng, [0, 1, 2], 900, 150, C, order_lo=C - 4)
     elif case == "orders_out_of_range":  # -1 and >= C: the scan path, rows dropped
         rows = random_rows(rng, [0, 1, 2], 700, 40, C, order_lo=-1, order_hi=C + 2)
     elif case == "empty_record":  # chr1 holds no row
@@ -54,8 +59,8 @@ def case_arrays(case: str) -> dict:
                 end=end, order=order)
 
 
-CASES = ["ms_one", "ms_records", "ms_wide", "non_monotone", "orders_out_of_range",
-         "empty_record", "ends_2x", "empty_store"]
+CASES = ["ms_one", "ms_records", "ms_wide", "non_monotone", "non_monotone_wide",
+         "orders_out_of_range", "empty_record", "ends_2x", "empty_store"]
 
 
 # (L, starts): windows at 0, inside, at and past the record's end; one
