@@ -176,7 +176,9 @@ def _add_query(sub: argparse._SubParsersAction) -> None:
         choices=["cuda", "cpu"],
         help="device to query on; cuda fails where no GPU exists [cuda]",
     )
-    p.add_argument("--profile", metavar="DIR", default=None, help="write a torch.profiler trace")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="write a torch.profiler trace of the load, set-up and query "
+                   "(DIR/trace.json) and the query path's counters (DIR/counters.json)")
     p.add_argument("--stats", action="store_true", help="print per-query stats to stderr")
     p.add_argument(
         "--force",
@@ -343,12 +345,12 @@ def _run_regions(args, regions, mesh) -> list:
     from memo_tpu_torch.parallel import ResidentShardedQuery, ShardedQuery
     from memo_tpu_torch.query.engine import QueryEngine
 
-    store = load_store(args.index, args.num_docs, args.membership, force=args.force)
-    strategy = args.strategy
-    if strategy == "auto":
-        strategy = pick_batch_strategy(store, regions, mesh.device, mesh.dp * mesh.sp)
-        log.info("--strategy auto resolved to %r", strategy)
     with trace_context(args.profile):
+        store = load_store(args.index, args.num_docs, args.membership, force=args.force)
+        strategy = args.strategy
+        if strategy == "auto":
+            strategy = pick_batch_strategy(store, regions, mesh.device, mesh.dp * mesh.sp)
+            log.info("--strategy auto resolved to %r", strategy)
         if strategy == "resident":
             # One placement serves every queried record, and all windows of a
             # (record, k) are slices of one whole-record dispatch, brought to
@@ -390,12 +392,12 @@ def cmd_query(args) -> int:
     device = resolve_device(args.device)
     if args.regions_file:
         return _query_regions(args, device)
-    with stage_timer("query.load_store"):
-        store = load_store(args.index, args.num_docs, args.membership, force=args.force)
-    with stage_timer("query.engine_setup"):
-        engine = QueryEngine(store, backend=args.backend, device=device)
-    record, qs, qe = parse_region(args.region)
     with trace_context(args.profile):
+        with stage_timer("query.load_store"):
+            store = load_store(args.index, args.num_docs, args.membership, force=args.force)
+        with stage_timer("query.engine_setup"):
+            engine = QueryEngine(store, backend=args.backend, device=device)
+        record, qs, qe = parse_region(args.region)
         with stage_timer("query.query"):
             if args.membership:
                 res = engine.membership(record, qs, qe, args.k)

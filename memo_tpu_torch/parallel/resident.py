@@ -249,11 +249,11 @@ class ResidentShardedQuery:
 
     def conservation(self, qs: int, qe: int, k: int, record: str | None = None):
         out = self.conservation_full(k, record)[qs:qe]
-        return out if self.device_output else out.cpu().numpy()
+        return out if self.device_output else engine_mod._to_host(out)
 
     def membership(self, qs: int, qe: int, k: int, record: str | None = None):
         out = self.membership_full(k, record)[qs:qe]
-        return out if self.device_output else out.cpu().numpy()
+        return out if self.device_output else engine_mod._to_host(out)
 
     def conservation_windows(self, windows, k: int, record: str | None = None):
         """Windows of one record, all served by one whole-record dispatch per
@@ -272,10 +272,8 @@ class ResidentShardedQuery:
         outs = [full[qs:qe] for qs, qe in windows]
         if self.device_output or not outs:
             return outs
-        host, ready = engine_mod._copy_back(torch.cat(outs))
-        if ready is not None:
-            ready.synchronize()
-        return np.split(host.numpy(), np.cumsum([len(o) for o in outs[:-1]], dtype=np.int64))
+        host = engine_mod._to_host(torch.cat(outs), pinned=True)
+        return np.split(host, np.cumsum([len(o) for o in outs[:-1]], dtype=np.int64))
 
     def _record_out(self, k: int, record: str | None, membership: bool) -> torch.Tensor:
         record = self._pick(record)

@@ -324,10 +324,7 @@ class ShardedQuery:
             out = mesh.all_gather(out, "dp").reshape((W, L) + out.shape[2:])
             outs.append(out[: len(idxs)])
             order += idxs
-        host, ready = engine_mod._copy_back(torch.cat(outs))
-        if ready is not None:
-            ready.synchronize()
-        host = host.numpy()
+        host = engine_mod._to_host(torch.cat(outs), pinned=True)
         results: list[np.ndarray | None] = [None] * len(windows)
         for j, i in enumerate(order):
             results[i] = host[j, : lens[i]]

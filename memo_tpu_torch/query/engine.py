@@ -57,7 +57,7 @@ from memo_tpu_torch.ops.fused_query import fused_query_rows
 from memo_tpu_torch.ops.fused_query_v2 import ROW_SLACK, fused_query_v2_rows
 from memo_tpu_torch.query.window import WindowParams, window_bounds, window_params
 from memo_tpu_torch.utils.device import resolve_device
-from memo_tpu_torch.utils.profiling import stage_timer
+from memo_tpu_torch.utils.profiling import count, span, stage_timer
 
 BACKENDS = ("fused", "torch", "numpy")
 KERNEL_VERSIONS = ("v1", "v2")  # fused kernel generations, as memo_tpu names them
@@ -261,21 +261,22 @@ class QueryEngine:
         if self.backend == "fused" and live:
             chunks = self._chunks(qs, qe)
             each = [QueryStats(chunks=len(chunks), positions=L) for _ in live]
-            outs = [child._join(out, membership) for child, out in
-                    zip(live, _fused_chunks(live, record, chunks, k, membership, each))]
+            outs = _fused_chunks(live, record, chunks, k, membership, each)
             for child, child_stats in zip(live, each):
                 child.last_stats = child_stats
         else:
-            outs = [child._query(record, qs, qe, k, membership) for child in live]
+            outs = [[child._query(record, qs, qe, k, membership)] for child in live]
             each = [child.last_stats for child in live]
         acc = None
-        for out, child_stats in zip(outs, each):
-            stats.add(child_stats)
-            acc = out if acc is None else torch.minimum(acc, out)
+        with span("memo.join"):
+            for child, out, child_stats in zip(live, outs, each):
+                stats.add(child_stats)
+                out = child._join(out, membership)
+                acc = out if acc is None else torch.minimum(acc, out)
         self.last_stats = stats
         if acc is None:  # k too small for any stored interval: nothing marks
             acc = self._unmarked((L,), membership)
-        return acc if self.device_output else acc.cpu().numpy()
+        return acc if self.device_output else _to_host(acc)
 
     def _unmarked(self, shape: tuple[int, ...], membership: bool) -> torch.Tensor:
         """The output of positions ``shape`` where nothing marks."""
@@ -328,17 +329,19 @@ class QueryEngine:
             raise ValueError(f"empty/negative region {record}:{qs}-{qe}")
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
-        if self._children is not None:
-            return self._query_stratified(record, qs, qe, k, membership)
-        chunks = self._chunks(qs, qe)
-        stats = QueryStats(chunks=len(chunks), positions=qe - qs)
-        if self.backend == "fused":
-            outputs = self._query_chunk_fused(record, chunks, k, membership, stats)
-        else:
-            outputs = [self._query_chunk(record, c_qs, c_qe, k, membership, stats)
-                       for c_qs, c_qe in chunks]
-        self.last_stats = stats
-        return self._join(outputs, membership)
+        with span("memo.query"):
+            if self._children is not None:
+                return self._query_stratified(record, qs, qe, k, membership)
+            chunks = self._chunks(qs, qe)
+            stats = QueryStats(chunks=len(chunks), positions=qe - qs)
+            if self.backend == "fused":
+                outputs = self._query_chunk_fused(record, chunks, k, membership, stats)
+            else:
+                outputs = [self._query_chunk(record, c_qs, c_qe, k, membership, stats)
+                           for c_qs, c_qe in chunks]
+            self.last_stats = stats
+            with span("memo.join"):
+                return self._join(outputs, membership)
 
     def _chunks(self, qs: int, qe: int) -> list[tuple[int, int]]:
         """The position chunks of [qs, qe): full ones of ``chunk_positions``,
@@ -360,20 +363,22 @@ class QueryEngine:
         return np.concatenate(outputs) if outputs else np.zeros(0, np.int64)
 
     def _query_batch(self, record: str, windows, k: int, membership: bool) -> list:
-        windows = [(int(qs), int(qe)) for qs, qe in windows]
-        for qs, qe in windows:
-            if qe < qs:
-                raise ValueError(f"empty/negative window {qs}-{qe}")
-        if k < 1:
-            raise ValueError(f"k must be >= 1, got {k}")
-        if not windows:
-            return []
-        out = self._batch_tensor(record, windows, k, membership)
-        if out is None:
-            return self._query_batch_windows(record, windows, k, membership)
-        if not self.device_output:
-            out = out.cpu().numpy()
-        return [out[i, : qe - qs] for i, (qs, qe) in enumerate(windows)]
+        with span("memo.batch"):
+            windows = [(int(qs), int(qe)) for qs, qe in windows]
+            for qs, qe in windows:
+                if qe < qs:
+                    raise ValueError(f"empty/negative window {qs}-{qe}")
+            if k < 1:
+                raise ValueError(f"k must be >= 1, got {k}")
+            if not windows:
+                return []
+            out = self._batch_tensor(record, windows, k, membership)
+            if out is None:
+                return self._query_batch_windows(record, windows, k, membership)
+            if not self.device_output:
+                out = _to_host(out)
+            with span("memo.views"):
+                return [out[i, : qe - qs] for i, (qs, qe) in enumerate(windows)]
 
     def _batch_tensor(self, record, windows, k, membership) -> torch.Tensor | None:
         """The batch of ``windows`` (checked, nonempty) as one device tensor
@@ -407,7 +412,11 @@ class QueryEngine:
             part.add_later(_Replay.of(eng, record, k, chunks, eng_steps, windows))
             eng.last_stats = part
             stats.add(part)
-            acc = out if acc is None else torch.minimum(acc, out, out=acc)
+            if acc is None:
+                acc = out
+            else:
+                with span("memo.join"):
+                    torch.minimum(acc, out, out=acc)
         self.last_stats = stats
         return acc
 
@@ -430,14 +439,18 @@ class QueryEngine:
                 continue
             outs = child._query_batch(record, windows, k, membership)
             stats.add(child.last_stats)
-            accs = outs if accs is None else [torch.minimum(a, o) for a, o in zip(accs, outs)]
+            if accs is None:
+                accs = outs
+            else:
+                with span("memo.join"):
+                    accs = [torch.minimum(a, o) for a, o in zip(accs, outs)]
         self.last_stats = stats
         if accs is None:  # k too small for any stored interval: nothing marks
             accs = [self._unmarked((qe - qs,), membership) for qs, qe in windows]
-        return accs if self.device_output else [a.cpu().numpy() for a in accs]
+        return accs if self.device_output else [_to_host(a) for a in accs]
 
     def _finish(self, out: torch.Tensor):
-        return out if self.device_output else out.cpu().numpy()
+        return out if self.device_output else _to_host(out)
 
     def _cat(self, left, right):
         if self.device_output:
@@ -526,7 +539,12 @@ class QueryEngine:
         the device), L positions each. Output [Q, L] or [Q, L, C]."""
         n = self.n_docs
         run = fused_query_rows if self.kernel_version == "v1" else fused_query_v2_rows
-        return run(self._d, wp.params, wp.prefix, k=k, L=L, C=n, n_docs=n, membership=membership)
+        with span("memo.launch"):
+            out = run(self._d, wp.params, wp.prefix, k=k, L=L, C=n, n_docs=n,
+                      membership=membership)
+        count("memo.positions_launched", wp.params.shape[0] * L)
+        count("memo.candidate_rows", wp.counts)
+        return out
 
 
 class _Replay(NamedTuple):
@@ -602,11 +620,12 @@ def _window_steps(placed: PlacedStore, layout: DeviceLayout, r: int, chunks, k: 
     ``r``, found on the device: (L, chunk indices, WindowParams), one step
     per chunk length (the full chunks, then a shorter last one); nothing is
     read back."""
-    by_len: dict[int, list[int]] = {}
-    for i, (c_qs, c_qe) in enumerate(chunks):
-        by_len.setdefault(c_qe - c_qs, []).append(i)
-    return [(L, rows, window_params(placed, layout, r, [chunks[i][0] for i in rows], L, k))
-            for L, rows in by_len.items()]
+    with span("memo.window_step"):
+        by_len: dict[int, list[int]] = {}
+        for i, (c_qs, c_qe) in enumerate(chunks):
+            by_len.setdefault(c_qe - c_qs, []).append(i)
+        return [(L, rows, window_params(placed, layout, r, [chunks[i][0] for i in rows], L, k))
+                for L, rows in by_len.items()]
 
 
 def _larger_counts(chunks, steps: list) -> list[int]:
@@ -636,6 +655,22 @@ def _fused_chunks(engines: list, record: str, chunks, k: int, membership: bool,
         engine_stats.add_later(_Replay.of(engine, record, k, chunks, engine_steps))
     return [engine._launch_chunks(chunks, engine_steps, k, membership)
             for engine, engine_steps in zip(engines, steps)]
+
+
+def _to_host(t: torch.Tensor, pinned: bool = False) -> np.ndarray:
+    """An answer brought to the host, as a numpy array: ``t.cpu()``, or
+    with ``pinned`` :func:`_copy_back` and a wait on it. The wait on the
+    work queued before it and the copy are the span ``memo.copy_back``; the
+    answer's bytes count in ``memo.copy_back_bytes``."""
+    with span("memo.copy_back"):
+        if pinned:
+            host, ready = _copy_back(t)
+            if ready is not None:
+                ready.synchronize()
+        else:
+            host = t.cpu()
+    count("memo.copy_back_bytes", t.numel() * t.element_size())
+    return host.numpy()
 
 
 def _copy_back(t: torch.Tensor) -> tuple[torch.Tensor, torch.cuda.Event | None]:
