@@ -272,7 +272,7 @@ class ResidentShardedQuery:
         outs = [full[qs:qe] for qs, qe in windows]
         if self.device_output or not outs:
             return outs
-        host = engine_mod._to_host(torch.cat(outs), pinned=True)
+        host = engine_mod._to_host(torch.cat(outs))
         return np.split(host, np.cumsum([len(o) for o in outs[:-1]], dtype=np.int64))
 
     def _record_out(self, k: int, record: str | None, membership: bool) -> torch.Tensor:

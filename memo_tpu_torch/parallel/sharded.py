@@ -324,7 +324,7 @@ class ShardedQuery:
             out = mesh.all_gather(out, "dp").reshape((W, L) + out.shape[2:])
             outs.append(out[: len(idxs)])
             order += idxs
-        host = engine_mod._to_host(torch.cat(outs), pinned=True)
+        host = engine_mod._to_host(torch.cat(outs))
         results: list[np.ndarray | None] = [None] * len(windows)
         for j, i in enumerate(order):
             results[i] = host[j, : lens[i]]

@@ -155,8 +155,14 @@ class QueryEngine:
     query layout on ``device`` and search it there; the host keeps no copy
     of the placed rows (``store`` stays the caller's; queries read only its
     record names). ``device_output=True`` returns tensors on
-    the device instead of numpy arrays. ``kernel_version`` picks the fused
-    kernel: "v1" (``csrc/fused_query.cu``) or "v2"
+    the device instead of numpy arrays. Host answers come back through
+    :func:`_to_host` (on the fused backend, one copy and one wait an
+    answer); on CUDA they live in pinned memory from PyTorch's caching host
+    allocator, which stays pinned while the caller holds an answer and
+    cached by the allocator once the caller drops it: the page-locked bytes
+    are at their peak the held answers' bytes, each rounded up to a power of
+    two, and stay pinned for the life of the process. ``kernel_version``
+    picks the fused kernel: "v1" (``csrc/fused_query.cu``) or "v2"
     (``csrc/fused_query_v2.cu``), else ``$MEMO_TPU_PALLAS_KERNEL``, else
     "v1", as in memo_tpu.
     """
@@ -334,11 +340,12 @@ class QueryEngine:
                 return self._query_stratified(record, qs, qe, k, membership)
             chunks = self._chunks(qs, qe)
             stats = QueryStats(chunks=len(chunks), positions=qe - qs)
-            if self.backend == "fused":
-                outputs = self._query_chunk_fused(record, chunks, k, membership, stats)
-            else:
-                outputs = [self._query_chunk(record, c_qs, c_qe, k, membership, stats)
-                           for c_qs, c_qe in chunks]
+            if self.backend == "fused" and chunks:
+                out = self._query_chunk_fused(record, chunks, k, membership, stats)
+                self.last_stats = stats
+                return self._finish(out)
+            outputs = [self._query_chunk(record, c_qs, c_qe, k, membership, stats)
+                       for c_qs, c_qe in chunks]
             self.last_stats = stats
             with span("memo.join"):
                 return self._join(outputs, membership)
@@ -528,11 +535,13 @@ class QueryEngine:
                 outs[i] = self._run_kernel(one, k, L, membership)[0]
         return outs
 
-    def _query_chunk_fused(self, record, chunks, k, membership, stats: QueryStats) -> list:
-        """The fused backend's position chunks [(qs, qe), ...] of this
-        engine (:func:`_fused_chunks`): their outputs, in order."""
+    def _query_chunk_fused(self, record, chunks, k, membership, stats: QueryStats) -> torch.Tensor:
+        """The fused backend's position chunks [(qs, qe), ...] (at least one)
+        of this engine (:func:`_fused_chunks`) as one output, joined on the
+        device."""
         outs = _fused_chunks([self], record, chunks, k, membership, [stats])[0]
-        return [self._finish(out) for out in outs]
+        with span("memo.join"):
+            return torch.cat(outs) if len(outs) > 1 else outs[0]
 
     def _run_kernel(self, wp: WindowParams, k: int, L: int, membership: bool) -> torch.Tensor:
         """The fused kernel on the Q windows of ``wp`` (their parameters on
@@ -657,32 +666,42 @@ def _fused_chunks(engines: list, record: str, chunks, k: int, membership: bool,
             for engine, engine_steps in zip(engines, steps)]
 
 
-def _to_host(t: torch.Tensor, pinned: bool = False) -> np.ndarray:
-    """An answer brought to the host, as a numpy array: ``t.cpu()``, or
-    with ``pinned`` :func:`_copy_back` and a wait on it. The wait on the
-    work queued before it and the copy are the span ``memo.copy_back``; the
-    answer's bytes count in ``memo.copy_back_bytes``."""
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """An answer brought to the host, as a numpy array, in one copy and one
+    wait: a CUDA tensor is copied into pinned memory behind the work queued
+    before it (:func:`_copy_back`) and the host waits for the copy; a CPU
+    tensor is itself. The pinned block comes from PyTorch's caching host
+    allocator and the caller owns it: it stays pinned while the caller holds
+    the array (or a view of it), and once the caller drops it the allocator
+    keeps it cached, still pinned, for a later answer. A block is the
+    answer's bytes rounded up to a power of two; at its peak the process
+    pins the sum of the blocks of the answers it holds, and a query raises
+    where the host cannot pin a block. The wait and the copy are the span
+    ``memo.copy_back``; the answer's bytes count in ``memo.copy_back_bytes``,
+    and in ``memo.copy_back_pinned_bytes`` where :func:`_copy_back` copied
+    them into pinned memory (it returns an event then)."""
     with span("memo.copy_back"):
-        if pinned:
-            host, ready = _copy_back(t)
-            if ready is not None:
-                ready.synchronize()
-        else:
-            host = t.cpu()
-    count("memo.copy_back_bytes", t.numel() * t.element_size())
+        host, ready = _copy_back(t)
+        if ready is not None:
+            ready.synchronize()
+    nbytes = t.numel() * t.element_size()
+    count("memo.copy_back_bytes", nbytes)
+    count("memo.copy_back_pinned_bytes", nbytes if ready is not None else 0)
     return host.numpy()
 
 
 def _copy_back(t: torch.Tensor) -> tuple[torch.Tensor, torch.cuda.Event | None]:
     """``t`` on the host: a CUDA tensor is copied into pinned memory behind
     the work queued so far, without waiting for it, and comes with the event
-    to wait on before reading it; a CPU tensor is itself, ready."""
+    to wait on before reading it, recorded on the stream the copy runs on
+    (``t``'s device's current stream, whichever device is current); a CPU
+    tensor is itself, ready."""
     if t.device.type != "cuda":
         return t, None
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     ready = torch.cuda.Event()
-    ready.record()
+    ready.record(torch.cuda.current_stream(t.device))
     return host, ready
 
 
