@@ -55,8 +55,10 @@ each kernel (set-up stages, host RSS, set-up peak and steady device
 bytes, beside the sentinel pad bytes reckoned from the bucket rows), a
 query of eight position chunks equal to the batch of them, the record as
 one batch of 128,000 1 kbp tiles (two window groups a launch) equal to
-the windows, the reference loop and resident's whole record,
-resident over the whole record, set up from the saved .npz with no column
+the windows, the reference loop and resident's whole record, a regions
+file of 1,400 gene windows (log-normal lengths, an empty window and single
+positions) as one ragged launch of each kernel function equal to the plain
+version, resident over the whole record, set up from the saved .npz with no column
 read on the host (set-up stages, host RSS it adds, peak, steady and pad
 device bytes;
 conservation and membership, one launch per bucket), and the CLI's ``-r``
@@ -128,6 +130,10 @@ EDGE_REC_LEN = 200_000  # records of the random stores that phase 2 checks v1 on
 # down, at any cap (the profiler lists every operation).
 V1_KERNELS = ("rows_net_kernel", "tile_scan_kernel", "rows_apply_kernel")
 V2_KERNELS = ("fused_query_v2_kernel",)
+# A ragged batch (windows of their own lengths, one packed output): v1's own
+# four kernels, v2's one kernel built for it.
+V1_RAGGED = ("ragged_place_kernel", "ragged_net_kernel", "ragged_scan_kernel",
+             "ragged_apply_kernel")
 V1_GRAPH, V2_GRAPH = {"kernel": 3}, {"kernel": 1}  # the kernel functions
 STEP_OPS = ("Memcpy HtoD", "window_params_kernel", "Memcpy DtoH")  # profiler names
 CAPPED_WINDOW = 1 << 19  # a window under OVER_CAP's candidates, whose record's rows pass it
@@ -149,6 +155,10 @@ CHROM_CHUNK = 1 << 22  # MS rows generated and extracted at a time
 CHROM_WINDOWS, CHROM_WINDOW = 8, 1 << 21  # SCALE_r05's eight 2 Mbp windows
 CHROM_REPS = 5
 CHROM_TILE = 1000  # the record in 1 kbp tiles: 128,000 windows in one batch
+# A regions file of the chromosome's genes, as the benchmark's genes_chr12
+# traffic: 1,400 windows, log-normal lengths of median 14 kbp and mean 27 kbp.
+GENES, GENE_MEDIAN, GENE_MEAN = 1400, 14_000, 27_000
+PLAIN_SLOTS = 1 << 27  # (window, row) or (window, column, position) slots of one plain call
 # A query longer than the engine's position chunk: seven full 2 Mbp chunks
 # and a shorter last one, from window 3's start.
 CHUNKED_CHUNKS, CHUNKED_TAIL_CUT = 8, 12_345
@@ -2066,6 +2076,105 @@ def tile_batch(engine, device, store, wins, outs) -> tuple[dict, np.ndarray]:
             "function_bound_by": bound_by}, host.reshape(-1)
 
 
+def gene_windows(rng, rec_len: int) -> list[tuple[int, int]]:
+    """GENES windows sorted by start: log-normal lengths of median
+    GENE_MEDIAN and mean GENE_MEAN at evenly spaced quantiles, in a random
+    order, and uniform starts; one window empty and two a single position."""
+    sigma = (2 * np.log(GENE_MEAN / GENE_MEDIAN)) ** 0.5
+    z = np.array([statistics.NormalDist().inv_cdf((i + 0.5) / GENES) for i in range(GENES)])
+    lengths = rng.permutation(np.maximum(np.rint(GENE_MEDIAN * np.exp(sigma * z)), 1))
+    lengths = lengths.astype(np.int64)
+    lengths[[1, GENES // 2, GENES - 1]] = (0, 1, 1)
+    starts = np.sort(rng.integers(0, rec_len - lengths.max(), GENES))
+    return [(int(qs), int(qs + m)) for qs, m in zip(starts, lengths)]
+
+
+def plain_groups(params: np.ndarray, lengths, C: int) -> list[tuple[int, int, int]]:
+    """Runs [g0, g1) of consecutive windows, each with its longest length,
+    whose plain version holds at most PLAIN_SLOTS slots: a window's
+    candidate rows (``params``' ranges, int64[Q, 5]) and its columns times
+    the run's longest length."""
+    rows = np.maximum(params[:, 1] - params[:, 0], params[:, 3] - params[:, 2])
+    groups, g0, M, L = [], 0, 0, 0
+    for i, m in enumerate(lengths):
+        M2, L2 = max(M, int(rows[i]), 1), max(L, m, 1)
+        if i > g0 and (i + 1 - g0) * max(M2, C * L2) > PLAIN_SLOTS:
+            groups.append((g0, i, L))
+            g0, M2, L2 = i, max(int(rows[i]), 1), max(m, 1)
+        M, L = M2, L2
+    groups.append((g0, len(lengths), L))
+    return groups
+
+
+def gene_marking_rows(store, windows, k: int, device) -> int:
+    """The rows that mark a position of one of ``windows`` at k, summed,
+    counted on ``device`` from the store's intervals as the benchmark counts
+    them (portbench/work.py); an empty window has none."""
+    from portbench.work import marking_rows
+
+    wins = [(qs, qe, k) for qs, qe in windows if qe > qs]
+    return int(marking_rows(store.start, store.end, wins, device).sum())
+
+
+def ragged_function(engine, record: str, windows, k: int, version: str, rows: int) -> dict:
+    """The v1 or v2 function on the ragged batch ``windows``, as
+    ``conservation_batch`` launches it (each window's parameters found at
+    the longest length, one packed output): its launches counted from zero
+    over one call, which must be one; that call's output exact against the
+    plain version with the batch's offsets (fused_query_rows_reference, run
+    over :func:`plain_groups`, each at its longest length, since a window's
+    positions do not depend on the length its parameters were found at);
+    device times (CUDA events) of the function and of its plain version,
+    and the kernels' device operations. Its bound: ``rows``, the rows that
+    mark the windows, read once (12 bytes each) and every answered position
+    written once (4 bytes)."""
+    from memo_tpu_torch.ops.fused_query import fused_query_rows_reference, rows_tile
+    from memo_tpu_torch.ops.fused_query_v2 import v2_constants
+    from memo_tpu_torch.query.window import ragged_table
+
+    fn = kernel_functions()[version]
+    lengths = [qe - qs for qs, qe in windows]
+    L, C, total = max(lengths), engine.n_docs, sum(lengths)
+    starts, offsets = ragged_table([qs for qs, _ in windows], lengths, engine._d.start.device)
+    wp = engine._window_params(record, starts, L, k)
+
+    def run():
+        return fn(engine._d, wp.params, wp.prefix, k=k, L=L, C=C, n_docs=C, membership=False,
+                  offsets=offsets)
+
+    groups = plain_groups(wp.params.cpu().numpy().astype(np.int64), lengths, C)
+
+    def plain():
+        return torch.cat([fused_query_rows_reference(
+            engine._d, wp.params[g0:g1], wp.prefix[g0:g1], k=k, L=Lg, C=C, n_docs=C,
+            membership=False, offsets=offsets.group(g0, g1)) for g0, g1, Lg in groups])
+
+    fn.launches = 0
+    got = run()
+    torch.cuda.synchronize()
+    launches = fn.launches
+    where = f"{version} ragged batch of {len(windows)} windows, C={C}"
+    check(launches == 1, f"{where}: one launch, got {launches}")
+    want = plain()
+    check(got.dtype == want.dtype and tuple(got.shape) == (total,) == tuple(want.shape),
+          f"{where}: shape/dtype")
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    check(err == 0, f"kernel != plain: {where}")
+    del got, want
+    ms = kernel_ms(run)
+    plain_ms = kernel_ms(plain, reps=1)
+    n_bytes = rows * 12 + total * 4
+    n_ops = total * C + rows  # one scan add per (position, column), one atomic per row
+    bound, bound_by = bound_ms(n_bytes, n_ops)
+    ops = device_ops(run, V1_RAGGED if version == "v1" else V2_KERNELS)
+    return {"version": version, "C": C, "L": L, "windows": len(windows), "positions": total,
+            "candidate_rows": int(wp.counts.sum()), "marking_rows": rows,
+            "tile": rows_tile(C) if version == "v1" else v2_constants(C)[0],
+            "launches": launches, "max_abs_err": err, "plain_groups": len(groups), "ms": ms,
+            "plain_ms": plain_ms, "bytes": n_bytes, "ops": n_ops, "bound_ms": bound,
+            "bound_by": bound_by, "bound_share": bound / ms, "kernels_us": ops}
+
+
 def rss_bytes() -> int:
     """This process's resident set now, in bytes."""
     with open("/proc/self/status") as fh:
@@ -2228,9 +2337,11 @@ def phase_chromosome(device, tmp: str):
     with ``auto`` (resolved to resident), ``batched``, ``position`` and
     ``interval``, byte-identical, each with no column through numpy's
     reader (walls, host RSS, peak device bytes; position's and interval's
-    stages).
-    Returns the kernel records, each kernel's launches and its error over
-    the whole record."""
+    stages); 1,400 gene windows as one ragged launch of each function
+    (:func:`ragged_function`).
+    Returns the kernel records (the genes batch's under ``genes``), each
+    kernel's launches and its error over the whole record and the genes
+    batch."""
     from memo_tpu_torch import cli
     from memo_tpu_torch.ops.fused_query import fused_query_rows
     from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2_rows
@@ -2264,7 +2375,10 @@ def phase_chromosome(device, tmp: str):
     edges = [(CHROM_LEN - 1000, CHROM_LEN), (CHROM_LEN - 7, CHROM_LEN + 5000),
              (CHROM_LEN, CHROM_LEN + 64), (CHROM_LEN + 100_000, CHROM_LEN + 100_001)]
     launches = {"v1": 0, "v2": 0, "window": 0}
-    engines, outs, tiled, tiles_host = {}, None, {}, None
+    genes = gene_windows(np.random.default_rng(SEED), CHROM_LEN)
+    gene_rows = gene_marking_rows(store, genes, K, device)
+    torch.cuda.empty_cache()
+    engines, outs, tiled, tiles_host, ragged = {}, None, {}, None, {}
     for version in ("v1", "v2"):
         torch.cuda.reset_peak_memory_stats()
         fused_query_rows.launches = fused_query_v2_rows.launches = 0
@@ -2311,6 +2425,8 @@ def phase_chromosome(device, tmp: str):
         launches["window"] += window_params.launches
         child = eng._children[0][1]  # the only bucket that marks at K
         functions = [time_function(child, "chr1", [w], K, version) for w in wins]
+        ragged[version] = ragged_function(child, "chr1", genes, K, version, gene_rows)
+        launches[version] += ragged[version]["launches"]
         if version == "v1":
             window_fn = time_window_params(child, "chr1", [wins[3]], K)
         engines[version] = {"engine_init_s": init_s, "engine_init_stages": stages,
@@ -2401,10 +2517,13 @@ def phase_chromosome(device, tmp: str):
                                if k in ("position", "interval")},
          regions_cli_peak_device_bytes=regions_peak, auto_resolved="resident",
          regions_byte_identical=True, launches=launches, window_kernel=window_fn,
-         no_wait_query_k51=no_wait, tile_batch=tiled, tiles_equal_resident=True)
+         no_wait_query_k51=no_wait, tile_batch=tiled, tiles_equal_resident=True,
+         gene_batch=ragged)
     whole = resident["whole_record_max_abs_err"].values()
-    return ({v: engines[v]["functions"][q] for v in ("v1", "v2")} | {"window": window_fn}, launches,
-            {v: max(errors[v] for errors in whole) for v in ("v1", "v2")})
+    return ({v: engines[v]["functions"][q] for v in ("v1", "v2")}
+            | {"window": window_fn, "genes": ragged}, launches,
+            {v: max(ragged[v]["max_abs_err"], *(errors[v] for errors in whole))
+             for v in ("v1", "v2")})
 
 
 def headline_device_ms(eng, record: str, wins) -> dict:
@@ -2611,6 +2730,7 @@ def main() -> int:
         cells["v2"][name] = wide[name]["kernel_v2"]
     for version in ("v1", "v2"):
         cells[version]["chromosome"] = chrom[version]
+        cells[version]["genes"] = chrom["genes"][version]
     for version in ("v1", "v2"):
         emit(f"{version}_function", card=card, **{name: {key: cell[key] for key in FUNCTION_KEYS}
                                                   for name, cell in cells[version].items()})

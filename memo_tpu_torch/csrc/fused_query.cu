@@ -61,6 +61,20 @@
 //  4. Launches: one host-to-device copy of the parameters and prefix (the
 //     wrapper's), then the three kernels; about 30 before.
 //
+// A ragged batch (windows of different lengths, given as int64 output
+// offsets) would waste most of a uniform launch: a gene batch's longest
+// window is 50 times its median, so a grid of nt x Q tiles runs 25 tiles for
+// each one that answers, and writes 25 positions for each one kept. Its
+// launch instead walks one flat list of the windows' own tiles (tile.cuh): a
+// small kernel, one block a window, writes each tile's place (window, tile,
+// positions, the window's start) into a table; the net and apply kernels run
+// one block a tile of the list and start from its place, one load, as the
+// uniform kernels start from blockIdx (blocks that first had to find their
+// window, or load its parameters through it, measured slower a tile,
+// PERF.md); the scan takes each window's own tiles; each tile writes
+// min(T, len - base) positions at its window's offset of one packed output.
+// Uniform launches (no offsets) keep the nt x Q grid and kernels.
+//
 // The store and the tile's scan and reduce live in tile.cuh, shared with v2
 // (csrc/fused_query_v2.cu). A launch covers one column group of the store
 // (tile.cuh says how) and at most kMaxGridY windows; the wrapper
@@ -183,22 +197,15 @@ rows_net_kernel(Store store, const int32_t* __restrict__ params, int c0, int C, 
   }
 }
 
-// carry[q, c, t] = prefix[q * ld + c] + sum of delta[q, c, t'] over t' < t:
-// one block per (column, window), reading and writing its row of tiles
-// contiguously.
-__global__ void __launch_bounds__(kScanThreads)
-tile_scan_kernel(const int32_t* __restrict__ delta, const int32_t* __restrict__ prefix, int nt,
-                 int C, int ld, int32_t* __restrict__ carry) {
-  __shared__ int warp_sum[kScanWarps];
-  const int c = blockIdx.x;
-  const int q = blockIdx.y;
+// Exclusive scan of one row of n tile nets from `running` into carry_row:
+// the rounds of one block of kScanThreads threads.
+__device__ __forceinline__ void scan_row(const int32_t* __restrict__ delta_row, int n, int running,
+                                         int32_t* __restrict__ carry_row, int* warp_sum) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const size_t row = (static_cast<size_t>(q) * C + c) * nt;
-  int running = prefix[static_cast<size_t>(q) * ld + c];
-  for (int first = 0; first < nt; first += kScanThreads) {
+  for (int first = 0; first < n; first += kScanThreads) {
     const int t = first + threadIdx.x;
-    const int v = t < nt ? delta[row + t] : 0;
+    const int v = t < n ? delta_row[t] : 0;
     int x = v;  // inclusive scan within the warp
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
@@ -217,10 +224,23 @@ tile_scan_kernel(const int32_t* __restrict__ delta, const int32_t* __restrict__ 
       warp_sum[lane] = s;
     }
     __syncthreads();
-    if (t < nt) carry[row + t] = running + (warp > 0 ? warp_sum[warp - 1] : 0) + x - v;
+    if (t < n) carry_row[t] = running + (warp > 0 ? warp_sum[warp - 1] : 0) + x - v;
     running += warp_sum[kScanWarps - 1];
     __syncthreads();  // warp_sum is rewritten by the next round
   }
+}
+
+// carry[q, c, t] = prefix[q * ld + c] + sum of delta[q, c, t'] over t' < t:
+// one block per (column, window), reading and writing its row of tiles
+// contiguously.
+__global__ void __launch_bounds__(kScanThreads)
+tile_scan_kernel(const int32_t* __restrict__ delta, const int32_t* __restrict__ prefix, int nt,
+                 int C, int ld, int32_t* __restrict__ carry) {
+  __shared__ int warp_sum[kScanWarps];
+  const int c = blockIdx.x;
+  const int q = blockIdx.y;
+  const size_t row = (static_cast<size_t>(q) * C + c) * nt;
+  scan_row(delta + row, nt, prefix[static_cast<size_t>(q) * ld + c], carry + row, warp_sum);
 }
 
 // One block per (tile, window): the tile applied from its carry.
@@ -265,29 +285,173 @@ cudaError_t launch_apply(dim3 grid, size_t smem, cudaStream_t stream, const Stor
   return cudaGetLastError();
 }
 
+// A ragged launch (tile.cuh) over `units` units of the flat tile list. First
+// one block per window writes each of its units' place: (window, tile of
+// the window, the tile's positions, the window's start), no positions for a
+// spare unit; and the window's run of the list: (first unit, tiles). The
+// net and apply kernels then take one block per unit and start from that
+// one load, as the uniform ones start from blockIdx, and the scan from the
+// run, with no division in any of their threads; they lay out
+// bounds[unit, 4] and delta and carry [c, unit].
+constexpr int kPlaceThreads = 256;
+
+__global__ void __launch_bounds__(kPlaceThreads)
+ragged_place_kernel(const int32_t* __restrict__ params, const int64_t* __restrict__ off, int T,
+                    int4* __restrict__ place, int2* __restrict__ runs) {
+  const int q = blockIdx.x;
+  const int first = ragged_first(off, q, T);
+  const int last = ragged_first(off, q + 1, T);  // the next window's first unit
+  const long long len = off[q + 1] - off[q];
+  const int qs = params[static_cast<size_t>(q) * 5 + 4];
+  if (threadIdx.x == 0) runs[q] = make_int2(first, ragged_units(off, q, T));
+  for (int u = first + threadIdx.x; u < last; u += blockDim.x) {
+    const long long base = static_cast<long long>(u - first) * T;
+    const int rows = base < len ? static_cast<int>(min(static_cast<long long>(T), len - base)) : 0;
+    place[u] = make_int4(q, u - first, rows, qs);
+  }
+}
+
+__global__ void __launch_bounds__(kNetThreads)
+ragged_net_kernel(Store store, const int32_t* __restrict__ params,
+                  const int4* __restrict__ place, int c0, int C, int T, int k,
+                  int32_t* __restrict__ bounds, int32_t* __restrict__ delta) {
+  extern __shared__ int smem[];
+  int* net = smem;       // [C]
+  int* found = net + C;  // [4]
+  const int unit = blockIdx.x;
+  const int units = gridDim.x;
+  const int4 at = place[unit];
+  if (at.z == 0) return;  // a spare unit
+  const Window w = load_window(store, params, at.x, k);
+  const int base = at.y * T;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) net[c] = 0;
+  find_bounds(w, base, base + T, found);
+  __syncthreads();
+  scatter<false>(w.minus, found[0], found[1], base, T, k, c0, C, net, 1, 0);
+  scatter<true>(w.plus, found[2], found[3], base, T, k, c0, C, net, 1, 0);
+  __syncthreads();
+  if (threadIdx.x < 4) bounds[static_cast<size_t>(unit) * 4 + threadIdx.x] = found[threadIdx.x];
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    delta[static_cast<size_t>(c) * units + unit] = net[c];
+  }
+}
+
+// The ragged carries: one block per (column, window) over the window's own
+// tiles, the row of column c from the window's first unit.
+__global__ void __launch_bounds__(kScanThreads)
+ragged_scan_kernel(const int32_t* __restrict__ delta, const int32_t* __restrict__ prefix,
+                   const int2* __restrict__ runs, int units, int ld,
+                   int32_t* __restrict__ carry) {
+  __shared__ int warp_sum[kScanWarps];
+  const int c = blockIdx.x;
+  const int q = blockIdx.y;
+  const int2 run = runs[q];
+  const size_t row = static_cast<size_t>(c) * units + run.x;
+  scan_row(delta + row, run.y, prefix[static_cast<size_t>(q) * ld + c], carry + row, warp_sum);
+}
+
+// A ragged unit applied from its carry: its positions written at its
+// window's offset of the packed output. The scatter needs of the window
+// only its start (the streams' shifts): the rows come from bounds.
+template <bool kMembership>
+__global__ void __launch_bounds__(kThreads)
+ragged_apply_kernel(Store store, const int64_t* __restrict__ off, const int4* __restrict__ place,
+                    const int32_t* __restrict__ bounds, const int32_t* __restrict__ tile_carry,
+                    int c0, int C, int ld, int T, int k, int none, void* __restrict__ out) {
+  extern __shared__ int smem[];
+  int* cov = smem;                 // [C][T + 1]
+  int* carry = cov + C * (T + 1);  // [C]
+  int* first = carry + C;          // [T]
+  const int unit = blockIdx.x;
+  const int units = gridDim.x;
+  const int4 at = place[unit];
+  if (at.z == 0) return;  // a spare unit
+  const Stream minus{store.start, store.end, store.order, 0, 0, at.w};
+  const Stream plus{store.end_s, store.start_by_end, store.order_by_end, 0, 0, at.w + k - 1};
+  const int32_t* b = bounds + static_cast<size_t>(unit) * 4;
+  const int base = at.y * T;
+  for (int i = threadIdx.x; i < C * (T + 1); i += blockDim.x) cov[i] = 0;
+  for (int p = threadIdx.x; p < T; p += blockDim.x) first[p] = none;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    carry[c] = tile_carry[static_cast<size_t>(c) * units + unit];
+  }
+  __syncthreads();
+  scatter<false>(minus, b[0], b[1], base, T, k, c0, C, cov, T + 1, 1);
+  scatter<true>(plus, b[2], b[3], base, T, k, c0, C, cov, T + 1, 1);
+  __syncthreads();
+  finish_tile<kMembership>(cov, carry, first, T, C, at.z, none, out,
+                           static_cast<size_t>(off[at.x] - off[0]) + base, ld, c0);
+}
+
+// The four ragged kernels over `units` units; scratch as the entry point
+// says.
+cudaError_t launch_ragged(const Store& store, const int32_t* params, const int32_t* prefix,
+                          const int64_t* off, int32_t* scratch, void* out, int Q, int C, int c0,
+                          int G, int k, int T, int n_docs, int membership, int units,
+                          cudaStream_t s) {
+  int4* place = reinterpret_cast<int4*>(scratch);              // [units]
+  int32_t* bounds = scratch + static_cast<size_t>(units) * 4;  // [units, 4]
+  int32_t* delta = bounds + static_cast<size_t>(units) * 4;    // [G, units]
+  int32_t* carry = delta + static_cast<size_t>(units) * G;     // [G, units]
+  int2* runs = reinterpret_cast<int2*>(carry + static_cast<size_t>(units) * G);  // [Q]
+  ragged_place_kernel<<<Q, kPlaceThreads, 0, s>>>(params, off, T, place, runs);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ragged_net_kernel<<<units, kNetThreads, (G + 4) * sizeof(int), s>>>(
+      store, params, place, c0, G, T, k, bounds, delta);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ragged_scan_kernel<<<dim3(G, Q), kScanThreads, 0, s>>>(delta, prefix + c0, runs, units, C,
+                                                         carry);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = (static_cast<size_t>(G) * (T + 1) + G + T) * sizeof(int);
+  auto* apply = membership ? ragged_apply_kernel<true> : ragged_apply_kernel<false>;
+  err = cudaFuncSetAttribute(apply, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  void* group_out = membership ? static_cast<void*>(static_cast<int8_t*>(out) + c0) : out;
+  apply<<<units, kThreads, smem, s>>>(store, off, place, bounds, carry, c0, G, C, T, k,
+                                      n_docs - c0, group_out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Query Q windows of L positions on `stream` from the placed store's six
-// row arrays (n_rows rows each), over the store's columns [c0, c0 + G) of
-// its C. params is int32[Q, 5] (mlo, mhi, plo, phi, qs per window), prefix
-// int32[Q, C], out int32[Q, L] (conservation: c0 plus the group's first
-// marked column, or n_docs, min-combined with out where c0 > 0) or
-// int8[Q, L, C] (membership: columns [c0, c0 + G) written); scratch holds Q * nt * (4 + 2 * G) int32 words with
-// nt = ceil(L / tile). Returns the CUDA error code of the first call that
-// failed, 0 when all were accepted.
+// Query Q windows on `stream` from the placed store's six row arrays (n_rows
+// rows each), over the store's columns [c0, c0 + G) of its C. params is
+// int32[Q, 5] (mlo, mhi, plo, phi, qs per window), prefix int32[Q, C].
+// Uniform (offsets null): every window L positions, out int32[Q, L]
+// (conservation: c0 plus the group's first marked column, or n_docs,
+// min-combined with out where c0 > 0) or int8[Q, L, C] (membership: columns
+// [c0, c0 + G) written), scratch Q * nt * (4 + 2 * G) int32 words with
+// nt = ceil(L / tile). Ragged: offsets int64[Q + 1] on the card, window q's
+// positions [offsets[q] - offsets[0], offsets[q + 1] - offsets[0]) of the
+// packed out int32[total] or int8[total, C], each at most L long (its
+// parameters are those of [qs, qs + L)); scratch units * (8 + 2 * G) + 2 * Q
+// words, 16-byte aligned, with units = total / tile + Q (tile.cuh). Returns
+// the CUDA error code of the first call that failed, 0 when all were
+// accepted.
 extern "C" int memo_fused_query_rows(const int32_t* start, const int32_t* end,
                                      const int32_t* order, const int32_t* end_s,
                                      const int32_t* start_by_end, const int32_t* order_by_end,
                                      const int32_t* params, const int32_t* prefix,
-                                     int32_t* scratch, void* out, int n_rows, int Q, int L, int C,
-                                     int c0, int G, int k, int tile, int n_docs, int membership,
+                                     int32_t* scratch, void* out, const int64_t* offsets,
+                                     long long total, int n_rows, int Q, int L, int C, int c0,
+                                     int G, int k, int tile, int n_docs, int membership,
                                      void* stream) {
   if (n_rows < 0 || Q < 1 || Q > kMaxGridY || L < 1 || c0 < 0 || G < 1 || c0 + G > C || k < 1 ||
-      tile < 32 || tile % 32 != 0 || tile > 32 * kMaxChunks) {
+      tile < 32 || tile % 32 != 0 || tile > 32 * kMaxChunks || total < 0) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Store store{start, end, order, end_s, start_by_end, order_by_end, n_rows};
+  if (offsets != nullptr) {
+    const long long units = total / tile + Q;
+    if (units > 0x7fffffffLL) return cudaErrorInvalidValue;
+    return launch_ragged(store, params, prefix, offsets, scratch, out, Q, C, c0, G, k, tile,
+                         n_docs, membership, static_cast<int>(units), s);
+  }
   const int T = tile;
   const int nt = (L + T - 1) / T;
   const size_t tiles = static_cast<size_t>(Q) * nt;

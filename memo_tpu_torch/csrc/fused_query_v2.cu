@@ -45,6 +45,13 @@
 // looks back per tile (1.4-3.3x slower than this design at every cell,
 // PERF.md).
 //
+// A ragged batch (int64 output offsets, windows of different lengths) draws
+// its tickets over one flat list of runs (tile.cuh, with runs of R tiles as
+// the unit): the producer finds a ticket's window by one warp-wide search
+// over the offsets and skips a spare ticket, a run never crosses its
+// window's last tile (its carry and look-back belong to one window), and a
+// tile writes its positions at its window's offset of one packed output.
+//
 // Bank conflicts as in v1: the tile is cov[C][T + 1], word (c, p) in bank
 // (c + p) % 32. As in v1, a launch covers one column group of the store
 // (tile.cuh), and the wrapper launches wider stores as groups.
@@ -339,24 +346,56 @@ __device__ int group_lower_bound(const int32_t* __restrict__ key, int lo, int hi
   return lo;
 }
 
+// The window that owns unit u of a ragged launch over Q windows (tile.cuh):
+// the last q with ragged_first(off, q, span) <= u. One warp, 32 probes a
+// step (a batch of 1,400 windows takes 3 steps); every lane returns it.
+__device__ inline int ragged_window(const int64_t* off, int Q, long long span, int u) {
+  const int lane = threadIdx.x & 31;
+  // The first q of [1, Q) whose first unit lies past u, or Q, is in [lo, hi].
+  int lo = 1, hi = Q;
+  while (lo < hi) {
+    const long long n = hi - lo;
+    const int probe = lo + static_cast<int>(n * (lane + 1) / 33);  // in [lo, hi)
+    const int below = __popc(__ballot_sync(0xffffffffu, ragged_first(off, probe, span) <= u));
+    const int new_lo = below == 0 ? lo : lo + static_cast<int>(n * below / 33) + 1;
+    hi = below == 32 ? hi : lo + static_cast<int>(n * (below + 1) / 33);
+    lo = new_lo;
+  }
+  return lo - 1;
+}
+
 // The producer warp: draw runs until none is left; for each, find its tile
 // bounds and stream its rows twice (aggregate pass, then tile by tile).
-__device__ void produce(Ring r, const Store& store, const int32_t* params, int* ticket, int Q,
-                        int nt, int runs, int R, int T, int k) {
+// Tickets [0, slots): uniform, run j of window q is ticket q * runs + j, of
+// nt tiles a window; ragged, window q's runs are its units of R * T
+// positions in the flat list of tile.cuh, and a spare ticket is skipped.
+template <bool kRagged>
+__device__ void produce(Ring r, const Store& store, const int32_t* params, const int64_t* at,
+                        int* ticket, int Q, int slots, int nt, int runs, int R, int T, int k) {
   const int lane = threadIdx.x & 31;
   const Stream none{};
   for (;;) {
     int g = 0;
     if (lane == 0) g = atomicAdd(ticket, 1);
     g = __shfl_sync(0xffffffffu, g, 0);
-    if (g >= Q * runs) {
+    if (g >= slots) {
       push(r, kEndStage, false, true, &none, 0, 0, 0, 0, 0, 0, 0, 0);
       return;
     }
-    const int q = g / runs;
-    const int j = g - q * runs;
+    int q, j, tiles;
+    if constexpr (kRagged) {
+      const long long span = static_cast<long long>(R) * T;
+      q = ragged_window(at, Q, span, g);
+      j = g - ragged_first(at, q, span);
+      tiles = ragged_units(at, q, T);
+      if (j * R >= tiles) continue;  // a spare ticket, past the window's last run
+    } else {
+      q = g / runs;
+      j = g - q * runs;
+      tiles = nt;
+    }
     const int t0 = j * R;
-    const int n = min(R, nt - t0);
+    const int n = min(R, tiles - t0);
     const Window w = load_window(store, params, q, k);
     const Stream* streams[2] = {&w.minus, &w.plus};
     // The run's first and last rows in each stream: four searches side by
@@ -422,11 +461,14 @@ __device__ void consume_rows(const int* rows, int lo, int hi, int a, int off, in
 // aggregate stage, look back; after a tile's last stage, finish the tile.
 // The group's columns are [c0, c0 + C) of ld; membership rows lie ld bytes
 // apart in out, and conservation writes first + c0, min-combined with out
-// where c0 > 0 (first[T] holds none).
-template <bool kMembership>
-__device__ void consume(Ring r, int* status, int32_t* sums, const int32_t* prefix, int L, int c0,
-                        int C, int ld, int T, int k, int none, int runs, int epoch, int* cov,
-                        int* carry, int* net, int* first, int* code, void* out) {
+// where c0 > 0 (first[T] holds none). A window's runs are its tickets
+// (produce); a ragged window writes its positions at its offset (`at`, the
+// launch's offsets) in the packed out.
+template <bool kMembership, bool kRagged>
+__device__ void consume(Ring r, int* status, int32_t* sums, const int32_t* prefix,
+                        const int64_t* at, int L, int c0, int C, int ld, int T, int k, int none,
+                        int runs, int R, int epoch, int* cov, int* carry, int* net, int* first,
+                        int* code, void* out) {
   const int warp = threadIdx.x >> 5;
   const int S = T + 1;
   for (;;) {
@@ -451,14 +493,24 @@ __device__ void consume(Ring r, int* status, int32_t* sums, const int32_t* prefi
     if (!(head & 8)) continue;
     consumer_sync();
     if (kind == kAggStage) {
-      look_back(status, sums, prefix + static_cast<size_t>(q) * ld, static_cast<size_t>(q) * runs,
-                j, net, carry, C, epoch, code);
+      const size_t first_run = kRagged ? ragged_first(at, q, static_cast<long long>(R) * T)
+                                       : static_cast<size_t>(q) * runs;
+      look_back(status, sums, prefix + static_cast<size_t>(q) * ld, first_run, j, net, carry, C,
+                epoch, code);
       for (int c = threadIdx.x; c < C; c += kConsumers) net[c] = 0;
       continue;  // the tile's scatter ends in a consumer_sync before carry is read
     }
     const int base = t * T;
-    const int rows_out = min(T, L - base);
-    const size_t out_row = static_cast<size_t>(q) * L + base;
+    int rows_out;
+    size_t out_row;
+    if constexpr (kRagged) {
+      rows_out = static_cast<int>(
+          min(static_cast<long long>(T), static_cast<long long>(at[q + 1] - at[q]) - base));
+      out_row = static_cast<size_t>(at[q] - at[0] + base);
+    } else {
+      rows_out = min(T, L - base);
+      out_row = static_cast<size_t>(q) * L + base;
+    }
     if constexpr (kMembership) {
       scan_tile<kConsumerWarps, true>(cov, carry, T, S, C, warp);
       consumer_sync();
@@ -479,11 +531,12 @@ __device__ void consume(Ring r, int* status, int32_t* sums, const int32_t* prefi
   }
 }
 
-template <bool kMembership>
+template <bool kMembership, bool kRagged>
 __global__ void __launch_bounds__(kThreads)
 fused_query_v2_kernel(Store store, const int32_t* __restrict__ params, const int32_t* __restrict__ prefix,
-               int* __restrict__ state, int32_t* __restrict__ sums, int Q, int L, int c0, int C,
-               int ld, int T, int k, int none, int R, int S, void* __restrict__ out) {
+               const int64_t* __restrict__ at, int* __restrict__ state, int32_t* __restrict__ sums,
+               int Q, int L, int c0, int C, int ld, int T, int k, int none, int R, int S,
+               int slots, void* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
   uint64_t* empty = full + kMaxStages;
@@ -496,7 +549,7 @@ fused_query_v2_kernel(Store store, const int32_t* __restrict__ params, const int
   int* epoch_word = first + T;           // [1]
   int* code = epoch_word + 1;            // [1]: look_back's word
   const int nt = (L + T - 1) / T;
-  const int runs = (nt + R - 1) / R;
+  const int runs = (nt + R - 1) / R;  // a uniform window's
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
       asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
@@ -514,10 +567,10 @@ fused_query_v2_kernel(Store store, const int32_t* __restrict__ params, const int
   const int epoch = *epoch_word;
   const Ring r{full, empty, meta, ring, S, 0, 0};
   if (threadIdx.x >= kConsumers) {
-    produce(r, store, params, &state[kTicket], Q, nt, runs, R, T, k);
+    produce<kRagged>(r, store, params, at, &state[kTicket], Q, slots, nt, runs, R, T, k);
   } else {
-    consume<kMembership>(r, state + kStatus, sums, prefix, L, c0, C, ld, T, k, none, runs, epoch,
-                         cov, carry, net, first, code, out);
+    consume<kMembership, kRagged>(r, state + kStatus, sums, prefix, at, L, c0, C, ld, T, k, none,
+                                  runs, R, epoch, cov, carry, net, first, code, out);
   }
   leave(state, epoch);
 }
@@ -529,14 +582,17 @@ size_t smem_bytes(int C, int T, int S) {
          (static_cast<size_t>(C) * (T + 1) + 2 * C + T + 2) * sizeof(int);
 }
 
-// The kernel over the column group [c0, c0 + G) of the store's C columns.
-template <bool kMembership>
+// The kernel over the column group [c0, c0 + G) of the store's C columns:
+// Q windows of L positions, or a ragged launch's windows (offsets `at`) of `tiles`
+// tiles and `total` positions in all.
+template <bool kMembership, bool kRagged>
 cudaError_t launch(cudaStream_t stream, const Store& store, const int32_t* params,
-                   const int32_t* prefix, int* state, int32_t* sums, int Q, int L, int C, int c0,
-                   int G, int T, int S, int k, int n_docs, void* out) {
+                   const int32_t* prefix, const int64_t* at, int* state, int32_t* sums, int Q,
+                   int L, int C, int c0, int G, int T, int S, int k, int n_docs, long long total,
+                   long long tiles, void* out) {
+  auto* kernel = fused_query_v2_kernel<kMembership, kRagged>;
   const size_t smem = smem_bytes(G, T, S);
-  cudaError_t err = cudaFuncSetAttribute(fused_query_v2_kernel<kMembership>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int device = 0, sms = 0, per_sm = 0;
@@ -544,52 +600,68 @@ cudaError_t launch(cudaStream_t stream, const Store& store, const int32_t* param
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) {
     return err;
   }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_query_v2_kernel<kMembership>,
-                                                      kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int grid = per_sm * sms;  // every block resident
   // Runs of R tiles: as long as keeps every block busy (one run each), at
   // most kMaxRun. Longer runs pay fewer searches and look-backs; a block's
   // runs are drawn one ahead, so many short runs chain their waits (PERF.md).
-  const long long tiles = static_cast<long long>(Q) * ((L + T - 1) / T);
+  const int nt = (L + T - 1) / T;
+  if (!kRagged) tiles = static_cast<long long>(Q) * nt;
   long long R = (tiles + grid - 1) / grid;
   R = R < 1 ? 1 : (R > kMaxRun ? kMaxRun : R);
+  const long long slots = kRagged ? total / (R * T) + Q : Q * ((nt + R - 1) / R);
+  if (slots > 0x7fffffffLL) return cudaErrorInvalidValue;
   void* group_out = kMembership ? static_cast<void*>(static_cast<int8_t*>(out) + c0) : out;
-  fused_query_v2_kernel<kMembership><<<grid, kThreads, smem, stream>>>(
-      store, params, prefix + c0, state, sums, Q, L, c0, G, C, T, k, n_docs - c0,
-      static_cast<int>(R), S, group_out);
+  kernel<<<grid, kThreads, smem, stream>>>(store, params, prefix + c0, at, state, sums, Q, L, c0,
+                                           G, C, T, k, n_docs - c0, static_cast<int>(R), S,
+                                           static_cast<int>(slots), group_out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Query Q windows of L positions on `stream` from the placed store's six
-// row arrays, each holding n_rows + 3 rows (the bulk copies read up to 3
-// rows past a window's last), over the store's columns [c0, c0 + G) of its
-// C. params is int32[Q, 5] (mlo, mhi, plo, phi, qs per window), prefix
-// int32[Q, C]; state is int32[4 + Q * nt] (nt = ceil(L / tile)), zeroed
-// once when it was allocated and left for the next launch on this device;
-// sums is int32[Q * nt * 2 * G] scratch; out is int32[Q, L] (c0 plus the
-// group's first marked column, or n_docs, min-combined with out where
-// c0 > 0) or int8[Q, L, C] (columns [c0, c0 + G) written); the ring has `stages` stages. Returns the CUDA error code of
-// the first call that failed, 0 when all were accepted.
+// Query Q windows on `stream` from the placed store's six row arrays, each
+// holding n_rows + 3 rows (the bulk copies read up to 3 rows past a window's
+// last), over the store's columns [c0, c0 + G) of its C. params is
+// int32[Q, 5] (mlo, mhi, plo, phi, qs per window), prefix int32[Q, C].
+// Uniform (offsets null): every window L positions, out int32[Q, L] (c0 plus
+// the group's first marked column, or n_docs, min-combined with out where
+// c0 > 0) or int8[Q, L, C] (columns [c0, c0 + G) written); state is
+// int32[4 + Q * nt] (nt = ceil(L / tile)) and sums int32[Q * nt * 2 * G]
+// scratch. Ragged: offsets int64[Q + 1] on the card, window q's positions
+// [offsets[q] - offsets[0], offsets[q + 1] - offsets[0]) of the packed out
+// int32[total] or int8[total, C], each at most L long, `tiles` the windows'
+// ceil(length / tile) summed; state int32[4 + units] and sums
+// int32[units * 2 * G] with units = total / tile + Q (tile.cuh). The state is
+// zeroed once when it was allocated and left for the next launch on this
+// device; the ring has `stages` stages. Returns the CUDA error code of the
+// first call that failed, 0 when all were accepted.
 extern "C" int memo_fused_query_v2_rows(const int32_t* start, const int32_t* end,
                                         const int32_t* order, const int32_t* end_s,
                                         const int32_t* start_by_end,
                                         const int32_t* order_by_end, const int32_t* params,
                                         const int32_t* prefix, int32_t* state, int32_t* sums,
-                                        void* out, int n_rows, int Q, int L, int C, int c0,
+                                        void* out, const int64_t* offsets, long long total,
+                                        long long tiles, int n_rows, int Q, int L, int C, int c0,
                                         int G, int k, int tile, int stages, int n_docs,
                                         int membership, void* stream) {
   if (n_rows < 0 || Q < 1 || L < 1 || c0 < 0 || G < 1 || c0 + G > C || k < 1 || tile < 32 ||
-      tile % 32 != 0 || tile > 32 * kMaxChunks || stages < 2 || stages > kMaxStages) {
+      tile % 32 != 0 || tile > 32 * kMaxChunks || stages < 2 || stages > kMaxStages ||
+      total < 0 || tiles < 0) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Store store{start, end, order, end_s, start_by_end, order_by_end, n_rows};
-  return membership ? launch<true>(s, store, params, prefix, state, sums, Q, L, C, c0, G, tile,
-                                   stages, k, n_docs, out)
-                    : launch<false>(s, store, params, prefix, state, sums, Q, L, C, c0, G, tile,
-                                    stages, k, n_docs, out);
+  if (offsets == nullptr) {
+    return membership ? launch<true, false>(s, store, params, prefix, nullptr, state, sums, Q, L, C,
+                                            c0, G, tile, stages, k, n_docs, 0, 0, out)
+                      : launch<false, false>(s, store, params, prefix, nullptr, state, sums, Q, L,
+                                             C, c0, G, tile, stages, k, n_docs, 0, 0, out);
+  }
+  return membership ? launch<true, true>(s, store, params, prefix, offsets, state, sums, Q, L, C,
+                                         c0, G, tile, stages, k, n_docs, total, tiles, out)
+                    : launch<false, true>(s, store, params, prefix, offsets, state, sums, Q, L, C,
+                                          c0, G, tile, stages, k, n_docs, total, tiles, out);
 }

@@ -65,6 +65,25 @@ __device__ inline Window load_window(const Store& s, const int32_t* params, int 
            qs + k - 1}};
 }
 
+// A ragged launch (fused_query_rows and fused_query_v2_rows given an offsets
+// table): window q answers positions [off[q] - off[0], off[q + 1] - off[0])
+// of the launch's packed output, and owns the units (v1: tiles of T
+// positions; v2: runs of R tiles) from ragged_first(off, q, span) =
+// floor((off[q] - off[0]) / span) + q of one flat list. The first unit grows
+// with q, and by at least ceil(len_q / span) a window, since
+// floor((a + len) / s) - floor(a / s) + 1 >= ceil(len / s): a window's units
+// never reach the next one's. The list has floor(total / span) + Q units, of
+// which at most one a window is spare: it lies past the window's last
+// position, and does nothing.
+__device__ __forceinline__ int ragged_first(const int64_t* off, int q, long long span) {
+  return static_cast<int>((off[q] - off[0]) / span) + q;
+}
+
+// Units of `span` positions that window q's positions take.
+__device__ __forceinline__ int ragged_units(const int64_t* off, int q, long long span) {
+  return static_cast<int>((off[q + 1] - off[q] + span - 1) / span);
+}
+
 // A row's event column within the launch's column group [c0, c0 + G), or
 // -1 when the row is not live there. end - start is key - partner in end
 // order and partner - key in start order.

@@ -88,19 +88,20 @@ def _run_together(cmds: list[list[str]]) -> str:
 def load_library() -> ctypes.CDLL:
     """The kernel library with its C signatures declared (built if needed)."""
     lib = ctypes.CDLL(str(build_library()))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    # v1: 6 store row pointers, params, prefix, scratch, out; n_rows, Q, L,
-    # C, c0, G, k, tile, n_docs, membership; the stream.
-    lib.memo_fused_query_rows.argtypes = [ptr] * 10 + [i32] * 10 + [ptr]
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # v1: 6 store row pointers, params, prefix, scratch, out, the ragged
+    # offsets (or null); their total; n_rows, Q, L, C, c0, G, k, tile,
+    # n_docs, membership; the stream.
+    lib.memo_fused_query_rows.argtypes = [ptr] * 11 + [i64] + [i32] * 10 + [ptr]
     lib.memo_fused_query_rows.restype = i32
-    # v2: 6 store row pointers, params, prefix, state, sums, out; n_rows, Q,
-    # L, C, c0, G, k, tile, stages, n_docs, membership; the stream.
-    lib.memo_fused_query_v2_rows.argtypes = [ptr] * 11 + [i32] * 11 + [ptr]
+    # v2: 6 store row pointers, params, prefix, state, sums, out, the ragged
+    # offsets (or null); their total and tiles; n_rows, Q, L, C, c0, G, k,
+    # tile, stages, n_docs, membership; the stream.
+    lib.memo_fused_query_v2_rows.argtypes = [ptr] * 12 + [i64] * 2 + [i32] * 11 + [ptr]
     lib.memo_fused_query_v2_rows.restype = i32
     # window parameters: 4 store row pointers, 2 key pointers, the starts on
     # the card (or null), the starts on the host (by value), out; rec_lo,
     # rec_n, n_keys, L, k, stride, first_key; Q, C, monotone; the stream.
-    i64 = ctypes.c_longlong
     lib.memo_window_params.argtypes = [ptr] * 9 + [i64] * 7 + [i32] * 3 + [ptr]
     lib.memo_window_params.restype = i32
     lib.memo_window_inline_starts.argtypes = []

@@ -30,6 +30,13 @@ of other columns are no events, membership fills those G columns of the
 [Q, L, C] output, and conservation is c0 plus the group's first marked
 column, or ``n_docs``, min-combined into the output, so that after the
 last group it holds the store's.
+
+A ragged batch gives the wrappers its :class:`Offsets`: window q is then
+``len_q = at[q + 1] - at[q]`` <= L positions long, the kernels launch over
+its own tiles only, and the output is one packed buffer, int32[sum len] or
+int8[sum len, C], window q's positions at ``[at[q], at[q + 1])`` (``at``
+less ``at[0]``). Without them every window is L long and the output
+[Q, L(, C)], as it always was.
 """
 
 from __future__ import annotations
@@ -93,6 +100,33 @@ class Streams(NamedTuple):
     off_p: torch.Tensor
     L: int
     tile: int
+
+
+class Offsets(NamedTuple):
+    """A ragged batch's output offsets, int64[Q + 1]: window q answers
+    positions ``[host[q] - host[0], host[q + 1] - host[0])`` of the packed
+    output. ``host`` is what the wrappers size and split launches by,
+    ``device`` the same numbers on the launch's device, for the kernels to
+    read."""
+
+    host: np.ndarray
+    device: torch.Tensor
+
+    def group(self, g0: int, g1: int) -> Offsets:
+        """The offsets of windows [g0, g1): views, no copy."""
+        return Offsets(self.host[g0 : g1 + 1], self.device[g0 : g1 + 1])
+
+    @property
+    def total(self) -> int:
+        return int(self.host[-1] - self.host[0])
+
+
+def upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``: on CUDA one non-blocking copy from pinned
+    memory, queued on the current stream; on the CPU the array itself."""
+    if device.type == "cpu":
+        return torch.from_numpy(host)
+    return torch.from_numpy(host).pin_memory().to(device, non_blocking=True)
 
 
 def prepare_streams(
@@ -197,13 +231,22 @@ def fused_query_reference(streams: Streams, prefix: torch.Tensor, *, n_docs: int
 
 
 def check_rows_launch(name: str, placed, params: torch.Tensor, prefix: torch.Tensor, *, k: int,
-                      L: int, C: int) -> int | None:
+                      L: int, C: int, offsets: Offsets | None = None) -> int | None:
     """Validate a call on the placed store's six row tensors, the parameter
-    block [Q, 5] (any Q >= 1) and the prefix [Q, C]: returns the rows per
-    store tensor, or None where every tensor is on the CPU (the plain
-    version's case). Raises on anything the kernels do not take, so that a
-    CUDA tensor never reaches a plain version."""
-    tensors = (*placed, params, prefix)
+    block [Q, 5] (any Q >= 1), the prefix [Q, C] and a ragged batch's
+    offsets: returns the rows per store tensor, or None where every tensor
+    is on the CPU (the plain version's case). Raises on anything the kernels
+    do not take, so that a CUDA tensor never reaches a plain version."""
+    if offsets is not None:
+        lengths = np.diff(offsets.host)
+        if (offsets.host.dtype != np.int64 or offsets.host.shape != (params.shape[0] + 1,)
+                or offsets.host[0] < 0 or (lengths < 0).any() or (lengths > L).any()):
+            raise ValueError(f"{name}'s offsets must be int64[Q + 1], nondecreasing from at "
+                             f"least 0, each window at most L = {L} long")
+        if (offsets.device.dtype != torch.int64 or offsets.device.shape != offsets.host.shape
+                or not offsets.device.is_contiguous()):
+            raise ValueError(f"{name}'s offsets on the device must be a contiguous int64[Q + 1]")
+    tensors = (*placed, params, prefix) + (() if offsets is None else (offsets.device,))
     devices = {t.device for t in tensors}
     if devices == {CPU}:
         return None
@@ -217,7 +260,7 @@ def check_rows_launch(name: str, placed, params: torch.Tensor, prefix: torch.Ten
     if prefix.shape != (n_win, C):
         raise ValueError(f"prefix must be [Q, C] = [{n_win}, {C}], got {tuple(prefix.shape)}")
     n_rows = placed[0].numel()
-    for t in tensors:
+    for t in tensors[:8]:
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name} takes contiguous int32 tensors")
     if any(t.dim() != 1 or t.numel() != n_rows for t in placed) or n_rows >= 2**31:
@@ -226,6 +269,8 @@ def check_rows_launch(name: str, placed, params: torch.Tensor, prefix: torch.Ten
 
 
 def output_tensor(lead: tuple, L: int, C: int, membership: bool, device) -> torch.Tensor:
+    """The output of ``lead`` windows of L positions, or, with ``lead`` (),
+    of L packed positions."""
     if membership:
         return torch.empty(lead + (L, C), dtype=torch.int8, device=device)
     return torch.empty(lead + (L,), dtype=torch.int32, device=device)
@@ -238,54 +283,73 @@ def launch_error(name: str, lib, err: int) -> RuntimeError:
 
 
 def launch_groups(launch_group, placed, params, prefix, n_rows, *, widest: int, k: int, L: int,
-                  C: int, n_docs: int, membership: bool) -> torch.Tensor:
+                  C: int, n_docs: int, membership: bool,
+                  offsets: Offsets | None = None) -> torch.Tensor:
     """A wrapper's call as launches of ``launch_group`` over groups of at
     most :data:`MAX_WINDOWS` consecutive windows (rows of ``params`` and
     ``prefix``, no copy) and of at most ``widest`` columns (as few as fit,
     of equal width), each into its rows of the one output, which it
-    returns. Membership groups fill their columns; a conservation group
-    from c0 > 0 writes the minimum of the output and its own (launches run
-    in stream order). A call that fits one launch is that launch alone.
-    Both limits are read here, at the call."""
+    returns: [Q, L(, C)], or a ragged batch's packed positions, of which a
+    window group's are one run from its first window's offset. Membership
+    groups fill their columns; a conservation group from c0 > 0 writes the
+    minimum of the output and its own (launches run in stream order). A
+    call that fits one launch is that launch alone. Both limits are read
+    here, at the call."""
     n_win = params.shape[0]
-    out = output_tensor((n_win,), L, C, membership, params.device)
+    if offsets is None:
+        out = output_tensor((n_win,), L, C, membership, params.device)
+    else:
+        out = output_tensor((), offsets.total, C, membership, params.device)
     G = -(-C // -(-C // widest))
     for g0 in range(0, n_win, MAX_WINDOWS):
-        rows = slice(g0, g0 + MAX_WINDOWS)  # one group of every window takes the tensors as given
-        part = (params, prefix, out) if n_win <= MAX_WINDOWS else (params[rows], prefix[rows],
-                                                                    out[rows])
+        g1 = min(g0 + MAX_WINDOWS, n_win)
+        part, group_offsets = (params, prefix, out), offsets  # one group of every window: as given
+        if n_win > MAX_WINDOWS:
+            if offsets is None:
+                rows = slice(g0, g1)
+            else:
+                group_offsets = offsets.group(g0, g1)
+                rows = slice(int(group_offsets.host[0] - offsets.host[0]),
+                             int(group_offsets.host[-1] - offsets.host[0]))
+            part = (params[g0:g1], prefix[g0:g1], out[rows])
         for c0 in range(0, C, G):
             launch_group(placed, *part, n_rows, k=k, L=L, C=C, c0=c0, G=min(G, C - c0),
-                         n_docs=n_docs, membership=membership)
+                         n_docs=n_docs, membership=membership, offsets=group_offsets)
     return out
 
 
 def fused_query_rows_reference(placed, params, prefix, *, k: int, L: int, C: int, n_docs: int,
-                               membership: bool, c0: int = 0, G: int | None = None):
+                               membership: bool, c0: int = 0, G: int | None = None,
+                               offsets: Offsets | None = None):
     """Plain PyTorch version of :func:`fused_query_rows`, over the column
     group [c0, c0 + G) (all C columns by default): the event streams of
     every window (:func:`prepare_streams`, over as many rows as the largest
     candidate range) and their diff-array query
     (:func:`fused_query_reference`) from the group's prefix columns. Output
     [Q, L] (c0 plus the group's first marked column, or ``n_docs``), or
-    [Q, L, G] for membership: the group's columns alone. It takes any
+    [Q, L, G] for membership: the group's columns alone; with ``offsets``,
+    each window's row cut to its length and the rows packed. It takes any
     width: the tile only lays out the streams."""
     G = C - c0 if G is None else G
     mlo, mhi, plo, phi, qs = params.cpu().numpy().astype(np.int64).T
     M = max(int((mhi - mlo).max()), int((phi - plo).max()), 1)
     tile = kernel_constants(G) if G <= MAX_COLUMNS else TILES[-1]
     streams = prepare_streams(*placed, mlo, mhi, plo, phi, qs, k, M=M, L=L, C=G, tile=tile, c0=c0)
-    return fused_query_reference(streams, prefix[:, c0 : c0 + G], n_docs=n_docs,
-                                 membership=membership, c0=c0)
+    out = fused_query_reference(streams, prefix[:, c0 : c0 + G], n_docs=n_docs,
+                                membership=membership, c0=c0)
+    if offsets is None:
+        return out
+    lengths = torch.from_numpy(np.diff(offsets.host)).to(out.device)
+    return out[torch.arange(L, device=out.device) < lengths[:, None]]
 
 
 def plain_group(placed, params, prefix, out, *, k: int, L: int, C: int, c0: int, G: int,
-                n_docs: int, membership: bool) -> None:
+                n_docs: int, membership: bool, offsets: Offsets | None = None) -> None:
     """A launch's plain version (CPU tensors): the column group
     [c0, c0 + G) of ``params``' windows into ``out`` as the kernels write
     it (:func:`launch_groups`)."""
     got = fused_query_rows_reference(placed, params, prefix, k=k, L=L, C=C, n_docs=n_docs,
-                                     membership=membership, c0=c0, G=G)
+                                     membership=membership, c0=c0, G=G, offsets=offsets)
     if membership:
         out[..., c0 : c0 + G] = got
     elif c0:
@@ -295,35 +359,59 @@ def plain_group(placed, params, prefix, out, *, k: int, L: int, C: int, c0: int,
 
 
 def _launch_group(placed, params, prefix, out, n_rows, *, k: int, L: int, C: int, c0: int, G: int,
-                  n_docs: int, membership: bool) -> None:
+                  n_docs: int, membership: bool, offsets: Offsets | None = None) -> None:
     """One launch of the kernels of ``csrc/fused_query.cu`` over
     ``params``' windows and the column group [c0, c0 + G) into ``out``
     (:func:`launch_groups`), counted in ``fused_query_rows.launches``; its
-    plain version where ``n_rows`` is None (CPU tensors)."""
+    plain version where ``n_rows`` is None (CPU tensors). Its scratch holds
+    per tile the row bounds, the net events and the carry of each column,
+    and in a ragged launch each tile's place (its window, its tile of the
+    window, its positions and the window's start) and each window's run of
+    tiles (``csrc/fused_query.cu``)."""
     if n_rows is None:
         return plain_group(placed, params, prefix, out, k=k, L=L, C=C, c0=c0, G=G,
-                           n_docs=n_docs, membership=membership)
+                           n_docs=n_docs, membership=membership, offsets=offsets)
     n_win = params.shape[0]
     tile = rows_tile(G)
     lib = load_library()
     device = params.device
-    nt = -(-L // tile)
-    scratch = torch.empty(n_win * nt * (4 + 2 * G), dtype=torch.int32, device=device)
+    if offsets is None:
+        words, table, total = n_win * -(-L // tile) * (4 + 2 * G), None, 0
+    else:
+        total = offsets.total
+        units = ragged_units(total, n_win, tile)
+        words, table = units * (8 + 2 * G) + 2 * n_win, offsets.device.data_ptr()
+    scratch = torch.empty(words, dtype=torch.int32, device=device)
     err = launch(lib.memo_fused_query_rows, device,
                  *(t.data_ptr() for t in (*placed, params, prefix)), scratch.data_ptr(),
-                 out.data_ptr(), n_rows, n_win, L, C, c0, G, k, tile, n_docs, int(membership))
+                 out.data_ptr(), table, total, n_rows, n_win, L, C, c0, G, k, tile, n_docs,
+                 int(membership))
     if err != 0:
         raise launch_error("fused_query_rows", lib, err)
     fused_query_rows.launches += 1
 
 
+def ragged_units(total: int, n_win: int, span: int) -> int:
+    """Units of ``span`` positions in a ragged launch's flat list
+    (``csrc/tile.cuh``): ``total // span + n_win``, at most one of them
+    spare a window. Raises past the kernels' grid."""
+    units = total // span + n_win
+    if units >= 2**31:
+        raise ValueError(f"a ragged launch of {total} positions takes {units} tiles of {span}; "
+                         "the kernels take fewer than 2**31")
+    return units
+
+
 def fused_query_rows(placed, params: torch.Tensor, prefix: torch.Tensor, *, k: int, L: int, C: int,
-                     n_docs: int, membership: bool):
+                     n_docs: int, membership: bool, offsets: Offsets | None = None):
     """Conservation int32[Q, L] or membership int8[Q, L, C] of Q windows of
     L positions at k, from the placed store (``engine.PlacedStore``, six
     int32 row tensors), the parameter block ``params`` int32[Q, 5] and the
     prefix int32[Q, C] (``query/window.py`` finds both on the device), for
-    any Q and any C.
+    any Q and any C. With a ragged batch's ``offsets`` (window q at most L
+    long, its parameters those of [qs, qs + L)) the kernels launch over each
+    window's own tiles and the output is packed, int32[sum len] or
+    int8[sum len, C].
 
     On CUDA tensors this launches the kernels of ``csrc/fused_query.cu`` on
     the current stream, once where the call fits one launch, else once per
@@ -332,9 +420,10 @@ def fused_query_rows(placed, params: torch.Tensor, prefix: torch.Tensor, *, k: i
     raises. On CPU tensors each group runs
     :func:`fused_query_rows_reference`.
     """
-    n_rows = check_rows_launch("fused_query_rows", placed, params, prefix, k=k, L=L, C=C)
+    n_rows = check_rows_launch("fused_query_rows", placed, params, prefix, k=k, L=L, C=C,
+                               offsets=offsets)
     return launch_groups(_launch_group, placed, params, prefix, n_rows, widest=MAX_COLUMNS, k=k,
-                         L=L, C=C, n_docs=n_docs, membership=membership)
+                         L=L, C=C, n_docs=n_docs, membership=membership, offsets=offsets)
 
 
 fused_query_rows.launches = 0

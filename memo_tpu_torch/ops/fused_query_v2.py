@@ -4,7 +4,8 @@ Counterpart of :mod:`memo_tpu.ops.pallas_query_v2`, the variant for dense
 windows, with exactly the contract of v1's :func:`fused_query_rows`: the
 placed store's six row tensors, the parameter block int32[Q, 5] and the
 prefix int32[Q, C] in, conservation int32[Q, L] or
-membership int8[Q, L, C] out, and the same plain version,
+membership int8[Q, L, C] out (a ragged batch's :class:`Offsets` give the
+packed output), and the same plain version,
 :func:`fused_query_rows_reference`. :func:`fused_query_v2_rows` runs the
 hand-written CUDA kernel of ``csrc/fused_query_v2.cu``; its source note
 says how it reads every row once and carries the coverage by a look-back.
@@ -14,16 +15,19 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from memo_tpu_torch.ops._build import launch, load_library
 from memo_tpu_torch.ops.fused_query import (
     MAX_SMEM_BYTES,
     TILES,
+    Offsets,
     check_rows_launch,
     launch_error,
     launch_groups,
     plain_group,
+    ragged_units,
 )
 
 STAGE_ROWS = 512  # rows of one stream in one ring stage (three int32 arrays)
@@ -79,38 +83,46 @@ def _state(device: torch.device, n_words: int) -> torch.Tensor:
 
 
 def _launch_group(placed, params, prefix, out, n_rows, *, k: int, L: int, C: int, c0: int, G: int,
-                  n_docs: int, membership: bool) -> None:
+                  n_docs: int, membership: bool, offsets: Offsets | None = None) -> None:
     """One launch of the kernel of ``csrc/fused_query_v2.cu`` over
     ``params``' windows and the column group [c0, c0 + G) into ``out``
     (:func:`~memo_tpu_torch.ops.fused_query.launch_groups`), counted in
     ``fused_query_v2_rows.launches``; its plain version where ``n_rows`` is
-    None (CPU tensors)."""
+    None (CPU tensors). Its state and sums hold a word and 2 G words per
+    run, sized for runs of one tile (the kernel picks longer ones)."""
     if n_rows is None:
         return plain_group(placed, params, prefix, out, k=k, L=L, C=C, c0=c0, G=G,
-                           n_docs=n_docs, membership=membership)
+                           n_docs=n_docs, membership=membership, offsets=offsets)
     n_win = params.shape[0]
     tile, stages = v2_constants(G)
     lib = load_library()
     device = params.device
-    units = n_win * -(-L // tile)
+    if offsets is None:
+        units, table, total, tiles = n_win * -(-L // tile), None, 0, 0
+    else:
+        total, table = offsets.total, offsets.device.data_ptr()
+        units = ragged_units(total, n_win, tile)
+        tiles = int((-(-np.diff(offsets.host) // tile)).sum())
     state = _state(device, 4 + units)
     sums = torch.empty(units * 2 * G, dtype=torch.int32, device=device)
     err = launch(lib.memo_fused_query_v2_rows, device,
                  *(t.data_ptr() for t in (*placed, params, prefix)), state.data_ptr(),
-                 sums.data_ptr(), out.data_ptr(), n_rows - ROW_SLACK, n_win, L, C, c0, G, k, tile,
-                 stages, n_docs, int(membership))
+                 sums.data_ptr(), out.data_ptr(), table, total, tiles, n_rows - ROW_SLACK, n_win, L,
+                 C, c0, G, k, tile, stages, n_docs, int(membership))
     if err != 0:
         raise launch_error("fused_query_v2_rows", lib, err)
     fused_query_v2_rows.launches += 1
 
 
 def fused_query_v2_rows(placed, params: torch.Tensor, prefix: torch.Tensor, *, k: int, L: int,
-                        C: int, n_docs: int, membership: bool):
+                        C: int, n_docs: int, membership: bool, offsets: Offsets | None = None):
     """Conservation int32[Q, L] or membership int8[Q, L, C] of Q windows of
     L positions at k, from the placed store (``engine.PlacedStore``, six
     int32 row tensors, each with at least 3 rows after the last one a window
     names, as ``place_store`` leaves them), the parameter block ``params``
-    int32[Q, 5] and the prefix int32[Q, C], for any Q and any C.
+    int32[Q, 5] and the prefix int32[Q, C], for any Q and any C; with a
+    ragged batch's ``offsets``, the packed output of each window's own
+    length, as :func:`~memo_tpu_torch.ops.fused_query.fused_query_rows`.
 
     On CUDA tensors this launches the kernel of ``csrc/fused_query_v2.cu`` on
     the current stream, once where the call fits one launch, else once per
@@ -119,12 +131,13 @@ def fused_query_v2_rows(placed, params: torch.Tensor, prefix: torch.Tensor, *, k
     kernel does not take raises. On CPU tensors each group runs the plain
     version, :func:`~memo_tpu_torch.ops.fused_query.fused_query_rows_reference`.
     """
-    n_rows = check_rows_launch("fused_query_v2_rows", placed, params, prefix, k=k, L=L, C=C)
+    n_rows = check_rows_launch("fused_query_v2_rows", placed, params, prefix, k=k, L=L, C=C,
+                               offsets=offsets)
     if n_rows is not None and (n_rows <= ROW_SLACK or any(t.data_ptr() % 16 for t in placed)):
         raise ValueError("fused_query_v2_rows reads the store rows in 16-byte copies: each row "
                          f"tensor must be 16-byte aligned and hold more than {ROW_SLACK} rows")
     return launch_groups(_launch_group, placed, params, prefix, n_rows, widest=MAX_COLUMNS, k=k,
-                         L=L, C=C, n_docs=n_docs, membership=membership)
+                         L=L, C=C, n_docs=n_docs, membership=membership, offsets=offsets)
 
 
 fused_query_v2_rows.launches = 0

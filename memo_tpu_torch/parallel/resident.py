@@ -316,7 +316,8 @@ class ResidentShardedQuery:
     def _slab(self, name: str | None, k: int, membership: bool) -> torch.Tensor:
         """Positions [s*B, (s+1)*B) of record ``name``, [B(, C)]: the
         engine's batch of windows of at most ``chunk_positions`` (one launch
-        per length bucket), read as consecutive positions. Positions past
+        per length bucket), whose flat output is the slab's positions, all
+        windows but the last being ``chunk_positions`` long. Positions past
         the record's end, and an empty slot (None), hold the unmarked value
         (conservation n_docs, membership 1)."""
         eng, B = self.engine, self.B
@@ -325,7 +326,7 @@ class ResidentShardedQuery:
         step = eng.chunk_positions
         windows = [(qs, min(qs + step, hi)) for qs in range(lo, hi, step)]
         if windows:  # one launch per bucket, whatever the windows' candidate counts
-            out = eng._batch_tensor(name, windows, k, membership).flatten(0, 1)
+            out = eng._batch_tensor(name, windows, k, membership)
         else:
             out = eng._unmarked((0,), membership)
         if out.shape[0] < B:

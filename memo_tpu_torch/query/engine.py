@@ -19,7 +19,8 @@ Large windows run in position chunks; dense stores split into length
 buckets (the proofs are in the JAX engine's docstrings and in
 memo_tpu/ops/query_ops.py). A batch of windows of one record
 (``conservation_batch``/``membership_batch``) runs as one launch of the
-kernel. The fused kernels read only a window's candidate ranges, so they
+kernel, each window over its own length, into one packed output. The
+fused kernels read only a window's candidate ranges, so they
 take a chunk whole whatever its candidate count; memo_tpu's halving of a
 chunk over the cap lives on only in ``last_stats``, replayed from the
 window steps when first read. The kernel wrappers take any window count
@@ -53,18 +54,30 @@ from memo_tpu_torch.index.placement import (
 )
 from memo_tpu_torch.index.store import IntervalStore
 from memo_tpu_torch.ops import query_ops as Q
-from memo_tpu_torch.ops.fused_query import fused_query_rows
+from memo_tpu_torch.ops.fused_query import Offsets, fused_query_rows
 from memo_tpu_torch.ops.fused_query_v2 import ROW_SLACK, fused_query_v2_rows
-from memo_tpu_torch.query.window import WindowParams, window_bounds, window_params
+from memo_tpu_torch.query.window import WindowParams, ragged_table, window_bounds, window_params
 from memo_tpu_torch.utils.device import resolve_device
 from memo_tpu_torch.utils.profiling import count, span, stage_timer
 
 BACKENDS = ("fused", "torch", "numpy")
 KERNEL_VERSIONS = ("v1", "v2")  # fused kernel generations, as memo_tpu names them
+# A batch launches ragged (each window over its own length) only where its
+# padded positions, Q x the longest length, exceed its answered ones by more
+# than this: the ragged launch's lookup costs v1 8-17% a tile on an H100
+# (PERF.md, ops.fused_query), so a nearly uniform batch keeps the uniform launch.
+RAGGED_PADDING = 1.2
 
 
 def _next_pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+def _ragged(lengths: list[int]) -> bool:
+    """Whether a batch of windows of ``lengths`` (nonempty) launches ragged:
+    whether its padding, Q x the longest length, exceeds its answered
+    positions by more than :data:`RAGGED_PADDING`."""
+    return len(lengths) * max(lengths) > RAGGED_PADDING * sum(lengths)
 
 
 class _Replayed:
@@ -306,10 +319,11 @@ class QueryEngine:
     def conservation_batch(self, record: str, windows, k: int) -> list:
         """Conservation of each window ``(qs, qe)`` of one record. On the
         ``fused`` backend the batch is one call of the kernel wrapper: every
-        window runs at the batch's longest length L from its own candidate
-        ranges and prefix, and keeps its first ``qe - qs`` positions (exact:
-        a window's row is what the single-window kernel computes over
-        [qs, qs + L)). Windows longer than ``chunk_positions`` and the other
+        window's candidate ranges and prefix are found at the batch's longest
+        length L, the kernels launch over its own ``qe - qs`` positions only
+        (exact: those are the first positions of what the single-window
+        kernel computes over [qs, qs + L)), and the answers are views of one
+        packed output. Windows longer than ``chunk_positions`` and the other
         backends run per window."""
         return self._query_batch(record, windows, k, membership=False)
 
@@ -385,25 +399,40 @@ class QueryEngine:
             if not self.device_output:
                 out = _to_host(out)
             with span("memo.views"):
-                return [out[i, : qe - qs] for i, (qs, qe) in enumerate(windows)]
+                lengths = [qe - qs for qs, qe in windows]
+                stride = None if _ragged(lengths) else max(lengths)
+                views, at = [], 0
+                for m in lengths:
+                    views.append(out[at : at + m])
+                    at += m if stride is None else stride
+                return views
 
     def _batch_tensor(self, record, windows, k, membership) -> torch.Tensor | None:
-        """The batch of ``windows`` (checked, nonempty) as one device tensor
-        [Q, L(, C)], L the longest window, from one launch of the kernel per
-        length bucket that can mark (bucket outputs min-combined as in
-        :meth:`_query_stratified`), whatever the candidate counts: row i's
-        first ``qe - qs`` positions are window i's output (exact: a window's
-        row is what the single-window kernel computes over [qs, qs + L)).
-        Every bucket's window step is queued, then its kernel; nothing is
-        read. None where the batch runs per window: another backend, or
-        windows longer than ``chunk_positions`` or all empty."""
-        L = max(qe - qs for qs, qe in windows)
-        positions = sum(qe - qs for qs, qe in windows)
+        """The batch of ``windows`` (checked, nonempty) as one flat device
+        tensor [N(, C)], from one launch of the kernel per length bucket
+        that can mark (bucket outputs min-combined as in
+        :meth:`_query_stratified`), whatever the candidate counts. Every
+        window's step runs at the longest length L (as memo_tpu's, so its
+        candidate counts and ``last_stats`` are memo_tpu's). A batch that
+        :func:`_ragged` calls ragged launches each window over its own
+        length into one packed output, N the sum of the lengths, window i
+        after the windows before it (the batch's starts and offsets go up
+        in one copy, :func:`~memo_tpu_torch.query.window.ragged_table`);
+        any other launches over [Q, L], N = Q x L, window i from i x L, its
+        positions past its length padding. Exact either way: a window's
+        positions are the first ones of what the single-window kernel
+        computes over [qs, qs + L). Every bucket's window step is queued,
+        then its kernel; nothing is read. None where the batch runs per
+        window: another backend, or windows longer than ``chunk_positions``
+        or all empty."""
+        lengths = [qe - qs for qs, qe in windows]
+        L, positions = max(lengths), sum(lengths)
         engines = ([self] if self._children is None
                    else [child for lb, child in self._children if lb < k - 1])
+        ragged = _ragged(lengths)
         if not engines:  # k too small for any stored interval: nothing marks
             self.last_stats = QueryStats(positions=positions)
-            return self._unmarked((len(windows), L), membership)
+            return self._unmarked((positions if ragged else len(windows) * L,), membership)
         # A batch of empty windows has nothing to launch.
         if self.backend != "fused" or not 0 < L <= self.chunk_positions:
             return None
@@ -411,10 +440,16 @@ class QueryEngine:
         # programs XLA compiles; nothing here compiles per shape, so the
         # batch keeps its own count.
         chunks = [(qs, qs + L) for qs, _ in windows]
-        steps = [eng._chunk_steps(record, chunks, k) for eng in engines]
+        starts, offsets = None, None
+        if ragged:
+            starts, offsets = ragged_table([qs for qs, _ in windows], lengths,
+                                           engines[0]._d.start.device)
+        steps = [eng._chunk_steps(record, chunks, k, starts) for eng in engines]
         stats, acc = QueryStats(positions=positions), None
         for eng, eng_steps in zip(engines, steps):
-            out = eng._run_kernel(eng_steps[0][2], k, L, membership)
+            out = eng._run_kernel(eng_steps[0][2], k, L, membership, offsets)
+            if offsets is None:
+                out = out.flatten(0, 1)
             part = QueryStats(positions=positions)
             part.add_later(_Replay.of(eng, record, k, chunks, eng_steps, windows))
             eng.last_stats = part
@@ -518,10 +553,11 @@ class QueryEngine:
                 acc = np.minimum(acc, out)
         return acc
 
-    def _chunk_steps(self, record: str, chunks, k: int) -> list:
+    def _chunk_steps(self, record: str, chunks, k: int, starts=None) -> list:
         """The window steps of the position chunks [(qs, qe), ...] of
         ``record`` (:func:`_window_steps`)."""
-        return _window_steps(self._d, self._layout, self.store.record_index(record), chunks, k)
+        return _window_steps(self._d, self._layout, self.store.record_index(record), chunks, k,
+                             starts)
 
     def _launch_chunks(self, chunks, steps: list, k: int, membership: bool) -> list:
         """Each chunk's kernel, one launch a chunk, whatever its candidate
@@ -543,15 +579,18 @@ class QueryEngine:
         with span("memo.join"):
             return torch.cat(outs) if len(outs) > 1 else outs[0]
 
-    def _run_kernel(self, wp: WindowParams, k: int, L: int, membership: bool) -> torch.Tensor:
+    def _run_kernel(self, wp: WindowParams, k: int, L: int, membership: bool,
+                    offsets: Offsets | None = None) -> torch.Tensor:
         """The fused kernel on the Q windows of ``wp`` (their parameters on
-        the device), L positions each. Output [Q, L] or [Q, L, C]."""
+        the device), L positions each: output [Q, L] or [Q, L, C]; or, with
+        a ragged batch's ``offsets``, each its own length, packed."""
         n = self.n_docs
         run = fused_query_rows if self.kernel_version == "v1" else fused_query_v2_rows
         with span("memo.launch"):
             out = run(self._d, wp.params, wp.prefix, k=k, L=L, C=n, n_docs=n,
-                      membership=membership)
-        count("memo.positions_launched", wp.params.shape[0] * L)
+                      membership=membership, offsets=offsets)
+        count("memo.positions_launched",
+              wp.params.shape[0] * L if offsets is None else offsets.total)
         count("memo.candidate_rows", wp.counts)
         return out
 
@@ -624,16 +663,20 @@ class _Replay(NamedTuple):
         return candidates
 
 
-def _window_steps(placed: PlacedStore, layout: DeviceLayout, r: int, chunks, k: int) -> list:
+def _window_steps(placed: PlacedStore, layout: DeviceLayout, r: int, chunks, k: int,
+                  starts=None) -> list:
     """The window steps of the position chunks [(qs, qe), ...] of record
     ``r``, found on the device: (L, chunk indices, WindowParams), one step
     per chunk length (the full chunks, then a shorter last one); nothing is
-    read back."""
+    read back. ``starts``: the chunks' starts already on the device, where
+    they all have one length (a ragged batch's, :func:`ragged_table`)."""
     with span("memo.window_step"):
         by_len: dict[int, list[int]] = {}
         for i, (c_qs, c_qe) in enumerate(chunks):
             by_len.setdefault(c_qe - c_qs, []).append(i)
-        return [(L, rows, window_params(placed, layout, r, [chunks[i][0] for i in rows], L, k))
+        return [(L, rows, window_params(placed, layout, r,
+                                        [chunks[i][0] for i in rows] if starts is None else starts,
+                                        L, k))
                 for L, rows in by_len.items()]
 
 

@@ -41,7 +41,7 @@ import torch
 from memo_tpu_torch.index.placement import I32, DeviceLayout, PlacedStore
 from memo_tpu_torch.index.store import IntervalStore, QueryLayout
 from memo_tpu_torch.ops._build import launch, load_library
-from memo_tpu_torch.ops.fused_query import launch_error
+from memo_tpu_torch.ops.fused_query import Offsets, launch_error, upload
 
 SCAN_PAIRS = 1 << 24  # (window, row) pairs one step of the scan fallback holds
 
@@ -77,20 +77,28 @@ def window_params(placed: PlacedStore, layout: DeviceLayout, r: int, starts, L: 
                   k: int) -> WindowParams:
     """The parameters of windows [qs, qs + L) of record ``r`` at ``k``, for
     each ``qs`` of ``starts`` (a [Q] integer tensor or sequence on the
-    host), found where the placed store is; nothing is read back.
+    host, or an int64 tensor already on the store's device, as
+    :func:`ragged_table` leaves it), found where the placed store is;
+    nothing is read back.
 
     On CUDA tensors this launches the kernel of ``csrc/window_params.cu``
     (one block a window) on the current stream, with up to
-    :func:`inline_starts` starts by value in its parameters and more copied up first, and counts
-    the launch in ``window_params.launches``; on CPU tensors it runs
+    :func:`inline_starts` starts from the host by value in its parameters
+    and more copied up first, and counts the launch in
+    ``window_params.launches``; on CPU tensors it runs
     :func:`window_params_reference`. Any other device raises."""
     device = placed.start.device
     if device.type == "cpu":
         return window_params_reference(placed, layout, r, starts, L, k)
     if device.type != "cuda":
         raise ValueError(f"window_params needs a CUDA or CPU device, got {device}")
-    starts = np.array(starts, np.int64).reshape(-1)
-    n_win, C = starts.size, layout.n_docs
+    uploaded = isinstance(starts, torch.Tensor) and starts.device == device
+    if uploaded:
+        if starts.dtype != torch.int64 or starts.dim() != 1 or not starts.is_contiguous():
+            raise ValueError("window_params takes starts on the device as a contiguous int64[Q]")
+    else:
+        starts = np.array(starts, np.int64).reshape(-1)
+    n_win, C = starts.numel() if uploaded else starts.size, layout.n_docs
     rec_lo, rec_hi = int(layout.rec_offsets[r]), int(layout.rec_offsets[r + 1])
     rows, keys = placed[:4], (layout.s_keys, layout.e_keys)
     if (any(t.device != device or not t.is_contiguous() for t in rows + keys)
@@ -98,11 +106,12 @@ def window_params(placed: PlacedStore, layout: DeviceLayout, r: int, starts, L: 
             or not 1 <= n_win < 1 << 31 or not 0 <= rec_lo <= rec_hi <= placed.start.numel() < 1 << 31):
         raise ValueError("window_params takes 1 to 2**31 - 1 windows over the placed store's "
                          "contiguous int32 rows (fewer than 2**31) and int64 keys, on one device")
-    if n_win <= inline_starts():
+    if uploaded:
+        on_card, by_value = starts, None
+    elif n_win <= inline_starts():
         on_card, by_value = None, (ctypes.c_int64 * n_win)(*starts.tolist())
     else:
-        on_card = torch.from_numpy(starts).pin_memory().to(device, non_blocking=True)
-        by_value = None
+        on_card, by_value = upload(starts, device), None
     out = torch.empty(n_win * (7 + C), dtype=torch.int32, device=device)
     lib = load_library()
     err = launch(
@@ -120,17 +129,35 @@ def window_params(placed: PlacedStore, layout: DeviceLayout, r: int, starts, L: 
 window_params.launches = 0
 
 
+def ragged_table(starts, lengths, device) -> tuple[torch.Tensor, Offsets]:
+    """A ragged batch's window starts and output offsets on ``device``, in
+    one upload (:func:`~memo_tpu_torch.ops.fused_query.upload`) of one int64
+    host array, the starts then the offsets: the starts for
+    :func:`window_params` (int64[Q]) and the kernels' offsets
+    (int64[Q + 1], from 0), both views of the one device tensor."""
+    n_win = len(starts)
+    host = np.empty(2 * n_win + 1, np.int64)
+    host[:n_win] = starts
+    host[n_win] = 0
+    np.cumsum(lengths, out=host[n_win + 1 :])
+    table = upload(host, torch.device(device))
+    return table[:n_win], Offsets(host[n_win:], table[n_win:])
+
+
 def window_params_reference(placed: PlacedStore, layout: DeviceLayout, r: int, starts, L: int,
                             k: int) -> WindowParams:
     """Plain PyTorch version of :func:`window_params`, on the placed store's
-    device: one copy of the starts up, then the four range searches and the
-    prefix's (or the scan) as torch operations, written into one int32
-    tensor laid out as the kernel's (params, counts, prefix)."""
-    starts = np.asarray(starts, np.int64).reshape(-1)
-    n_win, C = starts.size, layout.n_docs
+    device: one copy of the starts up (none where they are a tensor there
+    already), then the four range searches and the prefix's (or the scan)
+    as torch operations, written into one int32 tensor laid out as the
+    kernel's (params, counts, prefix)."""
     device = placed.start.device
+    if isinstance(starts, torch.Tensor):
+        qs = starts.reshape(-1).to(device, torch.int64)
+    else:
+        qs = torch.from_numpy(np.asarray(starts, np.int64).reshape(-1)).to(device)
+    n_win, C = qs.numel(), layout.n_docs
     rec_lo, rec_hi = int(layout.rec_offsets[r]), int(layout.rec_offsets[r + 1])
-    qs = torch.from_numpy(starts).to(device)
     wp = _views(torch.empty(n_win * (7 + C), dtype=torch.int32, device=device), n_win, C)
 
     probes = torch.stack([qs, qs + (L - 1), qs + (k - 1), qs + (L + k - 2)])

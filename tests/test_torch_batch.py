@@ -2,8 +2,11 @@
 CPU, for both kernel generations: every window equals the port's
 single-window output and memo_tpu's numpy engine, the fused batch is one
 kernel call (also over the candidate cap), and the fallbacks, the stratified engine, the empty batch and
-the errors follow memo_tpu/query/engine.py:268-383. Also the kernel_version
-selection. On the CPU both kernels run their plain version."""
+the errors follow memo_tpu/query/engine.py:268-383. A batch whose lengths
+differ is one ragged launch (each window over its own length, one packed
+output) with memo_tpu's answers and stats, whole and stratified. Also the
+kernel_version selection. On the CPU both kernels run their plain
+version."""
 
 import numpy as np
 import pytest
@@ -99,6 +102,85 @@ def test_stratified_batch_matches_numpy(mixed_store, kernel_version):  # noqa: F
     for k in (2, 31):
         for (qs, qe), got in zip(wins, sm.membership_batch("c0", wins, k)):
             np.testing.assert_array_equal(got, om.membership("c0", qs, qe, k))
+
+
+# Batches of chr0 with lengths that differ (each window launched over its own
+# length into one packed output) or hardly or not at all (the uniform launch,
+# no table: Q x L is within RAGGED_PADDING of the answered positions).
+BATCHES = {
+    "uniform": [(0, 200), (150, 350), (600, 800)],
+    "nearly-uniform": [(0, 200), (150, 350), (600, 790), (10, 180)],
+    "empty-mixed": [(0, 200), (5, 5), (555, 800), (300, 300), (799, 800)],
+    "1-to-50x": [(0, 10), (3, 13), (20, 30), (41, 50), (60, 61), (100, 600)],
+}
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("k", [3, 31])
+@pytest.mark.parametrize("kind", ["conservation", "membership"])
+@pytest.mark.parametrize("kernel_version", ["v1", "v2"])
+def test_ragged_batch_matches_numpy_and_memo_tpu_stats(cons_store, memb_store, kernel_calls,
+                                                       kernel_version, kind, k, batch):
+    """One kernel call; the answers are views of one host array, packed
+    where the batch launches ragged, each equal to memo_tpu's numpy engine;
+    the stats are memo_tpu's."""
+    store = cons_store if kind == "conservation" else memb_store
+    wins = BATCHES[batch]
+    eng = QueryEngine(store, device="cpu", kernel_version=kernel_version)
+    oracle = JaxEngine(store, backend="numpy")
+    outs = getattr(eng, f"{kind}_batch")("chr0", wins, k)
+    assert kernel_calls[kernel_version] == 1
+    assert all(o.base is outs[0].base for o in outs)
+    lengths = [qe - qs for qs, qe in wins]
+    padded = len(wins) * max(lengths)
+    ragged = padded > engine_mod.RAGGED_PADDING * sum(lengths)
+    assert outs[0].base.shape[0] == (sum(lengths) if ragged else padded)
+    for (qs, qe), got in zip(wins, outs):
+        np.testing.assert_array_equal(got, getattr(oracle, kind)("chr0", qs, qe, k))
+    assert eng.last_stats.as_dict() == memo_tpu_stats(store, "chr0", k, windows=wins,
+                                                      membership=kind == "membership")
+
+
+@pytest.mark.parametrize("batch, ragged", [("uniform", False), ("nearly-uniform", False),
+                                           ("empty-mixed", True), ("1-to-50x", True)])
+@pytest.mark.parametrize("kernel_version", ["v1", "v2"])
+def test_ragged_launch_only_past_its_padding(cons_store, monkeypatch, kernel_version, batch,
+                                             ragged):
+    """The kernel gets a ragged table only where Q x L exceeds the batch's
+    answered positions by more than RAGGED_PADDING (the ragged lookup's
+    cost); it then launches the answered positions alone."""
+    name = "fused_query_rows" if kernel_version == "v1" else "fused_query_v2_rows"
+    tables = []
+
+    def kept(*args, _run=getattr(engine_mod, name), **kwargs):
+        tables.append(kwargs["offsets"])
+        return _run(*args, **kwargs)
+
+    monkeypatch.setattr(engine_mod, name, kept)
+    wins = BATCHES[batch]
+    eng = QueryEngine(cons_store, device="cpu", kernel_version=kernel_version)
+    eng.conservation_batch("chr0", wins, 31)
+    assert len(tables) == 1 and (tables[0] is not None) == ragged
+    if ragged:
+        assert tables[0].total == sum(qe - qs for qs, qe in wins)
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("kernel_version", ["v1", "v2"])
+def test_stratified_ragged_batch_matches_numpy(mixed_store, kernel_version, batch):  # noqa: F811
+    """The live buckets' packed outputs min-combined, as the whole engine's;
+    k so small that no bucket runs gives the unmarked value; the stats are
+    memo_tpu's."""
+    store = store_from_ms(mixed_store, ["c0"], [900], 9, "conservation")
+    strat = QueryEngine(store, device="cpu", stratify=True, kernel_version=kernel_version)
+    oracle = JaxEngine(store, backend="numpy")
+    wins = BATCHES[batch]
+    for k in (1, 2, 31, 130):
+        for (qs, qe), got in zip(wins, strat.conservation_batch("c0", wins, k)):
+            np.testing.assert_array_equal(got, oracle.conservation("c0", qs, qe, k),
+                                          err_msg=f"{qs}-{qe} k={k}")
+        assert strat.last_stats.as_dict() == memo_tpu_stats(store, "c0", k, windows=wins,
+                                                            stratify=True)
 
 
 @pytest.mark.parametrize(

@@ -7,8 +7,11 @@ interpret-mode programs one process may compile). The cases: one window and
 a 3-window batch, k in {1, 2, 31}, an empty candidate range, windows at a
 record's start and end and running past its end, rows with order < 0 and
 order >= C, L not a multiple of the tile, C in {1, 16, 33, 160}, membership
-and conservation. The ``cuda`` twins run the kernel against the plain
-version on the card and skip here. Tolerance: exact (integer outputs)."""
+and conservation. A ragged batch (each window over its own length, one
+packed output) equals, for v1 and v2, the batch at its longest length cut to
+each window's length, and memo_tpu's numpy engine. The ``cuda`` twins run
+the kernel against the plain version on the card and skip here. Tolerance:
+exact (integer outputs)."""
 
 import numpy as np
 import pytest
@@ -17,7 +20,9 @@ from test_pallas import _store
 
 from memo_tpu.query.engine import QueryEngine as JaxEngine
 from memo_tpu_torch import IntervalStore
+from memo_tpu_torch.ops import fused_query, fused_query_v2
 from memo_tpu_torch.ops.fused_query import (
+    Offsets,
     fused_query_reference,
     fused_query_rows,
     fused_query_rows_reference,
@@ -25,7 +30,9 @@ from memo_tpu_torch.ops.fused_query import (
     prepare_streams,
     rows_tile,
 )
+from memo_tpu_torch.ops.fused_query_v2 import fused_query_v2_rows
 from memo_tpu_torch.query.engine import QueryEngine
+from memo_tpu_torch.query.window import ragged_table
 
 REC_LEN = 1500
 WIDTHS = (1, 16, 33, 160)
@@ -191,6 +198,80 @@ def test_reference_is_prepare_streams_then_the_diff_array(stores):
     streams = prepare_streams(*eng._d, mlo, mhi, plo, phi, qs, 31, M=4096, L=L, C=33,
                               tile=kernel_constants(33))
     assert torch.equal(got, fused_query_reference(streams, prefix, n_docs=33, membership=False))
+
+
+# Ragged batches of chr0: (windows, MAX_WINDOWS, MAX_COLUMNS), each limit
+# lowered where the case wants more launch groups (C = 16: groups of 5 columns).
+RAGGED = {
+    "empty-mixed": ([(0, 300), (5, 5), (1450, 1500), (700, 700), (700, 701)], None, None),
+    "1-to-50x": ([(40 * i, 40 * i + n) for i, n in enumerate((1, 6, 8, 10, 10, 12, 30, 500))],
+                 None, None),
+    "window-groups": ([(0, 7), (7, 7), (30, 330), (900, 901), (1200, 1260), (1490, 1500),
+                       (64, 128)], 2, None),
+    "column-groups": ([(0, 300), (299, 300), (1000, 1257), (20, 20), (555, 600)], None, 5),
+}
+
+
+@pytest.mark.parametrize("case", RAGGED)
+@pytest.mark.parametrize("kind", ["conservation", "membership"])
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_ragged_rows_equal_padded_rows_cut(stores, monkeypatch, version, kind, case):
+    """The wrapper with a ragged batch's offsets: one packed output, each
+    window's run of it equal to the uniform call at the longest length cut
+    to the window's length, and to memo_tpu's numpy engine, through window
+    and column groups too."""
+    wins, max_windows, max_columns = RAGGED[case]
+    if max_windows:
+        monkeypatch.setattr(fused_query, "MAX_WINDOWS", max_windows)
+    if max_columns:
+        monkeypatch.setattr(fused_query, "MAX_COLUMNS", max_columns)
+        monkeypatch.setattr(fused_query_v2, "MAX_COLUMNS", max_columns)
+    C, membership = 16, kind == "membership"
+    store = stores[(C, kind)]
+    eng = QueryEngine(store, device="cpu", stratify=False)
+    oracle = JaxEngine(store, backend="numpy")
+    run = fused_query_rows if version == "v1" else fused_query_v2_rows
+    lengths = [qe - qs for qs, qe in wins]
+    L = max(lengths)
+    starts = [qs for qs, _ in wins]
+    wp = eng._window_params("chr0", starts, L, 31)
+    kw = dict(k=31, L=L, C=C, n_docs=C, membership=membership)
+    padded = run(eng._d, wp.params, wp.prefix, **kw)
+    _, offsets = ragged_table(starts, lengths, "cpu")
+    packed = run(eng._d, wp.params, wp.prefix, offsets=offsets, **kw)
+    assert packed.shape == ((sum(lengths), C) if membership else (sum(lengths),))
+    assert packed.dtype == padded.dtype
+    at = np.concatenate([[0], np.cumsum(lengths)])
+    for i, (qs, qe) in enumerate(wins):
+        got = packed[at[i] : at[i + 1]]
+        assert torch.equal(got, padded[i, : qe - qs]), (case, qs, qe)
+        np.testing.assert_array_equal(got.numpy(), getattr(oracle, kind)("chr0", qs, qe, 31))
+
+
+def test_ragged_offsets_are_checked(stores):
+    """Offsets the kernels cannot take raise before any launch: a window
+    longer than L, lengths that go back, the wrong count."""
+    eng = QueryEngine(stores[(16, "conservation")], device="cpu", stratify=False)
+    wp = eng._window_params("chr0", [0, 100], 50, 31)
+    kw = dict(k=31, L=50, C=16, n_docs=16, membership=False)
+    for lengths in ([50, 51], [10], [10, 10, 10]):
+        offsets = ragged_table([0] * len(lengths), lengths, "cpu")[1]
+        with pytest.raises(ValueError, match="offsets"):
+            fused_query_rows(eng._d, wp.params, wp.prefix, offsets=offsets, **kw)
+    bad = Offsets(np.array([0, 30, 20], np.int64), torch.tensor([0, 30, 20]))
+    with pytest.raises(ValueError, match="offsets"):
+        fused_query_v2_rows(eng._d, wp.params, wp.prefix, offsets=bad, **kw)
+
+
+def test_ragged_table_is_one_upload():
+    """A ragged batch's starts and offsets are views of one int64 tensor,
+    filled from one host array: the window step's starts, then the
+    kernels' offsets from 0."""
+    starts, offsets = ragged_table([5, 900, 40], [10, 0, 7], "cpu")
+    assert starts.tolist() == [5, 900, 40] and offsets.host.tolist() == [0, 10, 10, 17]
+    assert torch.equal(offsets.device, torch.from_numpy(offsets.host))
+    assert starts.untyped_storage().data_ptr() == offsets.device.untyped_storage().data_ptr()
+    assert starts.dtype == offsets.device.dtype == torch.int64 and offsets.total == 17
 
 
 @pytest.mark.parametrize("C,tile", [(1, 256), (16, 256), (90, 256), (160, 256), (220, 256),

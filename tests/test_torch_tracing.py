@@ -147,9 +147,10 @@ def test_counters_equal_their_arithmetic(mixed, monkeypatch, max_windows, strati
     steps.clear()
     eng = QueryEngine(mixed, device="cpu", stratify=stratify)  # the batch in one launch a bucket
     outs, _, counts = traced(lambda: eng.conservation_batch("chrA", WINDOWS, K))
-    L = max(qe - qs for qs, qe in WINDOWS)
-    assert counts["memo.positions_launched"] == buckets * len(WINDOWS) * L
-    assert counts["memo.copy_back_bytes"] == outs[0].base.nbytes == len(WINDOWS) * L * 4
+    # Each window launched over its own length; the answers one packed array.
+    positions = sum(qe - qs for qs, qe in WINDOWS)
+    assert counts["memo.positions_launched"] == buckets * positions
+    assert counts["memo.copy_back_bytes"] == outs[0].base.nbytes == positions * 4
     assert counts["memo.candidate_rows"] == sum(int(wp.counts.sum()) for wp in steps)
 
 
