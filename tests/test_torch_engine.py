@@ -109,7 +109,7 @@ def test_over_cap_halves_then_splits_interval_pieces(monkeypatch, stores, backen
     backend launches each window whole (its kernels read only the candidate
     ranges), once a query, and its ``last_stats`` replays memo_tpu's
     halving: equal to memo_tpu's fused engine's at the same cap."""
-    calls = {"_query_chunk_fused": 0, "_query_interval_pieces": 0}
+    calls = {"_launch_chunks": 0, "_query_interval_pieces": 0}
     for name in calls:
         orig = getattr(engine_mod.QueryEngine, name)
 
@@ -134,7 +134,7 @@ def test_over_cap_halves_then_splits_interval_pieces(monkeypatch, stores, backen
         assert calls["_query_interval_pieces"] > 0
         assert eng.last_stats.chunks > 1  # each piece is a dispatch
     else:
-        assert calls == {"_query_chunk_fused": 2, "_query_interval_pieces": 0}
+        assert calls == {"_launch_chunks": 2, "_query_interval_pieces": 0}
 
 
 @pytest.mark.parametrize("backend", ["fused", "torch"])
@@ -167,17 +167,29 @@ def test_auto_stratify_gate_matches_jax_engine(stores):
     assert JaxEngine(stores, backend="jax")._children is None
 
 
-@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("backend", [*BACKENDS, "fused-stratified", "torch-stratified"])
 @pytest.mark.parametrize("device_output", [False, True])
 def test_empty_window_shapes(stores, backend, device_output):
-    eng = QueryEngine(stores, backend=backend, device="cpu", device_output=device_output)
+    """An empty window's shapes, and its dtypes as memo_tpu's engine of the
+    same backend kind and stratification gives them: on the host a plain
+    engine's conservation is int64[0] (numpy's join of no chunks) and a
+    stratified one's int32[0]."""
+    backend, _, stratify = backend.partition("-")
+    eng = QueryEngine(stores, backend=backend, device="cpu", device_output=device_output,
+                      stratify=bool(stratify))
+    assert (eng._children is not None) == bool(stratify)
     oracle = JaxEngine(stores, backend="numpy")
+    memo = JaxEngine(stores, backend="numpy" if backend == "numpy" else "jax",
+                     device_output=device_output, stratify=bool(stratify))
     cons = eng.conservation("chr0", 5, 5, 31)
     memb = eng.membership("chr0", 5, 5, 31)
     want_c, want_m = oracle.conservation("chr0", 5, 5, 31), oracle.membership("chr0", 5, 5, 31)
     assert tuple(cons.shape) == want_c.shape == (0,)
     assert tuple(memb.shape) == want_m.shape == (0, stores.n_docs)
     assert memb.dtype in (np.int8, torch.int8)
+    for got, want in ((cons, memo.conservation("chr0", 5, 5, 31)),
+                      (memb, memo.membership("chr0", 5, 5, 31))):
+        assert str(got.dtype).removeprefix("torch.") == str(want.dtype), (got.dtype, want.dtype)
 
 
 @pytest.mark.parametrize("backend", BACKENDS)

@@ -103,7 +103,7 @@ def logged(monkeypatch):
 def _engines(holder) -> list:
     """The engines that hold rows: the engine, or its buckets."""
     eng = holder.engine if isinstance(holder, ResidentShardedQuery) else holder
-    return [child for _, child in eng._children] if eng._children else [eng]
+    return eng._engines()
 
 
 def _rows(engine, record: str = "chrA") -> int:

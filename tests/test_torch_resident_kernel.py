@@ -264,7 +264,7 @@ def test_slab_is_the_batch_output(stores, monkeypatch, kind):
     monkeypatch.setattr(QueryEngine, "_batch_tensor", kept)
     rq = ResidentShardedQuery(stores[kind], "cpu", k_max=K_MAX, device_output=True)
     full = getattr(rq, f"{kind}_full")(31)
-    assert len(batches) == 1 and full.data_ptr() == batches[0].data_ptr()
+    assert len(batches) == 1 and full.data_ptr() == batches[0].out.data_ptr()
 
 
 def test_rows_per_shard_is_computed_on_first_use(stores):

@@ -5,8 +5,7 @@ stage spans are CPU operations only (no device event bears their names, so
 the benchmark's device metrics read the kernels and copies alone), tracing
 makes the query wait on nothing (``set_sync_debug_mode("error")`` with the
 output left on the card), the counters equal the CPU engine's over the same
-store but for ``memo.copy_back_pinned_bytes`` (every answer's bytes on the
-card, none on the CPU), and the outputs equal the untraced ones. Imports no JAX, so it runs
+store, and the outputs equal the untraced ones. Imports no JAX, so it runs
 where the card is: ``MEMO_TPU_TEST_REAL_DEVICE=1 python -m pytest -m cuda
 tests/test_torch_tracing_card.py``. Skips without a CUDA device. Tolerance:
 exact (integers)."""
@@ -70,9 +69,6 @@ def test_spans_have_no_device_events_and_counts_equal_the_cpus(cuda_device, stor
     assert any("window_params" in n for n in device)
     assert not device & ours and not any(n.startswith("memo.") for n in device)
     assert not any(e.is_user_annotation for e in events if e.name in ours)
-    # The card's answers land in pinned memory, the CPU's are its own tensors.
-    assert counts.pop("memo.copy_back_pinned_bytes") == counts["memo.copy_back_bytes"]
-    assert cpu_counts.pop("memo.copy_back_pinned_bytes") == 0
     assert counts == cpu_counts and counts["memo.candidate_rows"] > 0
     for got, want, cpu in zip([out[0], *out[1]], [untraced[0], *untraced[1]],
                               [cpu_out[0], *cpu_out[1]]):
