@@ -126,15 +126,16 @@ EDGE_REC_LEN = 200_000  # records of the random stores that phase 2 checks v1 on
 # window-parameter step (query/window.py): csrc/window_params.cu's kernel,
 # after one copy of the window starts up where there are more than its
 # parameters take by value (window_graph); then the kernel function: v1's
-# three kernels (csrc/fused_query.cu) or v2's one. A query copies nothing
-# down, at any cap (the profiler lists every operation).
+# three kernels (csrc/fused_query.cu), or four where a conservation launch
+# splits its apply (kernels_of), or v2's one. A query copies nothing down,
+# at any cap (the profiler lists every operation).
 V1_KERNELS = ("rows_net_kernel", "tile_scan_kernel", "rows_apply_kernel")
 V2_KERNELS = ("fused_query_v2_kernel",)
 # A ragged batch (windows of their own lengths, one packed output): v1's own
 # four kernels, v2's one kernel built for it.
 V1_RAGGED = ("ragged_place_kernel", "ragged_net_kernel", "ragged_scan_kernel",
              "ragged_apply_kernel")
-V1_GRAPH, V2_GRAPH = {"kernel": 3}, {"kernel": 1}  # the kernel functions
+V1_SPLIT = ("event_apply_kernel", "dense_apply_kernel")  # the apply of a launch that splits
 STEP_OPS = ("Memcpy HtoD", "window_params_kernel", "Memcpy DtoH")  # profiler names
 CAPPED_WINDOW = 1 << 19  # a window under OVER_CAP's candidates, whose record's rows pass it
 K_SWEEP = (31, 51, 101, 201)  # n90's stratified engine: 1, 2, 2 and 3 live buckets
@@ -860,7 +861,7 @@ def time_function(engine, record: str, windows, k: int, version: str = "v1") -> 
     n_bytes = rows * 12 + n_win * L * 4 + wp.params.numel() * 4 + wp.prefix.numel() * 4
     n_ops = n_win * L * C + rows  # one scan add per (position, column), one atomic per row
     bound, bound_by = bound_ms(n_bytes, n_ops)
-    ops = device_ops(run, V1_KERNELS if version == "v1" else V2_KERNELS)  # the kernels alone
+    ops = device_ops(run, kernels_of(version, C, n_win, L))  # the kernels alone
     return {"version": version, "C": C, "L": L, "windows": n_win, "candidate_rows": rows,
             "tile": rows_tile(C) if version == "v1" else v2_constants(C)[0],
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "window_params_ms": step,
@@ -934,6 +935,23 @@ def host_search_upload(engine, record: str, starts, L: int, k: int) -> torch.Ten
     view[: params.size] = params.ravel()
     view[params.size :] = prefix.ravel()
     return host.to(engine.device, non_blocking=True)
+
+
+def kernels_of(version: str, C: int, n_win: int, L: int, total: int | None = None) -> tuple:
+    """The kernels of one conservation launch of ``version``'s function over
+    ``n_win`` windows of ``L`` positions, or of a ragged batch of ``total``
+    positions: v2's one; v1's three (four ragged), the last of them the
+    event and the dense apply where the launch splits its tiles on this card
+    (``fused_query.event_rows``)."""
+    if version != "v1":
+        return V2_KERNELS
+    from memo_tpu_torch.ops.fused_query import MAX_COLUMNS, event_rows, ragged_units, rows_tile
+
+    G = -(-C // -(-C // MAX_COLUMNS))
+    T = rows_tile(G)
+    kernels, tiles = ((V1_KERNELS, n_win * -(-L // T)) if total is None
+                      else (V1_RAGGED, ragged_units(total, n_win, T)))
+    return kernels[:-1] + V1_SPLIT if event_rows(G, tiles, total is not None) else kernels
 
 
 def device_ops(fn, expect: tuple[str, ...], count: int | None = None) -> list[tuple[str, float]]:
@@ -1024,9 +1042,9 @@ def query_graphs(engine, record: str, windows, k: int) -> dict:
     graph and counted by node type (exactly), and the whole query listed by
     torch.profiler: the step, the function and nothing else, no copy
     down."""
-    kernels = V1_KERNELS if engine.kernel_version == "v1" else V2_KERNELS
-    want_fn = V1_GRAPH if engine.kernel_version == "v1" else V2_GRAPH
     L = max(qe - qs for qs, qe in windows)
+    kernels = kernels_of(engine.kernel_version, engine.n_docs, len(windows), L)
+    want_fn = {"kernel": len(kernels)}
     starts = [qs for qs, _ in windows]
     step = graph_ops(lambda: engine._window_params(record, starts, L, k))
     want_step = window_graph(len(windows))
@@ -1054,7 +1072,7 @@ def capped_query_ops(capped, record: str, window: tuple[int, int], k: int) -> di
     record's rows pass (and, at the headline, the window's candidates): the
     profiler's device operations are the step and the kernel function,
     exactly, with no copy down: nothing is read whatever the cap."""
-    kernels = V1_KERNELS if capped.kernel_version == "v1" else V2_KERNELS
+    kernels = kernels_of(capped.kernel_version, capped.n_docs, 1, window[1] - window[0])
     rows = int(np.diff(capped._layout.rec_offsets)[capped.store.record_index(record)])
     check(rows > capped.max_intervals, f"{record}'s rows pass the capped engine's cap")
     wp = capped._window_params(record, [window[0]], window[1] - window[0], k)
@@ -1120,7 +1138,7 @@ def no_wait_query(engine, record: str, qs: int, qe: int, k: int, plain: bool = F
     check(torch.equal(got, want), "the no-wait query's output == the query's")
     live = ([(lb, c) for lb, c in engine._children if lb < k - 1] if engine._children is not None
             else [(0, engine)])
-    kernels = V1_KERNELS if engine.kernel_version == "v1" else V2_KERNELS
+    kernels = kernels_of(engine.kernel_version, engine.n_docs, 1, qe - qs)
     # Each live bucket's step and kernels, and the buckets' minimum.
     ops = device_ops(lambda: engine.conservation(record, qs, qe, k),
                      STEP_OPS + kernels + ("elementwise_kernel",),
@@ -1896,7 +1914,8 @@ def wide_function(engine, version: str, membership: bool, wp, L: int) -> dict:
     check(err == 0, f"{where}: the grouped kernel function != the plain version")
     check(groups == C1000_GROUPS, f"{where}: {groups} launches, want {C1000_GROUPS}")
     del got, want
-    per_group = len(V1_KERNELS) if version == "v1" else len(V2_KERNELS)
+    per_group = len(V1_KERNELS if membership and version == "v1"
+                    else kernels_of(version, C, wp.params.shape[0], L))
     graph = graph_ops(run)
     want_graph = {"kernel": groups * per_group}
     check(graph == want_graph, f"{where}: device operations {graph}, want {want_graph}")
@@ -2166,7 +2185,7 @@ def ragged_function(engine, record: str, windows, k: int, version: str, rows: in
     n_bytes = rows * 12 + total * 4
     n_ops = total * C + rows  # one scan add per (position, column), one atomic per row
     bound, bound_by = bound_ms(n_bytes, n_ops)
-    ops = device_ops(run, V1_RAGGED if version == "v1" else V2_KERNELS)
+    ops = device_ops(run, kernels_of(version, C, len(windows), L, total))
     return {"version": version, "C": C, "L": L, "windows": len(windows), "positions": total,
             "candidate_rows": int(wp.counts.sum()), "marking_rows": rows,
             "tile": rows_tile(C) if version == "v1" else v2_constants(C)[0],
@@ -2825,7 +2844,7 @@ def dense_function_main() -> int:
 
             out[version]["ms"].append(kernel_ms(run))
             out[version]["kernels_us"].append(
-                device_ops(run, V1_KERNELS if version == "v1" else V2_KERNELS))
+                device_ops(run, kernels_of(version, C, 1, L)))
     emit("dense_function", tree=os.path.dirname(os.path.abspath(__file__)),
          card=gpu_name_and_power(), L=L, C=C, candidate_rows=int(wp.counts.sum()),
          max_abs_err=exact, rounds=DENSE_ROUNDS, reps=KERNEL_REPS, **out)

@@ -90,10 +90,13 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # v1: 6 store row pointers, params, prefix, scratch, out, the ragged
-    # offsets (or null); their total; n_rows, Q, L, C, c0, G, k, tile,
-    # n_docs, membership; the stream.
-    lib.memo_fused_query_rows.argtypes = [ptr] * 11 + [i64] + [i32] * 10 + [ptr]
+    # offsets (or null), the event-path tile count (or null); the offsets' total;
+    # n_rows, Q, L, C, c0, G, k, tile, n_docs, membership; the stream.
+    lib.memo_fused_query_rows.argtypes = [ptr] * 12 + [i64] + [i32] * 10 + [ptr]
     lib.memo_fused_query_rows.restype = i32
+    # v1's split of a conservation launch's tiles: G, tile, tiles, ragged.
+    lib.memo_fused_query_event_rows.argtypes = [i32, i32, i64, i32]
+    lib.memo_fused_query_event_rows.restype = i32
     # v2: 6 store row pointers, params, prefix, state, sums, out, the ragged
     # offsets (or null); their total and tiles; n_rows, Q, L, C, c0, G, k,
     # tile, stages, n_docs, membership; the stream.

@@ -49,6 +49,7 @@ import torch
 
 from memo_tpu_torch.ops import query_ops as Q
 from memo_tpu_torch.ops._build import launch, load_library
+from memo_tpu_torch.utils.profiling import count, tracing
 
 SEG = 16  # segment sums in kernel_constants' tile budget, which sets v1's widest C
 TILES = (256, 128, 64)  # position tiles the kernels are built for, widest first
@@ -367,7 +368,11 @@ def _launch_group(placed, params, prefix, out, n_rows, *, k: int, L: int, C: int
     per tile the row bounds, the net events and the carry of each column,
     and in a ragged launch each tile's place (its window, its tile of the
     window, its positions and the window's start) and each window's run of
-    tiles (``csrc/fused_query.cu``)."""
+    tiles, and the list of each tile's path in the conservation apply with
+    their two counts (``csrc/fused_query.cu``). While tracing, a
+    conservation launch counts its tiles in ``memo.apply_tiles`` and those
+    that took the event path in ``memo.event_tiles``: an int32 the kernels
+    set, kept on the device and read with the counters."""
     if n_rows is None:
         return plain_group(placed, params, prefix, out, k=k, L=L, C=C, c0=c0, G=G,
                            n_docs=n_docs, membership=membership, offsets=offsets)
@@ -376,19 +381,40 @@ def _launch_group(placed, params, prefix, out, n_rows, *, k: int, L: int, C: int
     lib = load_library()
     device = params.device
     if offsets is None:
-        words, table, total = n_win * -(-L // tile) * (4 + 2 * G), None, 0
+        tiles = n_win * -(-L // tile)
+        words, table, total = tiles * (5 + 2 * G) + 2, None, 0
     else:
         total = offsets.total
-        units = ragged_units(total, n_win, tile)
-        words, table = units * (8 + 2 * G) + 2 * n_win, offsets.device.data_ptr()
+        tiles = ragged_units(total, n_win, tile)
+        words, table = tiles * (9 + 2 * G) + 2 * n_win + 2, offsets.device.data_ptr()
     scratch = torch.empty(words, dtype=torch.int32, device=device)
+    events = None
+    if tracing() and not membership:
+        events = torch.empty(1, dtype=torch.int32, device=device)
     err = launch(lib.memo_fused_query_rows, device,
                  *(t.data_ptr() for t in (*placed, params, prefix)), scratch.data_ptr(),
-                 out.data_ptr(), table, total, n_rows, n_win, L, C, c0, G, k, tile, n_docs,
-                 int(membership))
+                 out.data_ptr(), table, None if events is None else events.data_ptr(), total,
+                 n_rows, n_win, L, C, c0, G, k, tile, n_docs, int(membership))
     if err != 0:
         raise launch_error("fused_query_rows", lib, err)
     fused_query_rows.launches += 1
+    if events is not None:
+        count("memo.event_tiles", events)
+        count("memo.apply_tiles", tiles if offsets is None
+              else int((-(-np.diff(offsets.host) // tile)).sum()))
+
+
+def event_rows(G: int, tiles: int, ragged: bool = False) -> int:
+    """Candidate rows up to which a tile of a v1 conservation launch of
+    ``tiles`` tiles (a ragged launch's units) over ``G`` columns takes the
+    event path on the current card; 0 where such a launch does not split
+    its tiles and runs ``rows_apply_kernel`` (``ragged_apply_kernel``) alone
+    (``csrc/fused_query.cu``, ``split_of``). Needs the card."""
+    lib = load_library()
+    rows = lib.memo_fused_query_event_rows(G, rows_tile(G), tiles, int(ragged))
+    if rows < 0:
+        raise launch_error("fused_query_rows", lib, -rows)
+    return rows
 
 
 def ragged_units(total: int, n_win: int, span: int) -> int:

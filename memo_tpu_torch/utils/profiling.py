@@ -44,6 +44,11 @@ def span(name: str):
     return _RecordFunctionFast(name) if _profiler._is_profiler_enabled else _OFF
 
 
+def tracing() -> bool:
+    """Whether tracing is on: a torch profiler records in this process."""
+    return _profiler._is_profiler_enabled
+
+
 def count(name: str, n) -> None:
     """Adds ``n`` to the counter ``name`` while tracing is on. ``n`` is an
     int, or an integer tensor whose sum counts: it is kept, unread, and

@@ -5,7 +5,9 @@ stage spans are CPU operations only (no device event bears their names, so
 the benchmark's device metrics read the kernels and copies alone), tracing
 makes the query wait on nothing (``set_sync_debug_mode("error")`` with the
 output left on the card), the counters equal the CPU engine's over the same
-store, and the outputs equal the untraced ones. Imports no JAX, so it runs
+store (besides the v1 conservation launches' tile counters, which only the
+kernels count: ``memo.apply_tiles`` and ``memo.event_tiles``, at most as
+many), and the outputs equal the untraced ones. Imports no JAX, so it runs
 where the card is: ``MEMO_TPU_TEST_REAL_DEVICE=1 python -m pytest -m cuda
 tests/test_torch_tracing_card.py``. Skips without a CUDA device. Tolerance:
 exact (integers)."""
@@ -69,7 +71,10 @@ def test_spans_have_no_device_events_and_counts_equal_the_cpus(cuda_device, stor
     assert any("window_params" in n for n in device)
     assert not device & ours and not any(n.startswith("memo.") for n in device)
     assert not any(e.is_user_annotation for e in events if e.name in ours)
-    assert counts == cpu_counts and counts["memo.candidate_rows"] > 0
+    tiles = {"memo.apply_tiles", "memo.event_tiles"}
+    assert {n: c for n, c in counts.items() if n not in tiles} == cpu_counts
+    assert counts["memo.candidate_rows"] > 0 and tiles.isdisjoint(cpu_counts)
+    assert 0 <= counts["memo.event_tiles"] <= counts["memo.apply_tiles"]
     for got, want, cpu in zip([out[0], *out[1]], [untraced[0], *untraced[1]],
                               [cpu_out[0], *cpu_out[1]]):
         assert got.tobytes() == want.tobytes() == cpu.tobytes()
